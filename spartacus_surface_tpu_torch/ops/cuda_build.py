@@ -1,0 +1,99 @@
+"""Build the CUDA sources in csrc/ with nvcc at first use; load with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
+``build/kernels/<name>-<hash>.so`` at the repo root (the hash covers the
+source and the shared headers, so an edited source is rebuilt).  Nothing here
+runs at import time: a machine without nvcc imports every module, and only a
+launch on a CUDA tensor builds.  Also the operand checks and ctypes helpers
+that the kernel wrappers share.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_libs: dict = {}
+build_seconds: dict = {}  # name -> nvcc wall seconds (absent: cached build)
+build_log: dict = {}  # name -> nvcc's stderr (ptxas register/spill report)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built from csrc/ at first"
+            " use on a machine with the CUDA toolkit")
+    return path
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; cached per process."""
+    if name in _libs:
+        return _libs[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1()
+    for path in [src, *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    lib_path = BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{res.stderr}")
+        os.replace(tmp, lib_path)
+        build_seconds[name] = time.perf_counter() - t0
+        build_log[name] = res.stderr
+    _libs[name] = ctypes.CDLL(str(lib_path))
+    return _libs[name]
+
+
+def validate(kernel: str, operands: dict) -> torch.device:
+    """Check {name: (tensor, expected shape)}: one device (CPU or CUDA), one
+    float32/float64 dtype, exact shapes, contiguous.  Returns the device."""
+    first = next(iter(operands.values()))[0]
+    dev, dtype = first.device, first.dtype
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kernel}: dtype {dtype} is not float32/float64")
+    for name, (t, shape) in operands.items():
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} is {t.dtype} on {t.device},"
+                             f" expected {dtype} on {dev}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)},"
+                             f" expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+    return dev
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a nonzero cudaGetLastError() returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")

@@ -1,0 +1,112 @@
+"""Kernel K1: the per-layer operator factory, in the struct-of-arrays layout.
+
+Replaces the TPU kernel ``pallas_layer_thin_double`` (structured branch:
+``_layer_kernel_structured`` + ``_extract_double`` + ``_schur_int_kernel``,
+spartacus_surface_tpu/ops/pallas_layer.py:495, 350, 212).  CUDA source:
+csrc/layer_factory.cu.  Plain version: ``layer_factory_plain``, which runs
+ops/layer_matrices.py on the same operands.
+
+Layout: every operand is [L, rows, B] (B = columns x bands, the batch
+contiguous), so thread b reads row r of layer l at (l*rows + r)*B + b and a
+warp's loads coalesce.  The output is exactly the sweep kernels' input.
+
+On the H100 the factory is bound by its workspace traffic, not by FLOPs: one
+thread per (element, layer) runs a half-size Pade-7 expm, the thin-layer
+extraction, its own K doubling steps and the block-Schur integrals in
+~15 nd^2 rows of per-thread workspace (5,516 rows at nd=16), far more than a
+thread's registers.  The design keeps that workspace in a struct-of-arrays
+global buffer allocated here (coalesced, L1/L2-cached) and bounds its size
+by launching in chunks of ``chunk`` elements.  Each thread loops exactly its
+own K doubling steps, which is the TPU kernel's masked commit
+(pallas_layer.py:400) without the masking.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+from .layer_matrices import layer_matrices_chunked, pade7_theta
+
+OUT_NAMES = ("R", "T", "E", "Sup", "Sdn", "int_diff", "int_dir", "int_dir_diff")
+
+
+def out_rows(nd: int, ndir: int) -> dict:
+    n2, nr, d2 = nd * nd, nd * ndir, ndir * ndir
+    return dict(R=n2, T=n2, E=d2, Sup=nr, Sdn=nr, int_diff=n2, int_dir=d2,
+                int_dir_diff=nr)
+
+
+def workspace_rows(nd: int, ndir: int) -> int:
+    """Per-element workspace of the CUDA kernel: AS, DSM, XY, BIG, F, RT,
+    SS, EE slots (csrc/layer_factory.cu)."""
+    n2, nr, d2 = nd * nd, nd * ndir, ndir * ndir
+    return 15 * n2 + 15 * nr + 10 * d2 + (2 * nd + ndir) ** 2
+
+
+def layer_factory_plain(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30,
+                        chunk=65536):
+    """Plain PyTorch version of K1 on the same [L, rows, B] operands."""
+    L, _, B = g1.shape
+    mat = lambda x, n, m: x.permute(0, 2, 1).reshape(L * B, n, m)
+    lay = layer_matrices_chunked(
+        mat(g0, ndir, ndir), mat(g1, nd, nd), mat(g2, nd, nd),
+        mat(g3, nd, ndir), dz.reshape(L * B), n_double=n_double, chunk=chunk)
+    return {k: lay[k].reshape(L, B, -1).permute(0, 2, 1).contiguous()
+            for k in OUT_NAMES}
+
+
+def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536):
+    """K1: per-layer operators R, T, E, Sup, Sdn, int_diff, int_dir,
+    int_dir_diff, each [L, rows, B].
+
+    g0 [L, ndir^2, B], g1/g2 [L, nd^2, B], g3 [L, nd*ndir, B], dz [L, B].
+    CUDA tensors launch csrc/layer_factory.cu (in chunks of `chunk`
+    elements); CPU tensors take layer_factory_plain.
+    """
+    L, _, B = g1.shape
+    dev = cuda_build.validate("layer_factory", {
+        "g0": (g0, (L, ndir * ndir, B)), "g1": (g1, (L, nd * nd, B)),
+        "g2": (g2, (L, nd * nd, B)), "g3": (g3, (L, nd * ndir, B)),
+        "dz": (dz, (L, B))})
+    if dev.type == "cpu":
+        return layer_factory_plain(g0, g1, g2, g3, dz, nd=nd, ndir=ndir,
+                                   n_double=n_double, chunk=chunk)
+    if not (nd >= 2 * ndir and nd >= 2):
+        raise NotImplementedError(
+            f"nd={nd}, ndir={ndir} needs the dense factory (K1d, the TPU"
+            " kernel _layer_kernel), which is not ported yet")
+    with torch.cuda.device(dev):
+        return launch(cuda_build.load("layer_factory"), g0, g1, g2, g3, dz,
+                      nd=nd, ndir=ndir, n_double=n_double, chunk=chunk,
+                      stream=cuda_build.stream(dev))
+
+
+def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream):
+    """Allocate outputs and workspace and launch lib's layer_factory_f32/f64
+    over the elements in chunks; counts each launch."""
+    L, _, B = g1.shape
+    fn = lib.layer_factory_f32 if g1.dtype == torch.float32 else lib.layer_factory_f64
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                   + [ctypes.c_double] + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p])
+    rows = out_rows(nd, ndir)
+    outs = {k: g1.new_empty((L, rows[k], B)) for k in OUT_NAMES}
+    total = L * B
+    step = max(1, min(chunk or total, total))
+    ws = g1.new_empty((workspace_rows(nd, ndir) * step,))
+    for j0 in range(0, total, step):
+        n = min(step, total - j0)
+        err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz)),
+                 *(cuda_build.ptr(outs[k]) for k in OUT_NAMES),
+                 cuda_build.ptr(ws), nd, ndir, n_double,
+                 pade7_theta(g1.dtype), B, j0, n, stream)
+        cuda_build.check(err, "layer_factory")
+        layer_factory.launches += 1
+    return outs
+
+
+layer_factory.launches = 0

@@ -1,0 +1,93 @@
+"""Seeded example inputs, the same arrays as __graft_entry__'s builders.
+
+``example_inputs`` follows ``__graft_entry__._example_inputs`` and
+``example_arrays`` follows ``__graft_entry__._example_arrays`` draw for draw
+(numpy default_rng, same seeds and order), so the tests and chip_smoke.py
+give both packages identical arrays.  Both return host numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .constants import StefanBoltzmann as SB
+
+
+def example_inputs(C=8, L=4, S=2, dtype=np.float32, seed=0) -> dict:
+    """Shortwave CanopyInputs fields ({name: numpy array}) of one column
+    group (vegetated urban canopy)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.uniform(0.1, 0.4, s).astype(dtype)
+    bf = np.sort(rng.uniform(0.05, 0.3, (C, L)).astype(dtype), axis=1)[:, ::-1]
+    kw = dict(
+        dz=rng.uniform(3.0, 8.0, (C, L)).astype(dtype),
+        cos_sza=rng.uniform(0.2, 0.9, C).astype(dtype),
+        veg_fraction=f(C, L),
+        veg_scale=np.full((C, L), 120.0, dtype),
+        veg_ext=f(C, L),
+        veg_fsd=np.full((C, L), 0.7, dtype),
+        veg_contact_fraction=f(C, L),
+        building_fraction=np.ascontiguousarray(bf),
+        building_scale=np.full((C, L), 40.0, dtype),
+        air_ext=np.full((C, L, S), 1e-5, dtype),
+        air_ssa=np.full((C, L, S), 0.999, dtype),
+        veg_ssa=f(C, L, S),
+    )
+    kw.update(
+        ground_albedo=f(C, S),
+        ground_albedo_dir=f(C, S),
+        roof_albedo=f(C, L, S),
+        roof_albedo_dir=f(C, L, S),
+        wall_albedo=f(C, L, S),
+        wall_specular_frac=f(C, L, S),
+    )
+    return kw
+
+
+def example_arrays(C=12, L=3, S=1, dtype=np.float32, seed=1,
+                   i_representation=None) -> dict:
+    """Dense input-arrays dict (the JAX package's read_input format).  The
+    default tile mix cycles Flat, Forest, Urban, VegetatedUrban,
+    SimpleUrban, InfiniteStreet; `i_representation` [C] replaces it (the
+    random draws are the same either way).  Single-layer tile types get
+    nlay = 1."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.uniform(0.1, 0.4, s).astype(dtype)
+    rep = (np.resize(np.array([0, 1, 2, 3, 4, 5], np.int64), C)
+           if i_representation is None
+           else np.asarray(i_representation, np.int64))
+    nlay = np.where(rep >= 4, 1, L).astype(np.int64)
+    return dict(
+        i_representation=rep,
+        nlay=nlay,
+        dz=rng.uniform(3.0, 8.0, (C, L)).astype(dtype),
+        cos_sza=rng.uniform(0.2, 0.9, C).astype(dtype),
+        veg_fraction=f(C, L),
+        veg_scale=np.full((C, L), 120.0, dtype),
+        veg_ext=f(C, L),
+        veg_fsd=np.full((C, L), 0.7, dtype),
+        veg_contact_fraction=f(C, L),
+        building_fraction=f(C, L) * 0.5,
+        building_scale=np.full((C, L), 40.0, dtype),
+        sw_air_ext=np.full((C, L, S), 1e-5, dtype),
+        sw_air_ssa=np.full((C, L, S), 0.999, dtype),
+        sw_veg_ssa=f(C, L, S),
+        ground_albedo=f(C, S),
+        ground_albedo_dir=f(C, S),
+        roof_albedo=f(C, L, S),
+        roof_albedo_dir=f(C, L, S),
+        wall_albedo=f(C, L, S),
+        wall_specular_frac=f(C, L, S),
+        lw_air_ext=np.full((C, L, S), 1e-5, dtype),
+        lw_air_ssa=np.zeros((C, L, S), dtype),
+        lw_veg_ssa=f(C, L, S),
+        ground_emissivity=np.full((C, S), 0.95, dtype),
+        ground_emission=np.full((C, S), SB * 0.95 * 290.0**4, dtype),
+        roof_emissivity=np.full((C, L, S), 0.9, dtype),
+        roof_emission=np.full((C, L, S), SB * 0.9 * 285.0**4, dtype),
+        wall_emissivity=np.full((C, L, S), 0.9, dtype),
+        wall_emission=np.full((C, L, S), SB * 0.9 * 288.0**4, dtype),
+        clear_air_planck=np.full((C, L, S), SB * 283.0**4, dtype),
+        veg_planck=np.full((C, L, S), SB * 284.0**4, dtype),
+        veg_air_planck=np.full((C, L, S), SB * 283.0**4, dtype),
+    )

@@ -1,0 +1,217 @@
+"""The three hand-written kernels (K1 layer factory, K2 SW up-sweep, K3 fused
+SW down-sweep) against their plain PyTorch versions on the same operands,
+captured from the solver's kernel route on seeded example inputs.
+
+* host build: csrc/host_check.cpp compiles the kernels' per-thread bodies
+  with the host C++ compiler and runs them thread by thread on the CPU, so
+  the kernels' indexing and algebra are checked here without a GPU;
+* cuda (marked, skipped without a GPU): the nvcc-built kernels on the card.
+
+Tolerances: float64 per-field max|diff| / max(1, max|plain|) <= 1e-9 for
+all three; float32 K1 elementwise rtol 2e-4 / atol 2e-5
+(tests/test_pallas_layer.py:45), K2 and K3 3e-5 per field
+(tests/test_pallas_sweep.py:25).  A non-finite value fails every
+comparison, here and in chip_smoke.py (test_nan_output_fails_comparison).
+"""
+
+import ctypes
+import hashlib
+import importlib.util
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from spartacus_surface_tpu_torch.models import solver
+from spartacus_surface_tpu_torch.ops import cuda_build
+from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
+from spartacus_surface_tpu_torch.utils.inputs import example_inputs
+
+ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))
+KERNELS = ("layer_factory", "sw_up_sweep", "sw_down_sweep_both")
+
+
+def capture(monkeypatch, nreg, ns, dtype, device, C=6, L=3, S=2):
+    """Run the kernel route once; return {kernel: (args, kwargs, result)}."""
+    calls = {}
+    for name in KERNELS:
+        fn = getattr(solver, name)
+
+        def rec(*a, _n=name, _fn=fn, **k):
+            calls[_n] = (a, k, _fn(*a, **k))
+            return calls[_n][2]
+        monkeypatch.setattr(solver, name, rec)
+    inp = solver.CanopyInputs(**{
+        k: torch.as_tensor(v, device=device) for k, v in
+        example_inputs(C=C, L=L, S=S, dtype=dtype, seed=nreg * ns).items()})
+    solver.spartacus_sw(inp, solver.SolverOptions(nreg=nreg, nstream=ns,
+                                                  do_urban=True),
+                        LegendreGauss(ns), with_profiles=True)
+    monkeypatch.undo()
+    return calls
+
+
+def field_err(ref, got):
+    """Worst per-field max|got - ref| / max(1, max|ref|); inf if either side
+    holds a non-finite value."""
+    worst = 0.0
+    for r, g in zip(ref, got):
+        r, g = r.double().cpu(), g.double().cpu()
+        if not (r.isfinite().all() and g.isfinite().all()):
+            return math.inf
+        worst = max(worst, (r - g).abs().max().item()
+                    / max(1.0, r.abs().max().item()))
+    return worst
+
+
+def assert_matches_plain(launched, calls, f32):
+    """launched: {kernel: result} of the kernels on calls' operands."""
+    a, k, _ = calls["layer_factory"]
+    ref = LK.layer_factory_plain(*a, **k)
+    got = launched["layer_factory"]
+    for n in LK.OUT_NAMES:
+        if f32:
+            torch.testing.assert_close(got[n], ref[n], rtol=2e-4, atol=2e-5)
+        else:
+            assert field_err([ref[n]], [got[n]]) <= 1e-9, n
+    for name, plain in (("sw_up_sweep", SK.sw_up_sweep_plain),
+                        ("sw_down_sweep_both", SK.sw_down_sweep_plain)):
+        a, k, _ = calls[name]
+        err = field_err(plain(*a, **k), launched[name])
+        assert err <= (3e-5 if f32 else 1e-9), (name, err)
+
+
+# ----------------------------------------------------------------------
+# host build of the kernel bodies
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def host_lib():
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/host_check.cpp")
+    srcs = sorted(cuda_build.CSRC.glob("*.cu*")) + [cuda_build.CSRC / "host_check.cpp"]
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in srcs)).hexdigest()[:12]
+    out = cuda_build.BUILD_DIR.parent / "host" / f"host_check-{digest}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
+                        str(cuda_build.CSRC / "host_check.cpp"), "-o", str(tmp)],
+                       check=True)
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+def host_launch(host_lib, calls):
+    """{kernel: result} of the host-built kernels on calls' operands."""
+    launch = {"layer_factory": LK.launch, "sw_up_sweep": SK.launch_up,
+              "sw_down_sweep_both": SK.launch_down}
+    launched = {}
+    for name in KERNELS:
+        a, k, _ = calls[name]
+        kw = dict(k, chunk=5) if name == "layer_factory" else k  # ragged chunks
+        launched[name] = launch[name](host_lib, *a, stream=None, **kw)
+    return launched
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS)
+def test_host_built_kernels_match_plain(host_lib, monkeypatch, nreg, ns, dtype):
+    calls = capture(monkeypatch, nreg, ns, dtype, "cpu")
+    assert_matches_plain(host_launch(host_lib, calls), calls, dtype == np.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_nan_output_fails_comparison(host_lib, monkeypatch, kernel, dtype):
+    """One NaN planted in one kernel's output fails this file's comparison
+    and chip_smoke.py's gate for that kernel, and only for that one."""
+    calls = capture(monkeypatch, 2, 4, dtype, "cpu")
+    launched = host_launch(host_lib, calls)
+    out = launched[kernel]
+    field = out["int_dir_diff"] if kernel == "layer_factory" else out[0]
+    field.view(-1)[field.numel() // 2] = float("nan")
+    with pytest.raises(AssertionError):
+        assert_matches_plain(launched, calls, dtype == np.float32)
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = smoke.compare_kernels({n: (*calls[n][:2], launched[n]) for n in KERNELS},
+                                torch.float32 if dtype == np.float32 else torch.float64,
+                                LK, SK)
+    assert [ok for _, ok in res] == [n != kernel for n in KERNELS]
+    assert res[KERNELS.index(kernel)][0] == math.inf
+
+
+# ----------------------------------------------------------------------
+# the CPU side of the wrappers
+# ----------------------------------------------------------------------
+
+def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
+    calls = capture(monkeypatch, 2, 4, np.float64, "cpu")
+    a, k, got = calls["layer_factory"]
+    ref = LK.layer_factory_plain(*a, **k)
+    assert all(torch.equal(got[n], ref[n]) for n in LK.OUT_NAMES)
+    a, k, got = calls["sw_down_sweep_both"]
+    assert all(torch.equal(x, y) for x, y in zip(got, SK.sw_down_sweep_plain(*a, **k)))
+    assert cuda_build._libs == {}  # nothing was built or loaded
+
+
+def test_wrappers_check_operands(monkeypatch):
+    calls = capture(monkeypatch, 2, 4, np.float64, "cpu")
+    a, k, _ = calls["sw_up_sweep"]
+    with pytest.raises(ValueError, match="shape"):
+        SK.sw_up_sweep(a[0][:, :-1], *a[1:], **k)
+    with pytest.raises(ValueError, match="float32"):
+        SK.sw_up_sweep(a[0].float(), *a[1:], **k)
+    with pytest.raises(ValueError, match="C \\* S"):  # 12 elements, 5 columns
+        SK.sw_up_sweep(*a[:5], a[5][..., :5].contiguous(),
+                       a[6][..., :5].contiguous(), *a[7:], **k)
+    a, k, _ = calls["layer_factory"]
+    with pytest.raises(ValueError, match="contiguous"):
+        LK.layer_factory(a[0], a[1].transpose(0, 1).contiguous().transpose(0, 1),
+                         *a[2:], **k)
+    with pytest.raises(TypeError, match="dtype"):
+        LK.layer_factory(*(x.half() for x in a), **k)
+
+
+# ----------------------------------------------------------------------
+# on the card
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS)
+def test_cuda_kernels_match_plain(cuda_device, monkeypatch, nreg, ns, dtype):
+    wrappers = (LK.layer_factory, SK.sw_up_sweep, SK.sw_down_sweep_both)
+    before = [w.launches for w in wrappers]
+    calls = capture(monkeypatch, nreg, ns, dtype, cuda_device, C=300, L=4, S=2)
+    torch.cuda.synchronize()
+    assert all(w.launches > n for w, n in zip(wrappers, before))
+    assert_matches_plain({n: c[2] for n, c in calls.items()}, calls,
+                         dtype == np.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_factory_is_refused(cuda_device):
+    g = lambda *s: torch.zeros(s, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="K1d"):
+        LK.layer_factory(g(1, 4, 8), g(1, 4, 8), g(1, 4, 8), g(1, 4, 8), g(1, 8),
+                         nd=2, ndir=2)
