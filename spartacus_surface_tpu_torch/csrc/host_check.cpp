@@ -4,6 +4,7 @@
 // CUDA launchers.  Built with a host C++ compiler; nvcc never sees this file.
 
 #include "layer_factory.cu"
+#include "lw_sweeps.cu"
 #include "sw_sweeps.cu"
 
 template <typename T>
@@ -22,6 +23,18 @@ template <typename T>
 static void down_host(SPX_DOWN_PARAMS) {
   const auto A = spx::down_args<T>(SPX_DOWN_ARGS);
   for (long long b = 0; b < B; ++b) spx::sw_down_thread(A, b);
+}
+
+template <typename T>
+static void lw_up_host(SPX_LW_UP_PARAMS) {
+  const auto A = spx::lw_up_args<T>(SPX_LW_UP_ARGS);
+  for (long long b = 0; b < B; ++b) spx::lw_up_thread(A, b);
+}
+
+template <typename T>
+static void lw_down_host(SPX_LW_DOWN_PARAMS) {
+  const auto A = spx::lw_down_args<T>(SPX_LW_DOWN_ARGS);
+  for (long long b = 0; b < B; ++b) spx::lw_down_thread(A, b);
 }
 
 // Same C interface as the CUDA launchers; the stream is ignored and the
@@ -49,6 +62,22 @@ int sw_down_sweep_f32(SPX_DOWN_PARAMS, void*) {
 }
 int sw_down_sweep_f64(SPX_DOWN_PARAMS, void*) {
   down_host<double>(SPX_DOWN_ARGS);
+  return 0;
+}
+int lw_up_sweep_f32(SPX_LW_UP_PARAMS, void*) {
+  lw_up_host<float>(SPX_LW_UP_ARGS);
+  return 0;
+}
+int lw_up_sweep_f64(SPX_LW_UP_PARAMS, void*) {
+  lw_up_host<double>(SPX_LW_UP_ARGS);
+  return 0;
+}
+int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, void*) {
+  lw_down_host<float>(SPX_LW_DOWN_ARGS);
+  return 0;
+}
+int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, void*) {
+  lw_down_host<double>(SPX_LW_DOWN_ARGS);
   return 0;
 }
 }

@@ -1,9 +1,14 @@
-// Kernel K1: the per-layer operator factory (shortwave, structured expm).
+// Kernel K1: the per-layer operator factory (structured expm).
 //
 // Replaces the TPU kernel pallas_layer_thin_double, structured branch
 // (spartacus_surface_tpu/ops/pallas_layer.py: _layer_kernel_structured :495,
-// _extract_double :350, _schur_int_kernel :212).  Plain version:
-// ops/layer_kernel.py layer_factory_plain (ops/layer_matrices.py).
+// _extract_double :350, _schur_int_kernel :212), in both of its uses: the
+// shortwave (ndir = nreg, int_direct on) and the longwave emission
+// pseudo-beam of pallas_lw_layer_tiles :1013 (ndir = 1, gamma0 = 0,
+// gamma3 = b, int_direct off: gamma0 is singular, so the direct-beam
+// integrals are neither computed nor written).  Plain versions:
+// ops/layer_kernel.py layer_factory_plain / lw_layer_factory_plain
+// (ops/layer_matrices.py).
 //
 // One thread per (batch element, layer).  Per element:
 //   1. Gamma*dz in the basis K = [[I, I], [I, -I]] of the two diffuse blocks,
@@ -17,7 +22,8 @@
 //      size 2 nd and undo the transform with a butterfly;
 //   4. thin-layer R, T, Sup, Sdn, E from the blocks of F, then this
 //      element's own K adding-doubling steps;
-//   5. block-Schur Gamma^-1 integrals int_diff, int_dir, int_dir_diff.
+//   5. block-Schur Gamma^-1 integrals int_diff and, with int_direct,
+//      int_dir and int_dir_diff.
 // All solves are pivot-free.  Requires nd >= 2 ndir and nd >= 2 (the dense
 // branch K1d is not ported).
 //
@@ -25,7 +31,9 @@
 // 10 ndir^2 + N^2 rows, N = 2 nd + ndir) does not fit in registers, so it is
 // a struct-of-arrays global buffer (coalesced across the warp, cached in L1
 // and L2) and the kernel is bound by that traffic.  The wrapper bounds the
-// buffer by launching in chunks of elements.
+// buffer by launching in chunks of elements.  The norm rule covers the
+// whole [Gamma | b] row, so the longwave (b = O(10^2) W m^-2 per unit
+// height) takes several more doubling steps per element than the shortwave.
 
 #include "common.cuh"
 
@@ -36,7 +44,7 @@ struct FactoryArgs {
   const T *g0, *g1, *g2, *g3, *dz;  // [L, rows, B] and dz [L, B]
   T *R, *Tm, *E, *Sup, *Sdn, *idiff, *idir, *idd;  // [L, rows, B]
   T* ws;  // workspace: [rows, n]
-  int nd, ndir, n_double;
+  int nd, ndir, n_double, int_direct;  // int_direct 0: idir, idd unused
   T theta;
   long long B, j0, n;  // batch; this launch covers elements j0 .. j0+n-1
 };
@@ -129,11 +137,13 @@ SPX_DEV void extract_double(int nd, int ndir, int nK, Col<T> F, Col<T> W1,
 }
 
 // Block-Schur Gamma^-1 integral matrices (radtool_schur.F90:45-51), with
-// five nd^2 workspaces G, Fs, W1, W2, W3.
+// five nd^2 workspaces G, Fs, W1, W2, W3; the direct-beam ones (which need
+// inv(g0)) only with int_direct.
 template <typename T>
-SPX_DEV void schur_ints(int nd, int ndir, Col<T> g0, Col<T> g1, Col<T> g2,
-                        Col<T> g3, Col<T> G, Col<T> Fs, Col<T> W1, Col<T> W2,
-                        Col<T> W3, Col<T> idiff, Col<T> idir, Col<T> idd) {
+SPX_DEV void schur_ints(int nd, int ndir, bool int_direct, Col<T> g0,
+                        Col<T> g1, Col<T> g2, Col<T> g3, Col<T> G, Col<T> Fs,
+                        Col<T> W1, Col<T> W2, Col<T> W3, Col<T> idiff,
+                        Col<T> idir, Col<T> idd) {
   const int n2 = nd * nd, d2 = ndir * ndir;
   copy(W1, g1, n2);  // W2 = inv(g1)
   eye(W2, nd);
@@ -146,6 +156,7 @@ SPX_DEV void schur_ints(int nd, int ndir, Col<T> g0, Col<T> g1, Col<T> g2,
   solve_inplace(W1, nd, W3, nd, nd, nd);
   mmc(G, W3, Fs, nd, nd, nd);   // g2i = g1i g2 inv(g1)
   for (int i = 0; i < n2; ++i) idiff[i] = G[i] - W3[i];
+  if (!int_direct) return;
   copy(W1, g0, d2);             // W2 = g0i
   eye(W2, ndir);
   solve_inplace(W1, ndir, W2, ndir, ndir, ndir);
@@ -355,21 +366,25 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   extract_double(nd, ndir, nK, F, BIG.at(4 * n2), BIG.at(5 * n2),
                  BIG.at(7 * n2), RT, SS, EE, op(A.R, n2), op(A.Tm, n2),
                  op(A.E, d2), op(A.Sup, nr), op(A.Sdn, nr));
-  schur_ints(nd, ndir, g0, g1, g2, g3, BIG, BIG.at(n2), BIG.at(2 * n2),
-             BIG.at(3 * n2), BIG.at(4 * n2), op(A.idiff, n2), op(A.idir, d2),
-             op(A.idd, nr));
+  const Col<T> none{nullptr, A.B};
+  schur_ints(nd, ndir, A.int_direct != 0, g0, g1, g2, g3, BIG, BIG.at(n2),
+             BIG.at(2 * n2), BIG.at(3 * n2), BIG.at(4 * n2), op(A.idiff, n2),
+             A.int_direct ? op(A.idir, d2) : none,
+             A.int_direct ? op(A.idd, nr) : none);
 }
 
 template <typename T>
 FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
                             void* R, void* Tm, void* E, void* Sup, void* Sdn,
                             void* idiff, void* idir, void* idd, void* ws,
-                            int nd, int ndir, int n_double, double theta,
-                            long long B, long long j0, long long n) {
+                            int nd, int ndir, int n_double, int int_direct,
+                            double theta, long long B, long long j0,
+                            long long n) {
   return FactoryArgs<T>{(const T*)g0, (const T*)g1, (const T*)g2,
                         (const T*)g3, (const T*)dz, (T*)R, (T*)Tm, (T*)E,
                         (T*)Sup, (T*)Sdn, (T*)idiff, (T*)idir, (T*)idd,
-                        (T*)ws, nd, ndir, n_double, T(theta), B, j0, n};
+                        (T*)ws, nd, ndir, n_double, int_direct, T(theta), B,
+                        j0, n};
 }
 
 }  // namespace spx
@@ -377,11 +392,11 @@ FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
 #define SPX_FACTORY_PARAMS                                                    \
   void *g0, void *g1, void *g2, void *g3, void *dz, void *R, void *Tm,       \
       void *E, void *Sup, void *Sdn, void *idiff, void *idir, void *idd,     \
-      void *ws, int nd, int ndir, int n_double, double theta, long long B,   \
-      long long j0, long long n
+      void *ws, int nd, int ndir, int n_double, int int_direct,              \
+      double theta, long long B, long long j0, long long n
 #define SPX_FACTORY_ARGS                                                      \
   g0, g1, g2, g3, dz, R, Tm, E, Sup, Sdn, idiff, idir, idd, ws, nd, ndir,    \
-      n_double, theta, B, j0, n
+      n_double, int_direct, theta, B, j0, n
 
 #ifdef __CUDACC__
 template <typename T>

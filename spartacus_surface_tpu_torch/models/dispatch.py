@@ -2,7 +2,7 @@
 and scatters its outputs into dense [C, ...] tensors on the device.
 
 Port of spartacus_surface_tpu/models/dispatch.py ``run_radsurf`` /
-``_radsurf_core`` for the shortwave (``do_lw = False``) on one device.
+``_radsurf_core`` (shortwave and longwave) on one device.
 Parity: the per-column ``select case (i_representation)`` loop of
 radsurf/radsurf_interface.F90:105-313.
 """
@@ -16,7 +16,7 @@ from ..utils.config import Config
 from ..utils.convert import torch_dtype
 from . import flat as flat_mod
 from . import simple_urban as su_mod
-from .solver import CanopyInputs, SolverOptions, spartacus_sw
+from .solver import CanopyInputs, SolverOptions, spartacus_lw, spartacus_sw
 
 # Tile representation codes (radsurf/radsurf_canopy_properties.F90:26-33)
 TILE_FLAT = 0
@@ -67,61 +67,70 @@ def _scatter(dst: dict, src: dict, idx, sun_up=None, layer0=False):
 
 
 def _solver_groups(config: Config):
-    """Layered SPARTACUS tile codes -> (SolverOptions, lg_sw)."""
+    """Layered SPARTACUS tile codes -> (SolverOptions kwargs without
+    nstream, lg_sw, lg_lw): each band's solve takes nstream from its own
+    quadrature, and the SW and LW stream counts may differ."""
     common = dict(min_vegetation_fraction=config.min_vegetation_fraction,
                   min_building_fraction=config.min_building_fraction,
                   n_double=config.n_double, column_chunk=config.column_chunk)
     forest = dict(
         use_symmetric_vegetation_scale=config.use_symmetric_vegetation_scale_forest,
-        vegetation_isolation_factor=config.vegetation_isolation_factor_forest)
+        vegetation_isolation_factor=config.vegetation_isolation_factor_forest,
+        **common)
     urban = dict(
         use_symmetric_vegetation_scale=config.use_symmetric_vegetation_scale_urban,
-        vegetation_isolation_factor=config.vegetation_isolation_factor_urban)
-    lgf, lgu = config.lg_sw_forest, config.lg_sw_urban
+        vegetation_isolation_factor=config.vegetation_isolation_factor_urban,
+        **common)
+    lgu = (config.lg_sw_urban, config.lg_lw_urban)
     return {
-        TILE_FOREST: (SolverOptions(
-            nreg=config.n_vegetation_region_forest + 1, nstream=lgf.nstream,
-            do_urban=False, **forest, **common), lgf),
-        TILE_URBAN: (SolverOptions(
-            nreg=1, nstream=lgu.nstream, do_urban=True, **urban, **common), lgu),
-        TILE_VEGETATED_URBAN: (SolverOptions(
-            nreg=config.n_vegetation_region_urban + 1, nstream=lgu.nstream,
-            do_urban=True, **urban, **common), lgu),
+        TILE_FOREST: (dict(nreg=config.n_vegetation_region_forest + 1,
+                           do_urban=False, **forest),
+                      config.lg_sw_forest, config.lg_lw_forest),
+        TILE_URBAN: (dict(nreg=1, do_urban=True, **urban), *lgu),
+        TILE_VEGETATED_URBAN: (dict(nreg=config.n_vegetation_region_urban + 1,
+                                    do_urban=True, **urban), *lgu),
     }
 
 
+def _same(*names):
+    return {k: k for k in names}
+
+
+# CanopyInputs field -> arrays key, per band (JAX _gather_inputs)
+_COMMON_KEYS = _same("dz", "cos_sza", "veg_fraction", "veg_scale", "veg_ext",
+                     "veg_fsd", "veg_contact_fraction", "building_fraction",
+                     "building_scale")
 _SW_KEYS = dict(
-    dz="dz", cos_sza="cos_sza", veg_fraction="veg_fraction",
-    veg_scale="veg_scale", veg_ext="veg_ext", veg_fsd="veg_fsd",
-    veg_contact_fraction="veg_contact_fraction",
-    building_fraction="building_fraction", building_scale="building_scale",
-    air_ext="sw_air_ext", air_ssa="sw_air_ssa", veg_ssa="sw_veg_ssa",
-    ground_albedo="ground_albedo", roof_albedo="roof_albedo",
-    roof_albedo_dir="roof_albedo_dir", wall_albedo="wall_albedo",
-    wall_specular_frac="wall_specular_frac",
-)
+    _COMMON_KEYS, air_ext="sw_air_ext", air_ssa="sw_air_ssa",
+    veg_ssa="sw_veg_ssa",
+    **_same("ground_albedo", "roof_albedo", "roof_albedo_dir", "wall_albedo",
+            "wall_specular_frac"))
+_LW_KEYS = dict(
+    _COMMON_KEYS, air_ext="lw_air_ext", air_ssa="lw_air_ssa",
+    veg_ssa="lw_veg_ssa",
+    **_same("ground_emissivity", "ground_emission", "roof_emissivity",
+            "roof_emission", "wall_emissivity", "wall_emission",
+            "clear_air_planck", "veg_planck", "veg_air_planck"))
 
 
 def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
-    """Run the surface radiation scheme (shortwave) on dense padded arrays.
+    """Run the surface radiation scheme on dense padded arrays.
 
     Args:
-      config: consolidated Config with do_lw = False (the LW solver is not
-        ported yet; do_lw = True raises).
+      config: consolidated Config.
       arrays: dict of dense padded numpy arrays in the JAX package's
         read_input format, plus "i_representation" [C] and "nlay" [C].  The working
         dtype is that of arrays["dz"].
-      device: the torch device to solve on; CUDA runs the layered solve on
+      device: the torch device to solve on; CUDA runs the layered solves on
         the CUDA kernels.
-      route: "kernel" or "scan" for the layered solve (see spartacus_sw).
+      route: "kernel" or "scan" for the layered solves (see spartacus_sw,
+        spartacus_lw).
 
-    Returns {"sw_norm_dir", "sw_norm_diff": flux dicts, "bc_out":
-    {"sw_albedo", "sw_albedo_dir"}}, tensors on `device`.
-    Parity: radsurf() radsurf/radsurf_interface.F90:20-317.
+    Returns {"sw_norm_dir", "sw_norm_diff"} (with do_sw) and {"lw_internal",
+    "lw_norm"} (with do_lw) flux dicts, and "bc_out": {"sw_albedo",
+    "sw_albedo_dir"} / {"lw_emissivity", "lw_emission"}, tensors on
+    `device`.  Parity: radsurf() radsurf/radsurf_interface.F90:20-317.
     """
-    if config.do_lw:
-        raise NotImplementedError(
-            "the longwave solver is not ported yet: run with do_lw = False")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
@@ -134,40 +143,65 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
         return torch.as_tensor(np.ascontiguousarray(np.asarray(arrays[key])[idx]),
                                **kw)
 
-    if not config.do_sw:
-        return {"bc_out": {}}
-    nsw = config.nswinternal
-    bc = {"sw_albedo": torch.zeros((ncol, nsw), **kw),
-          "sw_albedo_dir": torch.zeros((ncol, nsw), **kw)}
-    out = {"sw_norm_dir": _empty_flux(ncol, nlay, nsw, **kw),
-           "sw_norm_diff": _empty_flux(ncol, nlay, nsw, **kw), "bc_out": bc}
+    bc = {}
+    out = {"bc_out": bc}
+    nsw, nlw = config.nswinternal, config.nlwinternal
+    if config.do_sw:
+        bc.update(sw_albedo=torch.zeros((ncol, nsw), **kw),
+                  sw_albedo_dir=torch.zeros((ncol, nsw), **kw))
+        out.update(sw_norm_dir=_empty_flux(ncol, nlay, nsw, **kw),
+                   sw_norm_diff=_empty_flux(ncol, nlay, nsw, **kw))
+    if config.do_lw:
+        bc.update(lw_emissivity=torch.zeros((ncol, nlw), **kw),
+                  lw_emission=torch.zeros((ncol, nlw), **kw))
+        out.update(lw_internal=_empty_flux(ncol, nlay, nlw, **kw),
+                   lw_norm=_empty_flux(ncol, nlay, nlw, **kw))
     gdir = "ground_albedo_dir" if config.use_sw_direct_albedo else "ground_albedo"
 
     # ---- flat tiles (radsurf_interface.F90:122-173)
     idx = np.nonzero(rep == TILE_FLAT)[0]
     if idx.size:
-        nd, nf, fbc = flat_mod.flat_sw(get("ground_albedo", idx), get(gdir, idx))
         tidx = torch.as_tensor(idx, device=device)
-        _scatter(out["sw_norm_dir"], nd, tidx)
-        _scatter(out["sw_norm_diff"], nf, tidx)
-        for key in bc:
-            bc[key][tidx] = fbc[key]
+        if config.do_sw:
+            nd, nf, fbc = flat_mod.flat_sw(get("ground_albedo", idx), get(gdir, idx))
+            _scatter(out["sw_norm_dir"], nd, tidx)
+            _scatter(out["sw_norm_diff"], nf, tidx)
+            for key in ("sw_albedo", "sw_albedo_dir"):
+                bc[key][tidx] = fbc[key]
+        if config.do_lw:
+            li, ln, fbc = flat_mod.flat_lw(get("ground_emissivity", idx),
+                                           get("ground_emission", idx))
+            _scatter(out["lw_internal"], li, tidx)
+            _scatter(out["lw_norm"], ln, tidx)
+            for key in ("lw_emissivity", "lw_emission"):
+                bc[key][tidx] = fbc[key]
 
     # ---- layered SPARTACUS tiles
-    for code, (opt, lg) in _solver_groups(config).items():
+    for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
         idx = np.nonzero(rep == code)[0]
         if not idx.size:
             continue
-        keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
-        inp = CanopyInputs(**{f: get(k, idx) for f, k in keys.items()})
-        ndir, ndiff, sbc = spartacus_sw(
-            inp, opt, lg, with_profiles=config.do_save_flux_profile, route=route)
         tidx = torch.as_tensor(idx, device=device)
-        sun_up = inp.cos_sza > 0.0
-        _scatter(out["sw_norm_dir"], ndir, tidx, sun_up)
-        _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up)
-        bc["sw_albedo"][tidx] = sbc["top_albedo_diff"]
-        bc["sw_albedo_dir"][tidx] = sbc["top_albedo_dir"]
+        if config.do_sw:
+            keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
+            inp = CanopyInputs(**{f: get(k, idx) for f, k in keys.items()})
+            ndir, ndiff, sbc = spartacus_sw(
+                inp, SolverOptions(nstream=lg_sw.nstream, **opt_kw), lg_sw,
+                with_profiles=config.do_save_flux_profile, route=route)
+            sun_up = inp.cos_sza > 0.0
+            _scatter(out["sw_norm_dir"], ndir, tidx, sun_up)
+            _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up)
+            bc["sw_albedo"][tidx] = sbc["top_albedo_diff"]
+            bc["sw_albedo_dir"][tidx] = sbc["top_albedo_dir"]
+        if config.do_lw:  # not masked by sun_up
+            inp = CanopyInputs(**{f: get(k, idx) for f, k in _LW_KEYS.items()})
+            lint, lnorm, lbc = spartacus_lw(
+                inp, SolverOptions(nstream=lg_lw.nstream, **opt_kw), lg_lw,
+                with_profiles=config.do_save_flux_profile, route=route)
+            _scatter(out["lw_internal"], lint, tidx)
+            _scatter(out["lw_norm"], lnorm, tidx)
+            bc["lw_emissivity"][tidx] = lbc["top_emissivity"]
+            bc["lw_emission"][tidx] = lbc["top_emission"]
 
     # ---- simple urban / infinite street (radsurf_interface.F90:272-309)
     idx = np.nonzero(np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]))[0]
@@ -176,18 +210,28 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
             raise ValueError(
                 "simple urban representations must have only one layer")
         lay0 = lambda key: get(key, idx)[:, 0]
-        ndir, ndiff, sbc = su_mod.simple_urban_sw(
-            lay0("dz"), lay0("building_fraction"), lay0("building_scale"),
-            get("cos_sza", idx),
-            torch.as_tensor(rep[idx] == TILE_INFINITE_STREET, device=device),
-            get("ground_albedo", idx), get(gdir, idx), lay0("roof_albedo"),
-            lay0("wall_albedo"),
-            min_building_fraction=config.min_building_fraction,
-            with_profiles=config.do_save_flux_profile)
+        geom = (lay0("dz"), lay0("building_fraction"), lay0("building_scale"))
+        is_inf = torch.as_tensor(rep[idx] == TILE_INFINITE_STREET, device=device)
         tidx = torch.as_tensor(idx, device=device)
-        sun_up = get("cos_sza", idx) > 0.0
-        _scatter(out["sw_norm_dir"], ndir, tidx, sun_up, layer0=True)
-        _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up, layer0=True)
-        for key in bc:
-            bc[key][tidx] = sbc[key]
+        opts = dict(min_building_fraction=config.min_building_fraction,
+                    with_profiles=config.do_save_flux_profile)
+        if config.do_sw:
+            ndir, ndiff, sbc = su_mod.simple_urban_sw(
+                *geom, get("cos_sza", idx), is_inf, get("ground_albedo", idx),
+                get(gdir, idx), lay0("roof_albedo"), lay0("wall_albedo"), **opts)
+            sun_up = get("cos_sza", idx) > 0.0
+            _scatter(out["sw_norm_dir"], ndir, tidx, sun_up, layer0=True)
+            _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up, layer0=True)
+            for key in ("sw_albedo", "sw_albedo_dir"):
+                bc[key][tidx] = sbc[key]
+        if config.do_lw:
+            lint, lnorm, lbc = su_mod.simple_urban_lw(
+                *geom, is_inf, get("ground_emissivity", idx),
+                get("ground_emission", idx), lay0("roof_emissivity"),
+                lay0("roof_emission"), lay0("wall_emissivity"),
+                lay0("wall_emission"), **opts)
+            _scatter(out["lw_internal"], lint, tidx, layer0=True)
+            _scatter(out["lw_norm"], lnorm, tidx, layer0=True)
+            for key in ("lw_emissivity", "lw_emission"):
+                bc[key][tidx] = lbc[key]
     return out

@@ -1,9 +1,10 @@
-"""Region optical properties and Gamma-matrix assembly (shortwave).
+"""Region optical properties, Gamma-matrix assembly and LW emission rates.
 
-Port of the SW half of spartacus_surface_tpu/models/gamma.py, batched over
-[C, L, S].  Diffuse index i = region * ns + stream (radsurf_forest_sw.F90:
-338-339); assembled matrices have shape [C, L, S, n, m].
-Parity: radsurf_urban_sw.F90:340-494 (forest = the f_wall = 0 limit).
+Port of spartacus_surface_tpu/models/gamma.py, batched over [C, L, S].
+Diffuse index i = region * ns + stream (radsurf_forest_sw.F90:338-339);
+assembled matrices have shape [C, L, S, n, m].
+Parity: radsurf_urban_sw.F90:340-494 and radsurf_urban_lw.F90:300-477
+(forest = the f_wall = 0 limit).
 """
 
 from __future__ import annotations
@@ -27,6 +28,22 @@ def region_optics_sw(air_ext, air_ssa, veg_ext, veg_ssa, od_scaling, nreg: int):
     ext_v = ext1 + scaled_veg
     ssa_v = (ext1 * ssa1 + scaled_veg * veg_ssa[..., None]) / ext_v.clamp_min(_EXT_EPS)
     return torch.cat([ext1, ext_v], dim=-1), torch.cat([ssa1, ssa_v], dim=-1)
+
+
+def region_optics_lw(air_ext, air_ssa, clear_air_planck, veg_ext, veg_ssa,
+                     veg_planck, veg_air_planck, od_scaling, nreg: int):
+    """Per-region ext, ssa and Planck source [C, L, S, nreg]
+    (radsurf_forest_lw.F90:271-301)."""
+    ext_reg, ssa_reg = region_optics_sw(air_ext, air_ssa, veg_ext, veg_ssa,
+                                        od_scaling, nreg)
+    p1 = clear_air_planck[..., None]
+    if nreg == 1:
+        return ext_reg, ssa_reg, p1
+    scaled_veg = od_scaling[..., None, :] * veg_ext[..., None, None]
+    num = (air_ext[..., None] * (1.0 - air_ssa[..., None]) * veg_air_planck[..., None]
+           + scaled_veg * (1.0 - veg_ssa[..., None]) * veg_planck[..., None])
+    den = (ext_reg[..., 1:] * (1.0 - ssa_reg[..., 1:])).clamp_min(_EXT_EPS)
+    return ext_reg, ssa_reg, torch.cat([p1, num / den], dim=-1)
 
 
 def exchange_rates(norm_perim, frac, nreg: int, min_frac: float):
@@ -61,13 +78,15 @@ def wall_rates(norm_perim_wall, frac, nreg: int, min_frac: float,
 
 
 def assemble_gammas(ext_reg, ssa_reg, f_exchange, f_wall, wall_ext,
-                    wall_factor, lg: LegendreGauss, nreg: int, *, cos_sza,
-                    sin_sza, tan_sza):
+                    wall_factor, lg: LegendreGauss, nreg: int, *, cos_sza=None,
+                    sin_sza=None, tan_sza=None):
     """gamma0 [C,L,S,nreg,nreg], gamma1/gamma2 [C,L,S,nd,nd],
     gamma3 [C,L,S,nd,nreg] (radsurf_urban_sw.F90:420-494).
 
     ext_reg, ssa_reg [C, L, S, nreg]; f_exchange [C, L, nreg, nreg];
     f_wall [C, L, nreg]; wall_ext, wall_factor [C, L, S]; solar angles [C].
+    Without the solar angles (longwave, radsurf_urban_lw.F90:394-444) only
+    the diffuse matrices are built: (None, gamma1, gamma2, None).
     """
     ns = lg.nstream
     nd = nreg * ns
@@ -99,6 +118,8 @@ def assemble_gammas(ext_reg, ssa_reg, f_exchange, f_wall, wall_ext,
     batch = bshape[:-4]
     gamma1 = (g1 + g2).expand(bshape).reshape(batch + (nd, nd))
     gamma2 = g2.expand(bshape).reshape(batch + (nd, nd))
+    if cos_sza is None:
+        return None, gamma1, gamma2, None
 
     tan0 = tan_sza[:, None, None]
     mu0 = cos_sza[:, None, None]
@@ -113,3 +134,22 @@ def assemble_gammas(ext_reg, ssa_reg, f_exchange, f_wall, wall_ext,
     gamma3 = (g3_vals[..., :, :, None] * reg_eye[:, None, :]).reshape(
         batch + (nd, nreg))
     return gamma0, gamma1, gamma2, gamma3
+
+
+def emission_rates(ext_reg, ssa_reg, planck_reg, frac, norm_perim_wall,
+                   wall_emission, lg: LegendreGauss, nreg: int):
+    """LW emission-rate vector b ("b" of Eq. 32) and the volume emission
+    (radsurf_urban_lw.F90:446-477; forest: zero wall terms).
+
+    Returns {"emiss_rate" [C, L, S, nd], "volume_emiss" [C, L, S, nreg]}.
+    """
+    kw = dict(dtype=ext_reg.dtype, device=ext_reg.device)
+    hw, mu, vw = (torch.as_tensor(np.asarray(x), **kw)
+                  for x in (lg.hweight, lg.mu, lg.vweight))
+    volume_emiss = frac[..., None, :] * ext_reg * (1.0 - ssa_reg) * planck_reg
+    wall_emiss = (norm_perim_wall[..., None, :] * lg.vadjustment
+                  * wall_emission[..., None])
+    b = (volume_emiss[..., :, None] * (hw / mu)
+         + wall_emiss[..., :, None] * (0.5 * vw))
+    return {"emiss_rate": b.reshape(b.shape[:-2] + (nreg * lg.nstream,)),
+            "volume_emiss": volume_emiss}

@@ -1,9 +1,12 @@
-"""Single-layer "simple urban" shortwave solver (Harman et al. 2004 2x2
-method), infinite-street and exponential geometries selected per column.
+"""Single-layer "simple urban" solvers (Harman et al. 2004 2x2 method),
+infinite-street and exponential geometries selected per column.
 
-Port of spartacus_surface_tpu/models/simple_urban.py ``simple_urban_sw``
-(radsurf/radsurf_simple_urban_sw.F90:28-294).  Every column has exactly one
-real layer; the dispatcher enforces this (radsurf_interface.F90:281-284).
+Port of spartacus_surface_tpu/models/simple_urban.py
+(radsurf/radsurf_simple_urban_sw.F90:28-294, radsurf_simple_urban_lw.F90:
+28-257).  Every column has exactly one real layer; the dispatcher enforces
+this (radsurf_interface.F90:281-284).  The reference's LW interaction
+matrix uses the GROUND emissivity in its (2,2) element, where the wall's is
+expected physically (radsurf_simple_urban_lw.F90:157); kept.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from .view_factor import view_factors_exp, view_factors_inf
 
 
 def _view_factors(dz, building_fraction, building_scale, is_infinite_street,
-                  min_building_fraction, cos_sza):
+                  min_building_fraction, cos_sza=None):
     zero = torch.zeros_like(building_fraction)
     _, npw = norm_perim_urban(
         building_fraction, building_scale, zero, torch.ones_like(zero), zero,
@@ -28,20 +31,20 @@ def _view_factors(dz, building_fraction, building_scale, is_infinite_street,
     npw_safe = npw.clamp_min(1.0e-12)
     street_width = 2.0 * (1.0 - building_fraction) / npw_safe
     sep_scale = Pi * (1.0 - building_fraction) / npw_safe
-    vgs_i, vww_i, vdg_i = view_factors_inf(dz / street_width, cos_sza)
-    vgs_e, vww_e, vdg_e = view_factors_exp(dz / sep_scale, cos_sza)
-    vgs = torch.where(is_infinite_street, vgs_i, vgs_e)
-    vww = torch.where(is_infinite_street, vww_i, vww_e)
-    vdg = torch.where(is_infinite_street, vdg_i, vdg_e)
-    return dict(
+    inf = view_factors_inf(dz / street_width, cos_sza)
+    exp = view_factors_exp(dz / sep_scale, cos_sza)
+    vgs, vww, *vdg = (torch.where(is_infinite_street, i, e)
+                      for i, e in zip(inf, exp))
+    out = dict(
         view_ground_sky=vgs,
         view_wall_wall=vww,
         view_wall_ground=0.5 * (1.0 - vww),
         view_ground_wall=1.0 - vgs,
         norm_perim_wall=npw,
-        view_dir_ground=vdg,
-        view_dir_wall=1.0 - vdg,
     )
+    if vdg:
+        out.update(view_dir_ground=vdg[0], view_dir_wall=1.0 - vdg[0])
+    return out
 
 
 def _solve2x2(m11, m12, m21, m22, b1, b2):
@@ -132,3 +135,75 @@ def simple_urban_sw(dz, building_fraction, building_scale, cos_sza,
 
     bc = {"sw_albedo": 1.0 - nf["top_net"], "sw_albedo_dir": 1.0 - nd["top_net"]}
     return nd, nf, bc
+
+
+def simple_urban_lw(dz, building_fraction, building_scale, is_infinite_street,
+                    ground_emissivity, ground_emission, roof_emissivity,
+                    roof_emission, wall_emissivity, wall_emission, *,
+                    min_building_fraction=1.0e-6, with_profiles=False):
+    """LW 2x2 solve.  Scalars [C]; spectral fields [C, S].
+    Returns (internal, norm, bc)."""
+    vf = _view_factors(dz, building_fraction, building_scale,
+                       is_infinite_street, min_building_fraction)
+    b = building_fraction[:, None]
+    vgs = vf["view_ground_sky"][:, None]
+    vww = vf["view_wall_wall"][:, None]
+    vwg = vf["view_wall_ground"][:, None]
+    vgw = vf["view_ground_wall"][:, None]
+    npw_dz = (vf["norm_perim_wall"] * dz)[:, None]
+
+    # Interaction matrix (radsurf_simple_urban_lw.F90:154-157; the (2,2)
+    # element with the ground emissivity, as the reference)
+    m11 = torch.ones_like(wall_emissivity)
+    m12 = -vwg * (1.0 - wall_emissivity)
+    m21 = -vgw * (1.0 - ground_emissivity)
+    m22 = 1.0 - vww * (1.0 - ground_emissivity)
+
+    # Internal emission (radsurf_simple_urban_lw.F90:159-204)
+    sol1, sol2 = _solve2x2(
+        m11, m12, m21, m22, vwg * wall_emission * npw_dz,
+        vgw * ground_emission * (1.0 - b) + vww * wall_emission * npw_dz)
+    zero = torch.zeros_like(sol1)
+    ni = {}
+    ni["ground_dn"] = sol1
+    ni["ground_net"] = sol1 * ground_emissivity - ground_emission * (1.0 - b)
+    ni["ground_vertical_diff"] = zero
+    ni["roof_in"] = zero
+    ni["roof_net"] = -b * roof_emission
+    ni["wall_in"] = sol2
+    ni["wall_net"] = sol2 * wall_emissivity - wall_emission * npw_dz
+    ni["top_dn"] = zero
+    up_top = ((ni["ground_dn"] - ni["ground_net"]) * vgs
+              + (ni["wall_in"] - ni["wall_net"]) * vwg)
+    ni["top_net"] = -b * roof_emission - up_top
+    if with_profiles:
+        ni["flux_dn_layer_top"] = zero
+        ni["flux_up_layer_top"] = up_top
+        ni["flux_dn_layer_base"] = ni["ground_dn"]
+        ni["flux_up_layer_base"] = ni["ground_dn"] - ni["ground_net"]
+
+    # Normalized by the top-of-canopy downwelling
+    # (radsurf_simple_urban_lw.F90:206-251)
+    one = torch.ones_like(sol1)
+    sol1, sol2 = _solve2x2(m11, m12, m21, m22, vgs * (1.0 - b) * one,
+                           vgw * (1.0 - b) * one)
+    nn = {}
+    nn["ground_dn"] = sol1
+    nn["ground_net"] = sol1 * ground_emissivity
+    nn["ground_vertical_diff"] = zero
+    nn["roof_in"] = b * one
+    nn["roof_net"] = b * roof_emissivity
+    nn["wall_in"] = sol2
+    nn["wall_net"] = sol2 * wall_emissivity
+    nn["top_dn"] = one
+    up_top = ((nn["ground_dn"] - nn["ground_net"]) * vgs
+              + (nn["wall_in"] - nn["wall_net"]) * vwg)
+    nn["top_net"] = 1.0 - b * (1.0 - roof_emissivity) - up_top
+    if with_profiles:
+        nn["flux_dn_layer_top"] = (1.0 - b) * one
+        nn["flux_up_layer_top"] = up_top
+        nn["flux_dn_layer_base"] = nn["ground_dn"]
+        nn["flux_up_layer_base"] = nn["ground_dn"] - nn["ground_net"]
+
+    bc = {"lw_emissivity": nn["top_net"], "lw_emission": -ni["top_net"]}
+    return ni, nn, bc

@@ -1,21 +1,25 @@
-"""The SPARTACUS multi-layer shortwave solver (forest + urban).
+"""The SPARTACUS multi-layer shortwave and longwave solvers (forest + urban).
 
-Port of the SW half of spartacus_surface_tpu/models/solver.py.  A forest is
-an urban canopy with building_fraction == 0.  Columns are dense-padded above
-the canopy with dz = 0 layers, which are exact no-ops (expm(0) = I).
+Port of spartacus_surface_tpu/models/solver.py.  A forest is an urban canopy
+with building_fraction == 0.  Columns are dense-padded above the canopy with
+dz = 0 layers, which are exact no-ops (expm(0) = I).
 
 Two routes compute the same fluxes:
 
-  kernel route (``spartacus_sw``, the default): the layer factory K1, the
-      adding up-sweep K2 and the fused direct+diffuse flux down-sweep K3
+  kernel route (the default): SW runs the layer factory K1, the adding
+      up-sweep K2 and the fused direct+diffuse flux down-sweep K3
       (ops/layer_kernel.py, ops/sweep_kernels.py), then a plain-torch
       epilogue with the clear-sky direct recurrence and the sunlit fractions
-      in closed form.  CUDA tensors run the hand-written CUDA kernels; CPU
-      tensors run their plain PyTorch versions.  Forward only.
+      in closed form; LW runs K1 with the emission as a pseudo-beam, the
+      up-sweep K4 and the fused internal+incoming down-sweep K5
+      (ops/lw_sweep_kernels.py), then the ground fluxes in closed form.
+      CUDA tensors run the hand-written CUDA kernels; CPU tensors run their
+      plain PyTorch versions.  Forward only.
   scan route (``route="scan"``): the reference formulation of the JAX XLA
       path, layer_matrices plus a Python loop per layer for the up and down
-      recurrences (radsurf_urban_sw.F90:590-1001).  Plain torch on any
-      device; the port's whole-solve reference.
+      recurrences (radsurf_urban_sw.F90:590-1001, radsurf_urban_lw.F90:
+      551-858).  Plain torch on any device; the port's whole-solve
+      reference.
 
 The cosine of the solar zenith angle is clamped to >= 1e-6 throughout
 (radsurf_urban_sw.F90:268).
@@ -28,9 +32,10 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from ..ops.layer_kernel import layer_factory
-from ..ops.layer_matrices import layer_matrices_chunked
+from ..ops.layer_kernel import layer_factory, lw_layer_factory
+from ..ops.layer_matrices import layer_matrices_chunked, lw_layer_matrices_chunked
 from ..ops.legendre_gauss import LegendreGauss
+from ..ops.lw_sweep_kernels import lw_down_sweep_both, lw_out_rows, lw_up_sweep
 from ..ops.matrix import matmul, matvec, solve
 from ..ops.sweep_kernels import sw_down_sweep_both, sw_out_rows, sw_up_sweep
 from ..utils.constants import Pi
@@ -116,7 +121,7 @@ class CanopyInputs:
     roof_albedo_dir: torch.Tensor | None = None
     wall_albedo: torch.Tensor | None = None
     wall_specular_frac: torch.Tensor | None = None
-    # LW facet/volume properties (the LW solver is a later slice)
+    # LW facet/volume properties
     ground_emissivity: torch.Tensor | None = None
     ground_emission: torch.Tensor | None = None
     roof_emissivity: torch.Tensor | None = None
@@ -608,6 +613,287 @@ def _sw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
 
 
 # ----------------------------------------------------------------------
+# Longwave (radsurf_urban_lw.F90:35-883; forest = radsurf_forest_lw.F90 via
+# building_fraction = 0)
+# ----------------------------------------------------------------------
+
+def _lw_front(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss):
+    """Geometry, facet properties, the diffuse Gamma matrices, the emission
+    rates and the emission bookkeeping of the LW solve."""
+    nreg = opt.nreg
+    C, L = inp.dz.shape
+    S = inp.air_ext.shape[-1]
+    geo = _prepare_geometry(inp, opt, lg, lw=True)
+    frac = geo["frac"]
+    ones = inp.air_ext.new_ones((C, L, S))
+    # Walls fully intercept (radsurf_urban_lw.F90:384-392); the full
+    # spectral wall emissivity scatters (the reference's band-1 value is
+    # the same for nlw = 1).  Forests: black, non-emitting facets.
+    if opt.do_urban:
+        facets = dict(wall_emissivity=inp.wall_emissivity,
+                      wall_emission=inp.wall_emission,
+                      roof_emissivity=inp.roof_emissivity,
+                      roof_emission=inp.roof_emission)
+        wall_factor = 1.0 - inp.wall_emissivity
+    else:
+        zeros = torch.zeros_like(ones)
+        facets = dict(wall_emissivity=ones, wall_emission=zeros,
+                      roof_emissivity=ones, roof_emission=zeros)
+        wall_factor = zeros
+    ext_reg, ssa_reg, planck_reg = G.region_optics_lw(
+        inp.air_ext, inp.air_ssa, inp.clear_air_planck, inp.veg_ext,
+        inp.veg_ssa, inp.veg_planck, inp.veg_air_planck, geo["od_scaling"],
+        nreg)
+    _, g1, g2, _ = G.assemble_gammas(ext_reg, ssa_reg, geo["f_exchange"],
+                                     geo["f_wall"], ones, wall_factor, lg,
+                                     nreg)
+    em = G.emission_rates(ext_reg, ssa_reg, planck_reg, frac,
+                          geo["norm_perim_wall"], facets["wall_emission"], lg,
+                          nreg)
+
+    # Emission bookkeeping (radsurf_urban_lw.F90:446-477)
+    emiss_factor = 2.0 * float(np.sum(np.asarray(lg.hweight)
+                                      / np.asarray(lg.mu)))
+    em["emiss_reg"] = emiss_factor * em["volume_emiss"]  # [C, L, S, nreg]
+    if nreg > 1:
+        # clear-air properties (radsurf_urban_lw.F90:466-469)
+        air_src = inp.air_ext * (1.0 - inp.air_ssa) * inp.veg_air_planck
+        em["emiss_air"] = emiss_factor * frac[..., None, 1:] * air_src[..., None]
+        em["emiss_veg"] = (emiss_factor * frac[..., None, 1:]
+                           * (inp.veg_ext[..., None] * (1.0 - inp.veg_ssa)
+                              * inp.veg_planck)[..., None]
+                           * geo["od_scaling"][..., None, :])
+    else:
+        em["emiss_air"] = em["emiss_veg"] = inp.air_ext.new_zeros((C, L, S, 1))
+    em["emiss_wall"] = (geo["norm_perim_wall"].sum(-1)[..., None]
+                        * lg.vadjustment * facets["wall_emission"])  # [C, L, S]
+    # Exposed-roof fraction at the top of each layer
+    # (radsurf_urban_lw.F90:589-599; zero for forests, _sanitize_forest)
+    bf_above = torch.cat([inp.building_fraction[:, 1:],
+                          inp.building_fraction.new_zeros((C, 1))], dim=1)
+    facets["exposed_roof"] = (inp.building_fraction - bf_above).clamp_min(0.0)
+    return geo, facets, (g1, g2), em
+
+
+def _lw_top_bc(a_top, source_top, hw, ns):
+    """Top-of-canopy emissivity and emission (radsurf_urban_lw.F90:629-637)."""
+    return {"top_emissivity": 1.0 - (a_top[..., :ns, :ns] @ hw).sum(-1),
+            "top_emission": source_top[..., :ns].sum(-1)}
+
+
+def _lw_ground_fluxes(outs, dn_fin, up_fin, with_source, lg, nreg, bc):
+    """Ground and top-of-canopy entries (radsurf_urban_lw.F90:806-828)."""
+    dtype, dev = dn_fin.dtype, dn_fin.device
+    outs["ground_dn"] = dn_fin.sum(-1)
+    outs["ground_net"] = outs["ground_dn"] - up_fin.sum(-1)
+    tan_over_pi = torch.as_tensor(np.tile(lg.tan_ang, nreg) / Pi, dtype=dtype,
+                                  device=dev)
+    outs["ground_vertical_diff"] = (dn_fin + up_fin) @ tan_over_pi
+    if with_source:
+        outs["top_dn"] = torch.zeros_like(outs["ground_dn"])
+        outs["top_net"] = -bc["top_emission"]
+    else:
+        outs["top_dn"] = torch.ones_like(outs["ground_dn"])
+        outs["top_net"] = bc["top_emissivity"]
+    return outs
+
+
+def _lw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
+             with_profiles: bool = False):
+    nreg, ns = opt.nreg, lg.nstream
+    nd = nreg * ns
+    C, L = inp.dz.shape
+    S = inp.air_ext.shape[-1]
+    dtype, dev = inp.air_ext.dtype, inp.air_ext.device
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
+
+    geo, facets, (g1, g2), em = _lw_front(inp, opt, lg)
+    N = C * L * S
+    lay = lw_layer_matrices_chunked(
+        g1.reshape(N, nd, nd), g2.reshape(N, nd, nd),
+        em["emiss_rate"].reshape(N, nd),
+        inp.dz[:, :, None].expand(C, L, S).reshape(N),
+        n_double=opt.n_double, chunk=opt.factory_chunk)
+    lay = {k: v.reshape((C, L, S) + v.shape[1:]) for k, v in lay.items()}
+
+    # ---- ground operators (radsurf_urban_lw.F90:551-565)
+    same_reg = torch.block_diag(*[hw[:, None].expand(ns, ns)] * nreg)
+    a_ground = (1.0 - inp.ground_emissivity)[:, :, None, None] * same_reg
+    frac0 = geo["frac"][:, 0, :]  # lowest-layer fractions [C, nreg]
+    source_ground = (inp.ground_emission[:, :, None]
+                     * (frac0[:, :, None] * hw).reshape(C, 1, nd))  # [C, S, nd]
+
+    # ---- upward adding recurrence (radsurf_urban_lw.F90:567-627)
+    eye = torch.eye(nd, dtype=dtype, device=dev)
+    nd2 = (nreg + 1) * ns
+    a_above, source_above = a_ground, source_ground
+    ups = []
+    for l in range(L):
+        R, T, p = lay["R"][:, l], lay["T"][:, l], lay["p"][:, l]
+        denom = eye - matmul(a_above, R)
+        a_below_reg = R + matmul(T, solve(denom, matmul(a_above, T)))
+        # Eq. 34 (radsurf_urban_lw.F90:583-587)
+        src_rhs = solve(denom, source_above + matvec(a_above, p))
+        a_below = inp.air_ext.new_zeros((C, S, nd2, nd2))
+        a_below[..., :nd, :nd] = a_below_reg
+        a_below[..., nd:, nd:] = ((1.0 - facets["roof_emissivity"][:, l])
+                                  [..., None, None] * hw[:, None])
+        source_below = torch.cat([
+            p + matvec(T, src_rhs),
+            (facets["roof_emission"][:, l]
+             * facets["exposed_roof"][:, l, None])[..., None] * hw], dim=-1)
+        ups.append((a_above, source_above, denom, a_below, source_below))
+        a_above = _u_mat_v(geo["u_ov"][:, l], a_below, geo["v_ov"][:, l], ns)
+        source_above = _ov_vec(geo["u_ov"][:, l], source_below, ns)
+    bc = _lw_top_bc(a_above, source_above, hw, ns)
+
+    # ---- downward flux recurrences (radsurf_urban_lw.F90:639-858)
+    ab_coef = inp.air_ext * (1.0 - inp.air_ssa)  # [C, L, S]
+    vb_coef = inp.veg_ext[..., None] * (1.0 - inp.veg_ssa)
+    od = _pad_od(geo["od_scaling"])
+
+    def sweep(with_source):
+        dn = inp.air_ext.new_zeros((C, S, nd))
+        if not with_source:
+            dn[..., :ns] = hw
+        per_layer = [None] * L
+        for l in range(L - 1, -1, -1):
+            R, T, p = lay["R"][:, l], lay["T"][:, l], lay["p"][:, l]
+            a_above, source_above, denom, a_below, source_below = ups[l]
+            dz_l = inp.dz[:, l, None]
+            dn_below = _ov_vec(geo["v_ov"][:, l], dn, ns)  # [C, S, nd2]
+            up_below = matvec(a_below, dn_below)
+            if with_source:
+                up_below = up_below + source_below
+            out = {"roof_in": dn_below[..., nd:].sum(-1)}
+            out["roof_net"] = out["roof_in"] - up_below[..., nd:].sum(-1)
+            rhs = matvec(T, dn_below[..., :nd])
+            if with_source:
+                rhs = rhs + matvec(R, source_above) + p
+            dn_new = solve(denom, rhs)
+            up_above = matvec(a_above, dn_new)
+            if with_source:
+                up_above = up_above + source_above
+            if with_profiles:
+                out["flux_dn_layer_top"] = dn_below[..., :nd].sum(-1)
+                out["flux_up_layer_top"] = up_below[..., :nd].sum(-1)
+                out["flux_dn_layer_base"] = dn_new.sum(-1)
+                out["flux_up_layer_base"] = up_above.sum(-1)
+            conv = dn_below[..., :nd] - dn_new - up_below[..., :nd] + up_above
+            int_flux = matvec(lay["int_diff"][:, l], conv)
+            if with_source:
+                int_flux = int_flux + lay["int_source"][:, l]
+            iflux = int_flux.reshape(C, S, nreg, ns)
+            if_mu = iflux @ (1.0 / mu)
+            ab, vb = ab_coef[:, l], vb_coef[:, l]
+            out["clear_air_abs"] = ab * if_mu[..., 0]
+            if nreg > 1:
+                out["veg_air_abs"] = ab * if_mu[..., 1:].sum(-1)
+                out["veg_abs"] = vb * (if_mu[..., 1:] * od[:, l][:, None, :]).sum(-1)
+            if with_source:
+                out["clear_air_abs"] = (out["clear_air_abs"]
+                                        - em["emiss_reg"][:, l, :, 0] * dz_l)
+                if nreg > 1:
+                    out["veg_air_abs"] = (out["veg_air_abs"]
+                                          - em["emiss_air"][:, l].sum(-1) * dz_l)
+                    out["veg_abs"] = (out["veg_abs"]
+                                      - em["emiss_veg"][:, l].sum(-1) * dz_l)
+            if opt.do_urban:
+                out["wall_in"] = torch.einsum("cr,csr->cs", geo["f_wall"][:, l],
+                                              iflux @ tan_s)
+                out["wall_net"] = out["wall_in"] * facets["wall_emissivity"][:, l]
+                if with_source:
+                    out["wall_net"] = (out["wall_net"]
+                                       - em["emiss_wall"][:, l] * dz_l)
+            per_layer[l] = out
+            dn = dn_new
+        outs = {k: torch.stack([o[k] for o in per_layer], dim=1)
+                for k in per_layer[0]}
+        up_fin = matvec(a_ground, dn)
+        if with_source:
+            up_fin = up_fin + source_ground
+        return _lw_ground_fluxes(outs, dn, up_fin, with_source, lg, nreg, bc)
+
+    return sweep(True), sweep(False), bc
+
+
+def _lw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
+                    with_profiles: bool = False):
+    """K1 (LW mode) -> K4 -> K5 in the [L, rows, B] layout (B = C*S), then
+    the ground fluxes in closed form (cf. JAX _lw_pallas_path)."""
+    _check_no_grad(inp)
+    nreg, ns = opt.nreg, lg.nstream
+    nd = nreg * ns
+    C, L = inp.dz.shape
+    S = inp.air_ext.shape[-1]
+    B = C * S
+    dtype, dev = inp.air_ext.dtype, inp.air_ext.device
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    hw = t(lg.hweight)
+
+    geo, facets, (g1, g2), em = _lw_front(inp, opt, lg)
+    dz_cls = inp.dz[:, :, None].expand(C, L, S)
+    lay = lw_layer_factory(_soa(g1), _soa(g2), _soa(em["emiss_rate"][..., None]),
+                           _soa_cls(dz_cls), nd=nd, n_double=opt.n_double,
+                           chunk=opt.factory_chunk)
+
+    # ---- K4: up-sweep
+    ov = lambda x: x.permute(1, 2, 3, 0).reshape(L, -1, C).contiguous()
+    uov, vov = ov(geo["u_ov"]), ov(geo["v_ov"])
+    frac0 = geo["frac"][:, 0, :, None].expand(C, nreg, S)  # [C, nreg, S]
+    grd = torch.cat([inp.ground_emissivity.reshape(1, B),
+                     inp.ground_emission.reshape(1, B),
+                     frac0.permute(1, 0, 2).reshape(nreg, B)]).contiguous()
+    exposed = facets["exposed_roof"][..., None].expand(C, L, S)
+    stacks, top = lw_up_sweep(
+        lay["R"], lay["T"], lay["p"], uov, vov,
+        _soa_cls(facets["roof_emissivity"]), _soa_cls(facets["roof_emission"]),
+        _soa_cls(exposed), grd, hw, nd=nd, ns=ns, nreg=nreg)
+    bc = _lw_top_bc(top[:nd * nd].t().reshape(C, S, nd, nd),
+                    top[nd * nd:].t().reshape(C, S, nd), hw, ns)
+
+    # ---- K5: both source modes in one down-sweep.  aux rows per layer:
+    # [f_wall (nreg) | od (max(nreg-1, 1)) | ab_coef | vb_coef |
+    #  wall_emissivity | sub_air | sub_vegair | sub_veg | sub_wall]
+    dz_cs = inp.dz[:, :, None]
+    per_col = torch.cat([geo["f_wall"], _pad_od(geo["od_scaling"])], dim=-1)
+    per_band = [inp.air_ext * (1.0 - inp.air_ssa),
+                inp.veg_ext[..., None] * (1.0 - inp.veg_ssa),
+                facets["wall_emissivity"],
+                em["emiss_reg"][..., 0] * dz_cs,
+                em["emiss_air"].sum(-1) * dz_cs,
+                em["emiss_veg"].sum(-1) * dz_cs,
+                em["emiss_wall"] * dz_cs]
+    aux = torch.cat([
+        per_col.permute(1, 2, 0)[..., None].expand(-1, -1, C, S).reshape(L, -1, B),
+        torch.stack([_soa_cls(x.expand(C, L, S)) for x in per_band], dim=1),
+    ], dim=1)
+    outs, fin = lw_down_sweep_both(
+        lay["R"], lay["T"], lay["p"], lay["int_diff"], lay["int_source"],
+        stacks, vov, aux, hw, t(1.0 / np.asarray(lg.mu)), t(lg.tan_ang),
+        nd=nd, ns=ns, nreg=nreg, do_urban=opt.do_urban,
+        with_profiles=with_profiles)
+
+    # ---- unpack; ground fluxes without forming the ground operators
+    names = lw_out_rows(opt.do_urban, nreg, with_profiles)
+    geps, gemit = inp.ground_emissivity, inp.ground_emission
+    results = []
+    for mode, with_source in enumerate((True, False)):
+        rows = outs[:, mode * len(names):(mode + 1) * len(names)]
+        res = {k: rows[:, i].reshape(L, C, S).permute(1, 0, 2)
+               for i, k in enumerate(names)}
+        dn_fin = fin[mode * nd:(mode + 1) * nd].t().reshape(C, S, nd)
+        dsum = dn_fin.reshape(C, S, nreg, ns).sum(-1)
+        up = (1.0 - geps)[..., None, None] * hw * dsum[..., None]
+        if with_source:
+            up = up + gemit[..., None, None] * geo["frac"][:, None, 0, :, None] * hw
+        results.append(_lw_ground_fluxes(res, dn_fin, up.reshape(C, S, nd),
+                                         with_source, lg, nreg, bc))
+    return results[0], results[1], bc
+
+
+# ----------------------------------------------------------------------
 # Public entry point
 # ----------------------------------------------------------------------
 
@@ -640,6 +926,7 @@ def _sanitize_forest(inp: CanopyInputs, opt: SolverOptions) -> CanopyInputs:
 
 
 _ROUTES = {"kernel": _sw_kernel_path, "scan": _sw_scan}
+_LW_ROUTES = {"kernel": _lw_kernel_path, "scan": _lw_scan}
 
 
 def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
@@ -654,5 +941,21 @@ def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     Parity: radsurf_urban_sw.F90:35-1007.
     """
     return _chunked_solve(_ROUTES[route],
+                          _coerce_dtype(_sanitize_forest(inp, opt)),
+                          opt, lg, with_profiles)
+
+
+def spartacus_lw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
+                 with_profiles: bool = False, route: str = "kernel"):
+    """Longwave solve for one column group.
+
+    Returns (internal, norm, bc): `internal` holds the fluxes from emission
+    within the canopy, `norm` those normalized by unit top-of-canopy
+    downwelling, and bc = {"top_emissivity", "top_emission"} [C, S].
+    route: "kernel" (K1 in LW mode -> K4 -> K5; CUDA kernels on CUDA
+    tensors, their plain versions on CPU tensors) or "scan" (the plain
+    reference).  Parity: radsurf_urban_lw.F90:35-883.
+    """
+    return _chunked_solve(_LW_ROUTES[route],
                           _coerce_dtype(_sanitize_forest(inp, opt)),
                           opt, lg, with_profiles)

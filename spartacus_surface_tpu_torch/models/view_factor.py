@@ -23,11 +23,14 @@ _EXP_NODES = np.array(
 )
 
 
-def view_factors_inf(h, cos_sza):
+def view_factors_inf(h, cos_sza=None):
     """Infinite-street view factors (radsurf_view_factor.F90:28-70):
-    (view_ground_sky, view_wall_wall, view_dir_ground)."""
+    (view_ground_sky, view_wall_wall, view_dir_ground), without the last
+    when cos_sza is None (longwave)."""
     view_ground_sky = torch.sqrt(h * h + 1.0) - h
     view_wall_wall = torch.sqrt(1.0 / (h * h) + 1.0) - 1.0 / h
+    if cos_sza is None:
+        return view_ground_sky, view_wall_wall
     norm_x0 = (Pi * 0.5) * h * torch.sqrt(1.0 / (cos_sza * cos_sza) - 1.0)
     y_over_w = torch.sqrt((norm_x0 * norm_x0 - 1.0).clamp_min(0.0))
     pos = y_over_w > 0.0
@@ -40,7 +43,7 @@ def view_factors_inf(h, cos_sza):
     return view_ground_sky, view_wall_wall, view_dir_ground
 
 
-def view_factors_exp(r, cos_sza):
+def view_factors_exp(r, cos_sza=None):
     """Exponential-model view factors (radsurf_view_factor.F90:76-138),
     Eqs. 41/42 of Hogan (2019a); returns as view_factors_inf."""
     w = torch.as_tensor(_EXP_WEIGHTS, dtype=r.dtype, device=r.device)
@@ -52,5 +55,7 @@ def view_factors_exp(r, cos_sza):
     exp_tk = torch.exp(-tk)
     view_ground_sky = (hweight * exp_tk).sum(-1)
     view_wall_wall = 1.0 - (vweight * (1.0 - exp_tk) / tk).sum(-1)
+    if cos_sza is None:
+        return view_ground_sky, view_wall_wall
     norm_x0 = r * torch.sqrt(1.0 / (cos_sza * cos_sza) - 1.0)
     return view_ground_sky, view_wall_wall, torch.exp(-norm_x0)

@@ -2,9 +2,13 @@
 
 Replaces the TPU kernel ``pallas_layer_thin_double`` (structured branch:
 ``_layer_kernel_structured`` + ``_extract_double`` + ``_schur_int_kernel``,
-spartacus_surface_tpu/ops/pallas_layer.py:495, 350, 212).  CUDA source:
-csrc/layer_factory.cu.  Plain version: ``layer_factory_plain``, which runs
-ops/layer_matrices.py on the same operands.
+spartacus_surface_tpu/ops/pallas_layer.py:495, 350, 212), for the shortwave
+(``layer_factory``) and for the longwave emission pseudo-beam
+(``lw_layer_factory``, as ``pallas_lw_layer_tiles`` :1013 calls it: ndir = 1,
+gamma0 = 0, gamma3 = b, no direct-beam integrals).  CUDA source:
+csrc/layer_factory.cu.  Plain versions: ``layer_factory_plain`` and
+``lw_layer_factory_plain``, which run ops/layer_matrices.py on the same
+operands.
 
 Layout: every operand is [L, rows, B] (B = columns x bands, the batch
 contiguous), so thread b reads row r of layer l at (l*rows + r)*B + b and a
@@ -31,6 +35,12 @@ from . import cuda_build
 from .layer_matrices import layer_matrices_chunked, pade7_theta
 
 OUT_NAMES = ("R", "T", "E", "Sup", "Sdn", "int_diff", "int_dir", "int_dir_diff")
+LW_OUT_NAMES = ("R", "T", "p", "int_diff", "int_source")
+
+
+def out_names(int_direct: bool = True) -> tuple:
+    """The factory's outputs: without int_direct, no int_dir / int_dir_diff."""
+    return OUT_NAMES if int_direct else OUT_NAMES[:6]
 
 
 def out_rows(nd: int, ndir: int) -> dict:
@@ -47,20 +57,22 @@ def workspace_rows(nd: int, ndir: int) -> int:
 
 
 def layer_factory_plain(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30,
-                        chunk=65536):
+                        chunk=65536, int_direct=True):
     """Plain PyTorch version of K1 on the same [L, rows, B] operands."""
     L, _, B = g1.shape
     mat = lambda x, n, m: x.permute(0, 2, 1).reshape(L * B, n, m)
     lay = layer_matrices_chunked(
         mat(g0, ndir, ndir), mat(g1, nd, nd), mat(g2, nd, nd),
-        mat(g3, nd, ndir), dz.reshape(L * B), n_double=n_double, chunk=chunk)
+        mat(g3, nd, ndir), dz.reshape(L * B), n_double=n_double, chunk=chunk,
+        int_direct=int_direct)
     return {k: lay[k].reshape(L, B, -1).permute(0, 2, 1).contiguous()
-            for k in OUT_NAMES}
+            for k in out_names(int_direct)}
 
 
-def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536):
-    """K1: per-layer operators R, T, E, Sup, Sdn, int_diff, int_dir,
-    int_dir_diff, each [L, rows, B].
+def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
+                  int_direct=True):
+    """K1: per-layer operators R, T, E, Sup, Sdn, int_diff and, with
+    int_direct, int_dir and int_dir_diff, each [L, rows, B].
 
     g0 [L, ndir^2, B], g1/g2 [L, nd^2, B], g3 [L, nd*ndir, B], dz [L, B].
     CUDA tensors launch csrc/layer_factory.cu (in chunks of `chunk`
@@ -73,7 +85,8 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536):
         "dz": (dz, (L, B))})
     if dev.type == "cpu":
         return layer_factory_plain(g0, g1, g2, g3, dz, nd=nd, ndir=ndir,
-                                   n_double=n_double, chunk=chunk)
+                                   n_double=n_double, chunk=chunk,
+                                   int_direct=int_direct)
     if not (nd >= 2 * ndir and nd >= 2):
         raise NotImplementedError(
             f"nd={nd}, ndir={ndir} needs the dense factory (K1d, the TPU"
@@ -81,32 +94,92 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536):
     with torch.cuda.device(dev):
         return launch(cuda_build.load("layer_factory"), g0, g1, g2, g3, dz,
                       nd=nd, ndir=ndir, n_double=n_double, chunk=chunk,
-                      stream=cuda_build.stream(dev))
+                      int_direct=int_direct, stream=cuda_build.stream(dev))
 
 
-def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream):
+def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
+           int_direct=True):
     """Allocate outputs and workspace and launch lib's layer_factory_f32/f64
-    over the elements in chunks; counts each launch."""
+    over the elements in chunks; counts each launch (and, without
+    int_direct, each in lw_layer_factory.launches too)."""
     L, _, B = g1.shape
     fn = lib.layer_factory_f32 if g1.dtype == torch.float32 else lib.layer_factory_f64
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
                    + [ctypes.c_double] + [ctypes.c_longlong] * 3
                    + [ctypes.c_void_p])
     rows = out_rows(nd, ndir)
-    outs = {k: g1.new_empty((L, rows[k], B)) for k in OUT_NAMES}
+    outs = {k: g1.new_empty((L, rows[k], B)) for k in out_names(int_direct)}
     total = L * B
     step = max(1, min(chunk or total, total))
     ws = g1.new_empty((workspace_rows(nd, ndir) * step,))
     for j0 in range(0, total, step):
         n = min(step, total - j0)
         err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz)),
-                 *(cuda_build.ptr(outs[k]) for k in OUT_NAMES),
-                 cuda_build.ptr(ws), nd, ndir, n_double,
+                 *(cuda_build.ptr(outs[k]) if k in outs else None
+                   for k in OUT_NAMES),
+                 cuda_build.ptr(ws), nd, ndir, n_double, int(int_direct),
                  pade7_theta(g1.dtype), B, j0, n, stream)
         cuda_build.check(err, "layer_factory")
         layer_factory.launches += 1
+        if not int_direct:
+            lw_layer_factory.launches += 1
     return outs
 
 
 layer_factory.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Longwave: the emission as a unit pseudo-beam through the same kernel
+# ----------------------------------------------------------------------
+
+def _lw_operands(g1, b):
+    """gamma0 = 0 [L, 1, B] and gamma3 = b for the LW pseudo-beam."""
+    L, _, B = g1.shape
+    return g1.new_zeros((L, 1, B)), b
+
+
+def _lw_post(lay, b, dz, nd):
+    """p = (Sup + Sdn) / 2 and int_source = 2 int_diff b dz on the
+    [L, rows, B] layout (lane-wise, as pallas_lw_layer_tiles does it outside
+    its Pallas kernel)."""
+    L, _, B = b.shape
+    idiff = lay["int_diff"].reshape(L, nd, nd, B)
+    return {"R": lay["R"], "T": lay["T"], "p": 0.5 * (lay["Sup"] + lay["Sdn"]),
+            "int_diff": lay["int_diff"],
+            "int_source": (2.0 * torch.einsum("lnkb,lkb->lnb", idiff, b)
+                           * dz[:, None, :]).contiguous()}
+
+
+def lw_layer_factory_plain(g1, g2, b, dz, *, nd, n_double=30, chunk=65536):
+    """Plain PyTorch version of K1's LW use; see lw_layer_factory."""
+    g0, g3 = _lw_operands(g1, b)
+    lay = layer_factory_plain(g0, g1, g2, g3, dz, nd=nd, ndir=1,
+                              n_double=n_double, chunk=chunk, int_direct=False)
+    return _lw_post(lay, b, dz, nd)
+
+
+def lw_layer_factory(g1, g2, b, dz, *, nd, n_double=30, chunk=65536):
+    """K1 in its LW mode: R, T [L, nd^2, B], p [L, nd, B], int_diff
+    [L, nd^2, B], int_source [L, nd, B] for the emission rate b [L, nd, B]
+    (g1/g2 [L, nd^2, B], dz [L, B]).  K1 runs with ndir = 1, gamma0 = 0,
+    gamma3 = b and int_direct off; CUDA tensors launch it (counted in
+    layer_factory.launches and lw_layer_factory.launches), CPU tensors take
+    the plain version.
+    """
+    g0, g3 = _lw_operands(g1, b)
+    lay = layer_factory(g0, g1, g2, g3, dz, nd=nd, ndir=1, n_double=n_double,
+                        chunk=chunk, int_direct=False)
+    return _lw_post(lay, b, dz, nd)
+
+
+def launch_lw(lib, g1, g2, b, dz, *, nd, n_double, chunk, stream):
+    """lw_layer_factory through lib's layer_factory_f32/f64 (see launch)."""
+    g0, g3 = _lw_operands(g1, b)
+    lay = launch(lib, g0, g1, g2, g3, dz, nd=nd, ndir=1, n_double=n_double,
+                 chunk=chunk, stream=stream, int_direct=False)
+    return _lw_post(lay, b, dz, nd)
+
+
+lw_layer_factory.launches = 0

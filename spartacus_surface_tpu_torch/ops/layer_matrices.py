@@ -12,14 +12,16 @@ assemble the two-point boundary-value matrix
 diagonal Pade-7 approximant with K = ceil(log2(||Gamma dz||_inf / theta))
 capped at n_double, extract the thin-layer R, T, E, Sup, Sdn, run K
 adding-doubling steps (each element its own K), and form the block-Schur
-Gamma-inverse absorption integrals (radtool_schur.F90:32-53).
+Gamma-inverse absorption integrals (radtool_schur.F90:32-53).  The longwave
+runs the same factory with the emission as a unit pseudo-beam
+(``lw_layer_matrices``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .matrix import expm_pade7, inv, matmul, solve
+from .matrix import expm_pade7, inv, matmul, matvec, solve
 
 # Per-precision Pade-7 scaling threshold (see the JAX module): every path of
 # one precision picks the same K per element.
@@ -55,14 +57,14 @@ def combine_layers(top: dict, bot: dict) -> dict:
 
 
 def layer_matrices(gamma0, gamma1, gamma2, gamma3, dz, *,
-                   n_double: int = 30) -> dict:
-    """Per-layer operators for a batch of layers (the shortwave form of the
-    JAX function: with_int and int_direct on; the longwave slice adds the
-    pseudo-beam variant).
+                   n_double: int = 30, int_direct: bool = True) -> dict:
+    """Per-layer operators for a batch of layers (the JAX function with
+    with_int on).
 
     gamma0 [..., ndir, ndir], gamma1/gamma2 [..., nd, nd],
     gamma3 [..., nd, ndir], dz [...] (0 gives the exact identity layer).
-    Returns R, T, E, Sup, Sdn, int_diff, int_dir, int_dir_diff.
+    Returns R, T, E, Sup, Sdn, int_diff and, with int_direct, int_dir and
+    int_dir_diff (False for the longwave, where gamma0 = 0 is singular).
     """
     nd = gamma1.shape[-1]
     ndir = gamma0.shape[-1]
@@ -105,21 +107,54 @@ def layer_matrices(gamma0, gamma1, gamma2, gamma3, dz, *,
     # Block-Schur inverse of the unscaled Gamma (radtool_schur.F90:45-51)
     g1i = inv(gamma1 - matmul(gamma2, solve(gamma1, gamma2)))
     g2i = matmul(g1i, matmul(gamma2, inv(gamma1)))
-    g0i = inv(gamma0)
     lay["int_diff"] = g2i - g1i
-    lay["int_dir"] = -g0i
-    lay["int_dir_diff"] = 2.0 * matmul(g1i - g2i, matmul(gamma3, g0i))
+    if int_direct:
+        g0i = inv(gamma0)
+        lay["int_dir"] = -g0i
+        lay["int_dir_diff"] = 2.0 * matmul(g1i - g2i, matmul(gamma3, g0i))
     return lay
 
 
-def layer_matrices_chunked(gamma0, gamma1, gamma2, gamma3, dz, *, n_double,
-                           chunk):
-    """layer_matrices over a flat batch (operands [N, n, m], dz [N]) in
-    chunks of `chunk` elements, which bounds the expm working set."""
-    n = dz.shape[0]
+def _chunked(fn, operands, chunk, **kw):
+    """fn over a flat batch (operands [N, ...]) in chunks of `chunk`
+    elements (0: all at once), which bounds the expm working set."""
+    n = operands[-1].shape[0]
     step = max(1, min(chunk, n)) if chunk else n
-    parts = [layer_matrices(gamma0[i:i + step], gamma1[i:i + step],
-                            gamma2[i:i + step], gamma3[i:i + step],
-                            dz[i:i + step], n_double=n_double)
+    parts = [fn(*(x[i:i + step] for x in operands), **kw)
              for i in range(0, n, step)]
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def layer_matrices_chunked(gamma0, gamma1, gamma2, gamma3, dz, *, n_double,
+                           chunk, int_direct=True):
+    """layer_matrices over a flat batch (operands [N, n, m], dz [N]) in
+    chunks of `chunk` elements."""
+    return _chunked(layer_matrices, (gamma0, gamma1, gamma2, gamma3, dz),
+                    chunk, n_double=n_double, int_direct=int_direct)
+
+
+def lw_layer_matrices_chunked(gamma1, gamma2, emiss_rate, dz, *, n_double,
+                              chunk):
+    """lw_layer_matrices over a flat batch (gamma [N, nd, nd], emiss_rate
+    [N, nd], dz [N]) in chunks of `chunk` elements."""
+    return _chunked(lw_layer_matrices, (gamma1, gamma2, emiss_rate, dz),
+                    chunk, n_double=n_double)
+
+
+def lw_layer_matrices(gamma1, gamma2, emiss_rate, dz, *,
+                      n_double: int = 30) -> dict:
+    """Longwave operators: the emission rate b [..., nd] ("b" of Eq. 32 of
+    Hogan 2019) as a unit pseudo-beam (ndir = 1, gamma0 = 0, gamma3 = b).
+
+    Returns R, T, the source p = (Sup + Sdn) / 2 [..., nd] (equal
+    analytically; the mean symmetrizes rounding), int_diff and the emission
+    part of the integrated flux int_source = 2 int_diff b dz [..., nd].
+    """
+    gamma0 = gamma1.new_zeros(gamma1.shape[:-2] + (1, 1))
+    lay = layer_matrices(gamma0, gamma1, gamma2, emiss_rate[..., None], dz,
+                         n_double=n_double, int_direct=False)
+    dz = torch.as_tensor(dz, dtype=gamma1.dtype, device=gamma1.device)
+    return {"R": lay["R"], "T": lay["T"],
+            "p": 0.5 * (lay["Sup"][..., 0] + lay["Sdn"][..., 0]),
+            "int_diff": lay["int_diff"],
+            "int_source": 2.0 * matvec(lay["int_diff"], emiss_rate) * dz[..., None]}

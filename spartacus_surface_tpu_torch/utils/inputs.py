@@ -13,9 +13,11 @@ import numpy as np
 from .constants import StefanBoltzmann as SB
 
 
-def example_inputs(C=8, L=4, S=2, dtype=np.float32, seed=0) -> dict:
-    """Shortwave CanopyInputs fields ({name: numpy array}) of one column
-    group (vegetated urban canopy)."""
+def example_inputs(C=8, L=4, S=2, dtype=np.float32, seed=0, lw=False) -> dict:
+    """CanopyInputs fields ({name: numpy array}) of one column group
+    (vegetated urban canopy): the shortwave fields, or with lw=True the
+    longwave ones (``_example_inputs``'s lw_inp: air_ssa = 0 and uniform
+    emissivities and Planck fields; no further draws)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.uniform(0.1, 0.4, s).astype(dtype)
     bf = np.sort(rng.uniform(0.05, 0.3, (C, L)).astype(dtype), axis=1)[:, ::-1]
@@ -33,7 +35,7 @@ def example_inputs(C=8, L=4, S=2, dtype=np.float32, seed=0) -> dict:
         air_ssa=np.full((C, L, S), 0.999, dtype),
         veg_ssa=f(C, L, S),
     )
-    kw.update(
+    sw = dict(
         ground_albedo=f(C, S),
         ground_albedo_dir=f(C, S),
         roof_albedo=f(C, L, S),
@@ -41,7 +43,45 @@ def example_inputs(C=8, L=4, S=2, dtype=np.float32, seed=0) -> dict:
         wall_albedo=f(C, L, S),
         wall_specular_frac=f(C, L, S),
     )
-    return kw
+    if not lw:
+        return {**kw, **sw}
+    return {**kw, "air_ssa": np.zeros((C, L, S), dtype), **_lw_fields(C, L, S, dtype)}
+
+
+def _lw_fields(C, L, S, dtype) -> dict:
+    """The uniform LW facet and Planck fields of __graft_entry__'s builders."""
+    full = lambda shape, v: np.full(shape, v, dtype)
+    return dict(
+        ground_emissivity=full((C, S), 0.95),
+        ground_emission=full((C, S), SB * 0.95 * 290.0**4),
+        roof_emissivity=full((C, L, S), 0.9),
+        roof_emission=full((C, L, S), SB * 0.9 * 285.0**4),
+        wall_emissivity=full((C, L, S), 0.9),
+        wall_emission=full((C, L, S), SB * 0.9 * 288.0**4),
+        clear_air_planck=full((C, L, S), SB * 283.0**4),
+        veg_planck=full((C, L, S), SB * 284.0**4),
+        veg_air_planck=full((C, L, S), SB * 283.0**4),
+    )
+
+
+def random_lw_fields(C, L, S, dtype=np.float32, seed=0) -> dict:
+    """LW facet and Planck fields drawn per column, layer and band from a
+    seeded generator (temperatures 270-310 K, emissivities 0.85-1), for
+    checks that uniform fields cannot make (a kernel that reads the wrong
+    column, layer or band).  Keys as in example_inputs(..., lw=True)."""
+    rng = np.random.default_rng(seed)
+    temp = lambda *s: rng.uniform(270.0, 310.0, s)
+    eps = lambda *s: rng.uniform(0.85, 1.0, s)
+    eg, er, ew = eps(C, S), eps(C, L, S), eps(C, L, S)
+    out = dict(
+        ground_emissivity=eg, ground_emission=SB * eg * temp(C, S) ** 4,
+        roof_emissivity=er, roof_emission=SB * er * temp(C, L, S) ** 4,
+        wall_emissivity=ew, wall_emission=SB * ew * temp(C, L, S) ** 4,
+        clear_air_planck=SB * temp(C, L, S) ** 4,
+        veg_planck=SB * temp(C, L, S) ** 4,
+        veg_air_planck=SB * temp(C, L, S) ** 4,
+    )
+    return {k: v.astype(dtype) for k, v in out.items()}
 
 
 def example_arrays(C=12, L=3, S=1, dtype=np.float32, seed=1,
@@ -81,13 +121,5 @@ def example_arrays(C=12, L=3, S=1, dtype=np.float32, seed=1,
         lw_air_ext=np.full((C, L, S), 1e-5, dtype),
         lw_air_ssa=np.zeros((C, L, S), dtype),
         lw_veg_ssa=f(C, L, S),
-        ground_emissivity=np.full((C, S), 0.95, dtype),
-        ground_emission=np.full((C, S), SB * 0.95 * 290.0**4, dtype),
-        roof_emissivity=np.full((C, L, S), 0.9, dtype),
-        roof_emission=np.full((C, L, S), SB * 0.9 * 285.0**4, dtype),
-        wall_emissivity=np.full((C, L, S), 0.9, dtype),
-        wall_emission=np.full((C, L, S), SB * 0.9 * 288.0**4, dtype),
-        clear_air_planck=np.full((C, L, S), SB * 283.0**4, dtype),
-        veg_planck=np.full((C, L, S), SB * 284.0**4, dtype),
-        veg_air_planck=np.full((C, L, S), SB * 283.0**4, dtype),
+        **_lw_fields(C, L, S, dtype),
     )

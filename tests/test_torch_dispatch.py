@@ -1,7 +1,8 @@
-"""run_radsurf (do_lw = False) and the flux utilities of the port against the
-JAX package, float64 on the CPU, on __graft_entry__._example_arrays (every
-tile type: Flat, Forest, Urban, VegetatedUrban, SimpleUrban,
-InfiniteStreet).  Tolerance 1e-9 field-normalized (bench.py:115-133)."""
+"""run_radsurf (do_lw = False; do_lw = True is in tests/test_torch_lw.py) and
+the flux utilities of the port against the JAX package, float64 on the CPU,
+on __graft_entry__._example_arrays (every tile type: Flat, Forest, Urban,
+VegetatedUrban, SimpleUrban, InfiniteStreet).  Tolerance 1e-9
+field-normalized (bench.py:115-133)."""
 
 import functools
 
@@ -52,10 +53,12 @@ def test_example_builders_match_graft_entry():
     assert set(ref) == set(got)
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    sw, _ = graft._example_inputs(C=5, L=3, S=2, dtype=np.float32, lw=False)
-    got = example_inputs(C=5, L=3, S=2, dtype=np.float32)
-    for k, v in got.items():
-        np.testing.assert_array_equal(v, getattr(sw, k), err_msg=k)
+    sw, lw = graft._example_inputs(C=5, L=3, S=2, dtype=np.float32, lw=True)
+    for ref, flag in ((sw, False), (lw, True)):
+        got = example_inputs(C=5, L=3, S=2, dtype=np.float32, lw=flag)
+        assert set(got) == {k for k, v in vars(ref).items() if v is not None}
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, getattr(ref, k), err_msg=k)
 
 
 @pytest.mark.parametrize("route", ["kernel", "scan"])
@@ -89,8 +92,3 @@ def test_flux_utils_match_jax():
     jres = JFU.check_flux(jtotal, a, "sw", printer=lambda *_: None)
     np.testing.assert_allclose(res, jres, atol=1e-9)
     assert np.abs(res).max() < 1e-9 and len(lines) == 13
-
-
-def test_longwave_is_refused():
-    with pytest.raises(NotImplementedError):
-        run_radsurf(Config().consolidate(), arrays(), "cpu")

@@ -1,6 +1,8 @@
-"""The three hand-written kernels (K1 layer factory, K2 SW up-sweep, K3 fused
-SW down-sweep) against their plain PyTorch versions on the same operands,
-captured from the solver's kernel route on seeded example inputs.
+"""The hand-written kernels (K1 layer factory in its SW and LW modes, K2 SW
+up-sweep, K3 fused SW down-sweep, K4 LW up-sweep, K5 fused LW down-sweep)
+against their plain PyTorch versions on the same operands, captured from the
+solver's kernel routes on seeded example inputs (LW facet and Planck fields
+drawn per column, layer and band).
 
 * host build: csrc/host_check.cpp compiles the kernels' per-thread bodies
   with the host C++ compiler and runs them thread by thread on the CPU, so
@@ -8,10 +10,11 @@ captured from the solver's kernel route on seeded example inputs.
 * cuda (marked, skipped without a GPU): the nvcc-built kernels on the card.
 
 Tolerances: float64 per-field max|diff| / max(1, max|plain|) <= 1e-9 for
-all three; float32 K1 elementwise rtol 2e-4 / atol 2e-5
-(tests/test_pallas_layer.py:45), K2 and K3 3e-5 per field
-(tests/test_pallas_sweep.py:25).  A non-finite value fails every
-comparison, here and in chip_smoke.py (test_nan_output_fails_comparison).
+all; float32 K1 elementwise rtol 2e-4 / atol 2e-5
+(tests/test_pallas_layer.py:45), K2, K3 and K4 3e-5 per field
+(tests/test_pallas_sweep.py:25), K5 2e-4 (the LW bar, :94).  A non-finite
+value fails every comparison, here and in chip_smoke.py
+(test_nan_output_fails_comparison).
 """
 
 import ctypes
@@ -30,16 +33,34 @@ import torch
 from spartacus_surface_tpu_torch.models import solver
 from spartacus_surface_tpu_torch.ops import cuda_build
 from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
 from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
 from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
-from spartacus_surface_tpu_torch.utils.inputs import example_inputs
+from spartacus_surface_tpu_torch.utils.inputs import example_inputs, random_lw_fields
 
 ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))
-KERNELS = ("layer_factory", "sw_up_sweep", "sw_down_sweep_both")
+KERNELS = ("layer_factory", "sw_up_sweep", "sw_down_sweep_both",
+           "lw_layer_factory", "lw_up_sweep", "lw_down_sweep_both")
+PLAIN = {"layer_factory": LK.layer_factory_plain,
+         "lw_layer_factory": LK.lw_layer_factory_plain,
+         "sw_up_sweep": SK.sw_up_sweep_plain,
+         "sw_down_sweep_both": SK.sw_down_sweep_plain,
+         "lw_up_sweep": LSK.lw_up_sweep_plain,
+         "lw_down_sweep_both": LSK.lw_down_sweep_plain}
+SWEEP_TOL_F32 = {"sw_up_sweep": 3e-5, "sw_down_sweep_both": 3e-5,
+                 "lw_up_sweep": 3e-5, "lw_down_sweep_both": 2e-4}
+
+
+def lw_inputs(C, L, S, dtype, seed):
+    """LW example fields with the facet and Planck fields drawn per column,
+    layer and band."""
+    return {**example_inputs(C=C, L=L, S=S, dtype=dtype, seed=seed, lw=True),
+            **random_lw_fields(C, L, S, dtype, seed=seed)}
 
 
 def capture(monkeypatch, nreg, ns, dtype, device, C=6, L=3, S=2):
-    """Run the kernel route once; return {kernel: (args, kwargs, result)}."""
+    """Run the SW and LW kernel routes once; return {wrapper: (args, kwargs,
+    result)}."""
     calls = {}
     for name in KERNELS:
         fn = getattr(solver, name)
@@ -48,12 +69,14 @@ def capture(monkeypatch, nreg, ns, dtype, device, C=6, L=3, S=2):
             calls[_n] = (a, k, _fn(*a, **k))
             return calls[_n][2]
         monkeypatch.setattr(solver, name, rec)
-    inp = solver.CanopyInputs(**{
-        k: torch.as_tensor(v, device=device) for k, v in
-        example_inputs(C=C, L=L, S=S, dtype=dtype, seed=nreg * ns).items()})
-    solver.spartacus_sw(inp, solver.SolverOptions(nreg=nreg, nstream=ns,
-                                                  do_urban=True),
-                        LegendreGauss(ns), with_profiles=True)
+    opt = solver.SolverOptions(nreg=nreg, nstream=ns, do_urban=True)
+    for lw, fields in ((False, example_inputs(C=C, L=L, S=S, dtype=dtype,
+                                              seed=nreg * ns)),
+                       (True, lw_inputs(C, L, S, dtype, nreg * ns))):
+        inp = solver.CanopyInputs(**{k: torch.as_tensor(v, device=device)
+                                     for k, v in fields.items()})
+        solve = solver.spartacus_lw if lw else solver.spartacus_sw
+        solve(inp, opt, LegendreGauss(ns), with_profiles=True)
     monkeypatch.undo()
     return calls
 
@@ -72,20 +95,21 @@ def field_err(ref, got):
 
 
 def assert_matches_plain(launched, calls, f32):
-    """launched: {kernel: result} of the kernels on calls' operands."""
-    a, k, _ = calls["layer_factory"]
-    ref = LK.layer_factory_plain(*a, **k)
-    got = launched["layer_factory"]
-    for n in LK.OUT_NAMES:
-        if f32:
-            torch.testing.assert_close(got[n], ref[n], rtol=2e-4, atol=2e-5)
-        else:
-            assert field_err([ref[n]], [got[n]]) <= 1e-9, n
-    for name, plain in (("sw_up_sweep", SK.sw_up_sweep_plain),
-                        ("sw_down_sweep_both", SK.sw_down_sweep_plain)):
+    """launched: {wrapper: result} of the kernels on calls' operands."""
+    for name in ("layer_factory", "lw_layer_factory"):
         a, k, _ = calls[name]
-        err = field_err(plain(*a, **k), launched[name])
-        assert err <= (3e-5 if f32 else 1e-9), (name, err)
+        ref = PLAIN[name](*a, **k)
+        got = launched[name]
+        assert set(got) == set(ref), (name, set(got) ^ set(ref))
+        for n in ref:
+            if f32:
+                torch.testing.assert_close(got[n], ref[n], rtol=2e-4, atol=2e-5)
+            else:
+                assert field_err([ref[n]], [got[n]]) <= 1e-9, (name, n)
+    for name, tol in SWEEP_TOL_F32.items():
+        a, k, _ = calls[name]
+        err = field_err(PLAIN[name](*a, **k), launched[name])
+        assert err <= (tol if f32 else 1e-9), (name, err)
 
 
 # ----------------------------------------------------------------------
@@ -112,12 +136,13 @@ def host_lib():
 
 def host_launch(host_lib, calls):
     """{kernel: result} of the host-built kernels on calls' operands."""
-    launch = {"layer_factory": LK.launch, "sw_up_sweep": SK.launch_up,
-              "sw_down_sweep_both": SK.launch_down}
+    launch = {"layer_factory": LK.launch, "lw_layer_factory": LK.launch_lw,
+              "sw_up_sweep": SK.launch_up, "sw_down_sweep_both": SK.launch_down,
+              "lw_up_sweep": LSK.launch_up, "lw_down_sweep_both": LSK.launch_down}
     launched = {}
     for name in KERNELS:
         a, k, _ = calls[name]
-        kw = dict(k, chunk=5) if name == "layer_factory" else k  # ragged chunks
+        kw = dict(k, chunk=5) if "factory" in name else k  # ragged chunks
         launched[name] = launch[name](host_lib, *a, stream=None, **kw)
     return launched
 
@@ -137,7 +162,9 @@ def test_nan_output_fails_comparison(host_lib, monkeypatch, kernel, dtype):
     calls = capture(monkeypatch, 2, 4, dtype, "cpu")
     launched = host_launch(host_lib, calls)
     out = launched[kernel]
-    field = out["int_dir_diff"] if kernel == "layer_factory" else out[0]
+    field = {"layer_factory": lambda: out["int_dir_diff"],
+             "lw_layer_factory": lambda: out["int_source"]}.get(
+                 kernel, lambda: out[0])()
     field.view(-1)[field.numel() // 2] = float("nan")
     with pytest.raises(AssertionError):
         assert_matches_plain(launched, calls, dtype == np.float32)
@@ -146,11 +173,12 @@ def test_nan_output_fails_comparison(host_lib, monkeypatch, kernel, dtype):
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    res = smoke.compare_kernels({n: (*calls[n][:2], launched[n]) for n in KERNELS},
-                                torch.float32 if dtype == np.float32 else torch.float64,
-                                LK, SK)
-    assert [ok for _, ok in res] == [n != kernel for n in KERNELS]
-    assert res[KERNELS.index(kernel)][0] == math.inf
+    res = smoke.compare_kernels(
+        {n: [(*calls[n][:2], launched[n])] for n in KERNELS},
+        torch.float32 if dtype == np.float32 else torch.float64, LK, SK, LSK)
+    bad = [kernel in names for *_, names in smoke.KERNELS]
+    assert [ok for _, ok in res] == [not b for b in bad]
+    assert res[bad.index(True)][0] == math.inf
 
 
 # ----------------------------------------------------------------------
@@ -162,9 +190,27 @@ def test_wrappers_take_plain_versions_on_cpu(monkeypatch):
     a, k, got = calls["layer_factory"]
     ref = LK.layer_factory_plain(*a, **k)
     assert all(torch.equal(got[n], ref[n]) for n in LK.OUT_NAMES)
-    a, k, got = calls["sw_down_sweep_both"]
-    assert all(torch.equal(x, y) for x, y in zip(got, SK.sw_down_sweep_plain(*a, **k)))
+    for name in ("sw_down_sweep_both", "lw_up_sweep", "lw_down_sweep_both"):
+        a, k, got = calls[name]
+        assert all(torch.equal(x, y) for x, y in zip(got, PLAIN[name](*a, **k)))
+    a, k, got = calls["lw_layer_factory"]
+    ref = LK.lw_layer_factory_plain(*a, **k)
+    assert all(torch.equal(got[n], ref[n]) for n in LK.LW_OUT_NAMES)
     assert cuda_build._libs == {}  # nothing was built or loaded
+
+
+def test_lw_factory_skips_direct_integrals(host_lib, monkeypatch):
+    """In its LW mode (gamma0 = 0) K1 neither computes nor returns the
+    direct-beam integrals, and every output it returns is finite."""
+    calls = capture(monkeypatch, 2, 4, np.float32, "cpu")
+    a, k, _ = calls["lw_layer_factory"]
+    g0, g3 = LK._lw_operands(a[0], a[2])
+    lay = LK.launch(host_lib, g0, a[0], a[1], g3, a[3], nd=k["nd"], ndir=1,
+                    n_double=k["n_double"], chunk=7, stream=None,
+                    int_direct=False)
+    assert set(lay) == {"R", "T", "E", "Sup", "Sdn", "int_diff"}
+    assert all(v.isfinite().all() for v in lay.values())
+    assert not g0.any()  # the pseudo-beam: gamma0 = 0 is singular
 
 
 def test_wrappers_check_operands(monkeypatch):
@@ -183,6 +229,19 @@ def test_wrappers_check_operands(monkeypatch):
                          *a[2:], **k)
     with pytest.raises(TypeError, match="dtype"):
         LK.layer_factory(*(x.half() for x in a), **k)
+    a, k, _ = calls["lw_layer_factory"]
+    with pytest.raises(ValueError, match="shape"):
+        LK.lw_layer_factory(a[0], a[1], a[2][:, :-1].contiguous(), a[3], **k)
+    a, k, _ = calls["lw_up_sweep"]
+    with pytest.raises(ValueError, match="shape"):  # grd without frac0
+        LSK.lw_up_sweep(*a[:8], a[8][:2].contiguous(), a[9], **k)
+    with pytest.raises(ValueError, match="float32"):
+        LSK.lw_up_sweep(a[0].float(), *a[1:], **k)
+    a, k, _ = calls["lw_down_sweep_both"]
+    with pytest.raises(ValueError, match="shape"):  # aux without sub_wall
+        LSK.lw_down_sweep_both(*a[:7], a[7][:, :-1].contiguous(), *a[8:], **k)
+    with pytest.raises(ValueError, match="C \\* S"):  # 12 elements, 5 columns
+        LSK.lw_down_sweep_both(*a[:6], a[6][..., :5].contiguous(), *a[7:], **k)
 
 
 # ----------------------------------------------------------------------
@@ -200,7 +259,8 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS)
 def test_cuda_kernels_match_plain(cuda_device, monkeypatch, nreg, ns, dtype):
-    wrappers = (LK.layer_factory, SK.sw_up_sweep, SK.sw_down_sweep_both)
+    wrappers = (LK.layer_factory, SK.sw_up_sweep, SK.sw_down_sweep_both,
+                LK.lw_layer_factory, LSK.lw_up_sweep, LSK.lw_down_sweep_both)
     before = [w.launches for w in wrappers]
     calls = capture(monkeypatch, nreg, ns, dtype, cuda_device, C=300, L=4, S=2)
     torch.cuda.synchronize()
@@ -215,3 +275,19 @@ def test_cuda_dense_factory_is_refused(cuda_device):
     with pytest.raises(NotImplementedError, match="K1d"):
         LK.layer_factory(g(1, 4, 8), g(1, 4, 8), g(1, 4, 8), g(1, 4, 8), g(1, 8),
                          nd=2, ndir=2)
+
+
+@pytest.mark.cuda
+def test_cuda_lw_wrappers_launch_or_raise(cuda_device):
+    """CUDA tensors launch the LW kernels (the counts rise) or raise: a
+    misshapen operand never falls back to a plain version."""
+    calls = capture(pytest.MonkeyPatch(), 2, 4, np.float32, cuda_device, C=4)
+    for name, wrapper in (("lw_up_sweep", LSK.lw_up_sweep),
+                          ("lw_down_sweep_both", LSK.lw_down_sweep_both),
+                          ("lw_layer_factory", LK.lw_layer_factory)):
+        a, k, _ = calls[name]
+        n = wrapper.launches
+        wrapper(*a, **k)
+        assert wrapper.launches > n
+        with pytest.raises(ValueError):
+            wrapper(a[0][:, :-1].contiguous(), *a[1:], **k)
