@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (spartacus_surface_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py              # build, check, run the slice
+    python3 chip_smoke.py              # build, check, run the paths
     python3 chip_smoke.py --profile    # ... then time and trace the slice
 
 Phases, one JSON line each (failures make the script exit nonzero before the
@@ -9,16 +9,17 @@ final line):
   1. build   - nvcc builds csrc/*.cu for sm_90a, all sources at once
      (ptxas register/spill report).
   2. kernel_vs_plain - each kernel against its plain PyTorch version on the
-     same operands: K1 layer factory (its SW and its LW calls), K2 SW
-     up-sweep, K3 fused SW down-sweep, K4 LW up-sweep, K5 fused LW
-     down-sweep, captured from spartacus_sw + spartacus_lw for (nreg,
-     nstream) in (1,2) (2,4) (3,4) (2,8) at 1024 columns x 8 layers x 2
+     same operands: the layer factory K1 (structured) and K1d (dense; the
+     1-stream systems), each in its SW and its LW calls, K2 SW up-sweep, K3
+     fused SW down-sweep, K4 LW up-sweep, K5 fused LW down-sweep, captured
+     from spartacus_sw + spartacus_lw for (nreg, nstream) in (1,2) (2,4)
+     (3,4) (2,8) and (1,1) (2,1) (3,1) at 1024 columns x 8 layers x 2
      bands, in float32 and float64; the LW solve runs once on the uniform
      example fields and once on LW fields drawn per column, layer and band.
-     Tolerances: K1 float32 elementwise rtol 2e-4 / atol 2e-5; per-field
-     max|diff| / max(1, max|plain|) <= 3e-5 (K2, K3, K4) and 2e-4 (K5) in
-     float32; <= 1e-9 for all in float64.  A non-finite value in either
-     result fails the comparison.
+     Tolerances: K1 and K1d float32 elementwise rtol 2e-4 / atol 2e-5;
+     per-field max|diff| / max(1, max|plain|) <= 3e-5 (K2, K3, K4) and 2e-4
+     (K5) in float32; <= 1e-9 for all in float64.  A non-finite value in
+     either result fails the comparison.
   3. slice   - run_radsurf (SW + LW, as the JAX bench's step) on the CUDA
      device, kernel route against the plain scan route, in float32 and
      float64, at
@@ -32,56 +33,106 @@ final line):
      shapes; the SW and LW energy budgets close (LW: on the layered and flat
      columns; the simple-urban LW solve keeps the reference's ground
      emissivity in its wall-wall term and does not conserve exactly); every
-     kernel launched in the kernel-route run (K1 in both modes); and each
-     kernel's results in that run against its plain version on the same
-     operands, at the tolerances of phase 2.  Also prints each route's wall
-     seconds (first call, after synchronize) and peak device memory.
+     kernel of the path launched in the kernel-route run (K1 in both modes);
+     and each kernel's results in that run against its plain version on the
+     same operands, at the tolerances of phase 2.  Also prints each route's
+     wall seconds (first call, after synchronize) and peak device memory.
+  cli - the offline CLI, driver.main.main([namelist, input, output,
+     --precision single|double, --timings]) in this process, on an input
+     file written by utils/inputs.write_example_input (16,384 layered
+     columns: 8,192 VegetatedUrban, 4,096 Forest, 4,096 Urban; plus 512
+     Flat, 256 SimpleUrban, 256 InfiniteStreet; 8 layers, 1 band) for two
+     namelists: cli_ns4 (4 streams, 2 forest and 1 urban vegetation
+     regions: K1 in SW and LW mode, K2-K5) and cli_ns1 (the same at 1
+     stream, with flux profiles and spectral fluxes saved: K1d for every SW
+     solve and the Urban LW, K1 for the other LW solves, K2-K5).  Checks:
+     exit code 0; every kernel of the path launched; each captured factory
+     call (K1, K1d) and sweep call against its plain version; the output
+     file against one built in this process from the scan route (read,
+     run_radsurf(route="scan"), scale and sum, save), every variable
+     field-normalized <= 3e-4 (SW) / 2.5e-3 (LW) in f32, 1e-9 in f64; the
+     energy budgets of the run as in phase 3.  Prints the CLI's region
+     walls (read_input / radsurf / save).
+  demo - driver.test_kernels.main(["all", "--device", "cuda"]): the
+     1-stream, 2-region SW operators on K1d and the LW ones on K1; exit code
+     0 (its Schur-vs-brute-force self-check at 1e-10 in f64), K1d and K1
+     launched, and the demo's own factory calls (SW on K1d, LW on K1)
+     against their plain versions on the same operands, every output field,
+     <= 1e-9 in f64.
   4. profile (--profile only) - for each slice run: warm wall seconds of
      both routes (median, min, max of 5 calls), and one torch.profiler trace
      of a warm kernel-route call: device launches, device busy ms (union of
      the device intervals), the device idle share of the call, and each
      kernel's device ms.
-Then the per-kernel summary line {"kernels": [...]} (launches counted over
-the headline float32 main-path run; ms / plain_ms timed with CUDA events on
-that run's operands, K1's LW call as ms_lw / plain_ms_lw), the card's name
-and power limit from nvidia-smi, and the final {"ok": true, "device": {...}}
-line.
+Then the per-kernel summary line {"kernels": [...]} (K1-K5: launches
+counted over the headline float32 run of phase 3, ms / plain_ms timed with
+CUDA events on that run's operands; K1d: launches over the cli_ns1 single
+run, timed on its largest SW call and its LW call; the LW calls as
+launches_lw / ms_lw / plain_ms_lw), the card's name and power limit from
+nvidia-smi, and the final {"ok": true, "device": {...}} line.
 
 Inputs are random from fixed numpy seeds (spartacus_surface_tpu_torch/utils/
-inputs.py); nothing here imports JAX.
+inputs.py); the CLI's files are written under build/chip_smoke_cli/.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))  # (nreg, nstream)
+ONE_STREAM_CONFIGS = ((1, 1), (2, 1), (3, 1))  # the factory is K1d here
 SOURCES = ("layer_factory", "sw_sweeps", "lw_sweeps")  # csrc/<name>.cu
-# (name, source, TPU kernel replaced, device symbol, solver wrappers)
+# (name, source, TPU kernel replaced, device symbol, solver wrappers, which
+# factory calls: "structured" (K1), "dense" (K1d) or None for every call)
 KERNELS = (
     ("K1 layer_factory", "spartacus_surface_tpu_torch/csrc/layer_factory.cu",
      "spartacus_surface_tpu/ops/pallas_layer.py:788", "layer_factory_kernel",
-     ("layer_factory", "lw_layer_factory")),
+     ("layer_factory", "lw_layer_factory"), "structured"),
     ("K2 sw_up_sweep", "spartacus_surface_tpu_torch/csrc/sw_sweeps.cu",
      "spartacus_surface_tpu/ops/pallas_sweep.py:783", "sw_up_kernel",
-     ("sw_up_sweep",)),
+     ("sw_up_sweep",), None),
     ("K3 sw_down_sweep_both", "spartacus_surface_tpu_torch/csrc/sw_sweeps.cu",
      "spartacus_surface_tpu/ops/pallas_sweep.py:842", "sw_down_kernel",
-     ("sw_down_sweep_both",)),
+     ("sw_down_sweep_both",), None),
     ("K4 lw_up_sweep", "spartacus_surface_tpu_torch/csrc/lw_sweeps.cu",
      "spartacus_surface_tpu/ops/pallas_sweep.py:964", "lw_up_kernel",
-     ("lw_up_sweep",)),
+     ("lw_up_sweep",), None),
     ("K5 lw_down_sweep_both", "spartacus_surface_tpu_torch/csrc/lw_sweeps.cu",
      "spartacus_surface_tpu/ops/pallas_sweep.py:1020", "lw_down_kernel",
-     ("lw_down_sweep_both",)),
+     ("lw_down_sweep_both",), None),
+    ("K1d layer_factory_dense",
+     "spartacus_surface_tpu_torch/csrc/layer_factory.cu",
+     "spartacus_surface_tpu/ops/pallas_layer.py:268",
+     "layer_factory_dense_kernel", ("layer_factory", "lw_layer_factory"),
+     "dense"),
 )
-WRAPPERS = tuple(n for k in KERNELS for n in k[4])
+WRAPPERS = ("layer_factory", "lw_layer_factory", "sw_up_sweep",
+            "sw_down_sweep_both", "lw_up_sweep", "lw_down_sweep_both")
+# the launch counters a run must raise: a 4-stream path, and a 1-stream one
+PATH_4 = ("K1", "K2", "K3", "K4", "K5", "K1 LW mode")
+PATH_1 = PATH_4 + ("K1d", "K1d LW mode")
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+CLI_NAMELIST = """&radsurf
+  n_stream_sw_forest = {ns}, n_stream_sw_urban = {ns},
+  n_stream_lw_forest = {ns}, n_stream_lw_urban = {ns},
+  n_vegetation_region_forest = 2, n_vegetation_region_urban = 1,
+  nsw = 1, nlw = 1,{extra}
+/
+&radsurf_driver
+  do_conservation_check = .true.,
+  iverbose = 2,
+/
+"""
 # float32 per-field bar of each sweep kernel (tests/test_pallas_sweep.py:25,
 # 94); K1 is held elementwise
 SWEEP_TOL_F32 = {"sw_up_sweep": 3e-5, "sw_down_sweep_both": 3e-5,
@@ -113,26 +164,28 @@ def field_err(ref, got):
 
 
 class Capture:
-    """Record the operands and results of every call of the solver's kernel
-    wrappers, {wrapper name: [(args, kwargs, result), ...]} (the wrappers
-    themselves run unchanged)."""
+    """Record the operands and results of every call of the kernel wrappers
+    that a module (the solver, or the kernel demo) calls,
+    {wrapper name: [(args, kwargs, result), ...]} (the wrappers themselves
+    run unchanged)."""
 
-    def __init__(self, solver):
-        self.solver, self.calls = solver, {n: [] for n in WRAPPERS}
+    def __init__(self, module):
+        self.module, self.calls = module, {n: [] for n in WRAPPERS}
 
     def __enter__(self):
-        self.saved = {n: getattr(self.solver, n) for n in WRAPPERS}
+        self.saved = {n: getattr(self.module, n) for n in WRAPPERS
+                      if hasattr(self.module, n)}
         for name, fn in self.saved.items():
             def rec(*a, _n=name, _fn=fn, **k):
                 out = _fn(*a, **k)
                 self.calls[_n].append((a, k, out))
                 return out
-            setattr(self.solver, name, rec)
+            setattr(self.module, name, rec)
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
-            setattr(self.solver, name, fn)
+            setattr(self.module, name, fn)
 
 
 def max_abs_diff(ref, got):
@@ -169,17 +222,26 @@ def compare_call(name, plain, a, k, got, f32):
         SWEEP_TOL_F32[name] if f32 else 1e-9)
 
 
+def runs_on(factory, k, LK):
+    """Whether a call with keyword arguments k runs on the kernel of KERNELS
+    whose factory field is `factory` (LW factory calls have ndir = 1)."""
+    if factory is None:
+        return True
+    return LK.is_structured(k["nd"], k.get("ndir", 1)) == (factory == "structured")
+
+
 def compare_kernels(calls, dtype, LK, SK, LSK):
     """Per kernel of KERNELS, (max_abs_err, passed) over every captured call
-    of its wrappers against the plain versions on the same operands; (None,
-    None) for a kernel with no call."""
+    of its wrappers that ran on it, against the plain versions on the same
+    operands; (None, None) for a kernel with no call."""
     import torch
 
     plains = plain_versions(LK, SK, LSK)
     out = []
-    for *_, names in KERNELS:
+    for *_, names, factory in KERNELS:
         res = [compare_call(n, plains[n], a, k, got, dtype == torch.float32)
-               for n in names for a, k, got in calls.get(n, ())]
+               for n in names for a, k, got in calls.get(n, ())
+               if runs_on(factory, k, LK)]
         out.append((max(e for e, _ in res), all(ok for _, ok in res))
                    if res else (None, None))
     return out
@@ -246,7 +308,7 @@ def trace_call(fn):
     kernel_ms = {
         kname: sum(e.time_range.elapsed_us() for e in events
                    if e.device_type == DeviceType.CUDA and sym in e.name) / 1e3
-        for kname, _, _, sym, _ in KERNELS}
+        for kname, _, _, sym, _, _ in KERNELS}
     return dict(device_launches=len(spans), device_busy_ms=busy / 1e3,
                 traced_call_ms=span / 1e3,
                 device_idle_share=(1.0 - busy / span) if spans else None,
@@ -258,6 +320,31 @@ def group_err(out_s, out_k, groups):
     keys = [(g, k) for g in groups for k in out_s[g]]
     return field_err([out_s[g][k] for g, k in keys],
                      [out_k[g][k] for g, k in keys]), keys
+
+
+def nc_vars(path):
+    """{name: float64 values} of a NetCDF3 file."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    with netcdf_file(path, "r", mmap=False) as f:
+        return {k: np.array(v[:], np.float64) for k, v in f.variables.items()}
+
+
+def nc_field_err(ref, got, names):
+    """Worst field-normalized error over the named variables; inf if one is
+    missing from either file or non-finite."""
+    import numpy as np
+
+    worst = 0.0
+    for k in names:
+        if k not in got or got[k].shape != ref[k].shape:
+            return math.inf
+        r, g = ref[k], got[k]
+        if not (np.isfinite(r).all() and np.isfinite(g).all()):
+            return math.inf
+        worst = max(worst, np.abs(r - g).max() / max(1.0, np.abs(r).max()))
+    return worst
 
 
 def main(argv=None) -> int:
@@ -275,27 +362,80 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from spartacus_surface_tpu_torch.driver import main as cli
+    from spartacus_surface_tpu_torch.driver import test_kernels as demo
+    from spartacus_surface_tpu_torch.driver.read_input import read_input
+    from spartacus_surface_tpu_torch.driver.save import save_canopy_fluxes
     from spartacus_surface_tpu_torch.models import solver
     from spartacus_surface_tpu_torch.models.dispatch import (
         TILE_INFINITE_STREET, TILE_SIMPLE_URBAN, run_radsurf)
     from spartacus_surface_tpu_torch.models.flux_utils import (
         budget_components, budget_residual)
+    from spartacus_surface_tpu_torch.models.simple_spectrum import (
+        calc_simple_spectrum_lw)
     from spartacus_surface_tpu_torch.ops import cuda_build
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
     from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
-    from spartacus_surface_tpu_torch.utils.config import Config
+    from spartacus_surface_tpu_torch.utils import profiling
+    from spartacus_surface_tpu_torch.utils.config import Config, DriverConfig
     from spartacus_surface_tpu_torch.utils.inputs import (
-        example_arrays, example_inputs, random_lw_fields)
+        example_arrays, example_inputs, random_lw_fields, write_example_input)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    counters = (LK.layer_factory, SK.sw_up_sweep, SK.sw_down_sweep_both,
-                LSK.lw_up_sweep, LSK.lw_down_sweep_both, LK.lw_layer_factory)
+    # launch counters, {label: (wrapper, attribute)}
+    counters = {
+        "K1": (LK.layer_factory, "launches"), "K2": (SK.sw_up_sweep, "launches"),
+        "K3": (SK.sw_down_sweep_both, "launches"),
+        "K4": (LSK.lw_up_sweep, "launches"),
+        "K5": (LSK.lw_down_sweep_both, "launches"),
+        "K1d": (LK.layer_factory, "dense_launches"),
+        "K1 LW mode": (LK.lw_layer_factory, "launches"),
+        "K1d LW mode": (LK.lw_layer_factory, "dense_launches"),
+    }
+
+    def reset_counts():
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
+
+    def read_counts():
+        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+
+    def check_launched(counts, path, tag):
+        check(all(counts[k] > 0 for k in path),
+              f"{tag}: a kernel of the path was not launched {counts}")
+
     dtypes = {"float32": (np.float32, torch.float32),
               "float64": (np.float64, torch.float64)}
+
+    def check_kernels(kernel_errs, tag):
+        for (e, ok), kern in zip(kernel_errs, KERNELS):
+            if ok is not None:
+                check(ok, f"{tag}: {kern[0]} vs plain {e}")
+
+    def budgets(out, rep, f32, emission_scale, tag):
+        """Check the SW and LW energy budgets of a run_radsurf result as
+        phase 3 does; returns (sw residual, [LW residuals])."""
+        resid_sw = max(
+            budget_residual(budget_components(out[g], rep)).abs().max().item()
+            for g in sw_groups)
+        conserving = torch.as_tensor(
+            ~np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]), device=dev)
+        resid_lw = [
+            (budget_residual(budget_components(out[g], rep)).abs()
+             * conserving).max().item() for g in lw_groups]
+        check(resid_sw <= (1e-4 if f32 else 1e-10),
+              f"{tag}: SW energy budget residual {resid_sw:.3e}")
+        lw_tols = ((1e-4 * emission_scale,) * 2 if f32 else (1e-9, 1e-10))
+        for g, r, tol in zip(lw_groups, resid_lw, lw_tols):
+            check(r <= tol, f"{tag}: {g} energy budget residual {r:.3e}")
+        return resid_sw, resid_lw
+
+    sw_groups = ("sw_norm_dir", "sw_norm_diff")
+    lw_groups = ("lw_internal", "lw_norm")
 
     # ---- 1. build, one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -311,7 +451,7 @@ def main(argv=None) -> int:
 
     # ---- 2. each kernel against its plain version, 1024 columns x 8 layers
     C2, L2, S2 = 1024, 8, 2
-    for nreg, ns in ENTRY_CONFIGS:
+    for nreg, ns in ENTRY_CONFIGS + ONE_STREAM_CONFIGS:
         for dname, (np_dt, dt) in dtypes.items():
             to_dev = lambda d: solver.CanopyInputs(**{
                 k: torch.as_tensor(v, device=dev) for k, v in d.items()})
@@ -329,10 +469,7 @@ def main(argv=None) -> int:
                             C2, L2, S2, np_dt, seed=nreg * ns)}), opt, lg)
                 torch.cuda.synchronize()
                 res = compare_kernels(cap.calls, dt, LK, SK, LSK)
-                for (err, ok), kern in zip(res, KERNELS):
-                    if ok is not None:
-                        check(ok, f"{kern[0]} vs plain, nreg={nreg} ns={ns}"
-                                  f" {dname} {fields}")
+                check_kernels(res, f"nreg={nreg} ns={ns} {dname} {fields}")
                 emit(phase="kernel_vs_plain", config=f"nreg{nreg}_ns{ns}",
                      dtype=dname, lw_fields=fields,
                      max_abs_err=[r[0] for r in res],
@@ -353,14 +490,11 @@ def main(argv=None) -> int:
     }
     runs = [(sname, dname, Config(do_lw=True, **cfg).consolidate(), rep, L, S)
             for sname, (rep, L, S, cfg) in slices.items() for dname in dtypes]
-    sw_groups = ("sw_norm_dir", "sw_norm_diff")
-    lw_groups = ("lw_internal", "lw_norm")
     for sname, dname, config, rep, L, S in runs:
         np_dt, dt = dtypes[dname]
         arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np_dt,
                                 i_representation=rep)
-        for w in counters:
-            w.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -369,7 +503,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t_kernel = time.perf_counter() - t0
         mem_kernel = torch.cuda.max_memory_allocated() / 2**30
-        launches = [w.launches for w in counters]
+        launches = read_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out_s = run_radsurf(config, arrays, dev, route="scan")
@@ -392,45 +526,30 @@ def main(argv=None) -> int:
                           for g, k in keys_sw + keys_lw)
                   and out_k["bc_out"]["sw_albedo"].shape == (len(rep), S)
                   and out_k["bc_out"]["lw_emission"].shape == (len(rep), S))
-        resid_sw = max(
-            budget_residual(budget_components(out_k[g], rep)).abs().max().item()
-            for g in sw_groups)
-        conserving = torch.as_tensor(
-            ~np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]), device=dev)
-        resid_lw = [
-            (budget_residual(budget_components(out_k[g], rep)).abs()
-             * conserving).max().item() for g in lw_groups]
-        emission_scale = max(1.0, float(np.abs(arrays["ground_emission"]).max()))
-        del out_k, out_s, got
-        kernel_errs = compare_kernels(cap.calls, dt, LK, SK, LSK)
         f32 = dname == "float32"
         tag = f"{sname} {dname}"
+        emission_scale = max(1.0, float(np.abs(arrays["ground_emission"]).max()))
+        resid_sw, resid_lw = budgets(out_k, rep, f32, emission_scale, tag)
+        del out_k, out_s, got
+        kernel_errs = compare_kernels(cap.calls, dt, LK, SK, LSK)
         check(err_sw <= (3e-4 if f32 else 1e-9),
               f"{tag}: SW kernel route vs scan route {err_sw:.3e}")
         check(err_lw <= (2.5e-3 if f32 else 1e-9),
               f"{tag}: LW kernel route vs scan route {err_lw:.3e}")
         check(finite and shapes, f"{tag}: non-finite or misshapen output")
-        check(resid_sw <= (1e-4 if f32 else 1e-10),
-              f"{tag}: SW energy budget residual {resid_sw:.3e}")
-        lw_tols = ((1e-4 * emission_scale,) * 2 if f32 else (1e-9, 1e-10))
-        for g, r, tol in zip(lw_groups, resid_lw, lw_tols):
-            check(r <= tol, f"{tag}: {g} energy budget residual {r:.3e}")
-        check(all(n > 0 for n in launches),
-              f"{tag}: a kernel was not launched {launches}")
-        for (e, ok), kern in zip(kernel_errs, KERNELS):
-            check(ok, f"{tag}: {kern[0]} vs plain {e}")
+        check_launched(launches, PATH_4, tag)
+        check_kernels(kernel_errs, tag)
         emit(phase="slice", run=sname, dtype=dname, columns=len(rep),
              layers=L, bands=S, sw_field_normalized_err=err_sw,
              lw_field_normalized_err=err_lw, max_sw_budget_residual=resid_sw,
              max_lw_budget_residual=dict(zip(lw_groups, resid_lw)),
-             launches=dict(zip([k[0] for k in KERNELS] + ["K1 LW mode"],
-                               launches)),
+             launches=launches,
              kernel_vs_plain_max_abs_err=[e for e, _ in kernel_errs],
              kernel_vs_plain_passed=[ok for _, ok in kernel_errs],
              seconds_kernel_route=t_kernel, seconds_scan_route=t_scan,
              peak_gib_kernel_route=mem_kernel, peak_gib_scan_route=mem_scan,
              finite=finite, shapes_ok=shapes)
-        if sname == "headline" and f32:  # the main path
+        if sname == "headline" and f32:  # the main path of K1-K5
             main_launches, errs = launches, kernel_errs
             wrappers = {n: getattr(solver, n) for n in WRAPPERS}
             plains = plain_versions(LK, SK, LSK)
@@ -441,6 +560,127 @@ def main(argv=None) -> int:
                               time_ms(lambda: plains[n](*a, **k)))
         del cap
         torch.cuda.empty_cache()
+
+    # ---- cli: the offline CLI on a seeded input file, two namelists
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    rep_cli = np.array([3] * 8192 + [1] * 4096 + [2] * 4096 + [0] * 512
+                       + [4] * 256 + [5] * 256)
+    input_nc = CLI_DIR / "input.nc"
+    write_example_input(input_nc, rep_cli, L=8, S=1, seed=1)
+    namelists = {
+        "cli_ns4": (CLI_NAMELIST.format(ns=4, extra=""), PATH_4),
+        "cli_ns1": (CLI_NAMELIST.format(ns=1, extra=(
+            "\n  do_save_flux_profile = .true., do_save_spectral_flux = .true.,")),
+            PATH_1),
+    }
+    record = {}
+
+    def recording_run_radsurf(*a, **k):
+        record["out"] = run_radsurf(*a, **k)
+        return record["out"]
+
+    cli.run_radsurf = recording_run_radsurf
+    for nname, (text, path) in namelists.items():
+        nam = CLI_DIR / f"{nname}.nam"
+        nam.write_text(text)
+        for prec, dname in (("single", "float32"), ("double", "float64")):
+            np_dt, dt = dtypes[dname]
+            f32 = dname == "float32"
+            tag = f"{nname} {dname}"
+            out_nc, ref_nc = CLI_DIR / f"{nname}_{prec}.nc", CLI_DIR / f"{nname}_{prec}_ref.nc"
+            profiling.reset()
+            stdout = io.StringIO()
+            reset_counts()
+            with Capture(solver) as cap, contextlib.redirect_stdout(stdout):
+                rc = cli.main([str(nam), str(input_nc), str(out_nc),
+                               "--precision", prec, "--timings"])
+            torch.cuda.synchronize()
+            launches = read_counts()
+            walls = profiling.totals()
+            check(rc == 0, f"{tag}: exit code {rc}")
+            check_launched(launches, path, tag)
+            kernel_errs = compare_kernels(cap.calls, dt, LK, SK, LSK)
+            check_kernels(kernel_errs, tag)
+            # the reference file: scan route, scaled, summed and saved here
+            config = Config.from_namelist(nam).consolidate()
+            data = read_input(str(input_nc), config, DriverConfig.from_namelist(nam))
+            calc_simple_spectrum_lw(config, data["arrays"])
+            # the energy budgets of the CLI's own run
+            emission_scale = max(1.0, float(np.abs(
+                data["arrays"]["ground_emission"]).max()))
+            resid_sw, resid_lw = budgets(record.pop("out"), rep_cli, f32,
+                                         emission_scale, tag)
+            solve_arrays, top = cli.prepare(config, data, np_dt, dev)
+            sw_flux, lw_flux = cli.scale_and_sum(
+                config, run_radsurf(config, solve_arrays, dev, route="scan"), top)
+            save_canopy_fluxes(str(ref_nc), config, data["arrays"], sw_flux, lw_flux)
+            del sw_flux, lw_flux
+            ref, got = nc_vars(ref_nc), nc_vars(out_nc)
+            lw_names = [k for k in ref if k.endswith("_lw")]
+            sw_names = [k for k in ref if k not in lw_names]
+            err_sw = nc_field_err(ref, got, sw_names)
+            err_lw = nc_field_err(ref, got, lw_names)
+            check(set(ref) == set(got), f"{tag}: output variables {set(ref) ^ set(got)}")
+            check(err_sw <= (3e-4 if f32 else 1e-9),
+                  f"{tag}: SW output vs scan-route file {err_sw:.3e}")
+            check(err_lw <= (2.5e-3 if f32 else 1e-9),
+                  f"{tag}: LW output vs scan-route file {err_lw:.3e}")
+            emit(phase="cli", namelist=nname, dtype=dname, exit_code=rc,
+                 columns=len(rep_cli), layers=8, variables=len(got),
+                 sw_field_normalized_err=err_sw, lw_field_normalized_err=err_lw,
+                 max_sw_budget_residual=resid_sw,
+                 max_lw_budget_residual=dict(zip(lw_groups, resid_lw)),
+                 launches=launches,
+                 kernel_vs_plain_max_abs_err=[e for e, _ in kernel_errs],
+                 kernel_vs_plain_passed=[ok for _, ok in kernel_errs],
+                 walls_seconds={k: walls.get(k) for k in ("read_input", "radsurf", "save")},
+                 elapsed_line=next((ln for ln in stdout.getvalue().splitlines()
+                                    if ln.startswith("Time elapsed")), None))
+            if nname == "cli_ns1" and f32:  # the main path of K1d
+                dense_launches = (launches["K1d"], launches["K1d LW mode"])
+                dense_err = kernel_errs[-1][0]
+                dense = {n: [(a, k) for a, k, _ in cap.calls[n]
+                             if runs_on("dense", k, LK)]
+                         for n in ("layer_factory", "lw_layer_factory")}
+                # the SW call with the most elements (L x B of g1)
+                a, k = max(dense["layer_factory"],
+                           key=lambda c: c[0][1].shape[0] * c[0][1].shape[2])
+                wrappers = {n: getattr(solver, n) for n in dense}
+                plains = plain_versions(LK, SK, LSK)
+                dense_timings = {}
+                for n, (a, k) in (("layer_factory", (a, k)),
+                                  ("lw_layer_factory", dense["lw_layer_factory"][0])):
+                    dense_timings[n] = (time_ms(lambda: wrappers[n](*a, **k)),
+                                        time_ms(lambda: plains[n](*a, **k)))
+            del cap
+            torch.cuda.empty_cache()
+    cli.run_radsurf = run_radsurf
+
+    # ---- demo: the kernel demonstration on the card
+    reset_counts()
+    stdout = io.StringIO()
+    with Capture(demo) as cap, contextlib.redirect_stdout(stdout):
+        rc = demo.main(["all", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(rc == 0 and "SELF-CHECK PASSED" in stdout.getvalue(),
+          f"demo: exit code {rc}")
+    check(launches["K1d"] > 0 and launches["K1 LW mode"] > 0,
+          f"demo: a factory kernel was not launched {launches}")
+    # the demo's own factory calls (SW on K1d, LW on K1) against the plain
+    # versions, every output field, float64
+    kernel_errs = compare_kernels(cap.calls, torch.float64, LK, SK, LSK)
+    demo_errs = {kern[0]: e for kern, e in zip(KERNELS, kernel_errs)
+                 if kern[-1] is not None}
+    for name, (e, ok) in demo_errs.items():
+        check(ok is not None, f"demo: no {name} call was captured")
+        check(ok is not False, f"demo: {name} vs plain {e}")
+    del cap
+    emit(phase="demo", exit_code=rc, launches=launches,
+         kernel_vs_plain_max_abs_err={n: e for n, (e, _) in demo_errs.items()},
+         kernel_vs_plain_passed={n: ok for n, (_, ok) in demo_errs.items()},
+         self_check=next((ln for ln in stdout.getvalue().splitlines()
+                          if ln.startswith("Schur vs brute-force")), None))
 
     # ---- 4. warm wall times and a device trace of each slice run
     if profile:
@@ -456,14 +696,18 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     rows = []
-    for (kname, src, rep, _, names), n, e in zip(KERNELS, main_launches, errs):
+    for (kname, src, rep, _, names, factory), e in zip(KERNELS, errs):
+        if factory == "dense":  # K1d: the cli_ns1 float32 run
+            n, n_lw, err, t = (*dense_launches, dense_err, dense_timings)
+        else:
+            n, n_lw, err, t = (main_launches[kname.split()[0]],
+                               main_launches["K1 LW mode"], e[0], timings)
         row = {"name": kname, "route": "cuda", "source": src, "replaces": rep,
-               "launches": n, "max_abs_err": e[0], "ms": timings[names[0]][0],
-               "plain_ms": timings[names[0]][1]}
-        if len(names) > 1:  # K1: its LW call
-            row.update(launches_lw=main_launches[-1],
-                       ms_lw=timings[names[1]][0],
-                       plain_ms_lw=timings[names[1]][1])
+               "launches": n, "max_abs_err": err, "ms": t[names[0]][0],
+               "plain_ms": t[names[0]][1]}
+        if len(names) > 1:  # the factory: its LW call
+            row.update(launches_lw=n_lw, ms_lw=t[names[1]][0],
+                       plain_ms_lw=t[names[1]][1])
         rows.append(row)
     emit(kernels=rows)
     smi = subprocess.run(

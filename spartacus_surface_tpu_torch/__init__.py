@@ -5,9 +5,11 @@ This package imports ``torch`` and never ``jax`` (nor the JAX package), so it
 runs on a GPU machine that has no JAX installed.
 
 Covered so far: ``run_radsurf`` with the shortwave and the longwave solve
-for every tile type.  On CUDA tensors the layered SPARTACUS solves run on
-five hand-written CUDA kernels (``csrc/``: the layer factory, in its SW and
-its LW pseudo-beam mode; the SW up-sweep and fused down-sweep; the LW
+for every tile type, and the offline CLI (``driver/main.py``: namelist,
+NetCDF read and save) with the kernel demo (``driver/test_kernels.py``).
+On CUDA tensors the layered SPARTACUS solves run on six hand-written CUDA
+kernels (``csrc/``: the layer factory, structured and dense, each in its SW
+and its LW pseudo-beam mode; the SW up-sweep and fused down-sweep; the LW
 up-sweep and fused down-sweep); on CPU tensors the same routes run their
 plain PyTorch versions.
 """

@@ -14,6 +14,12 @@ static void factory_host(SPX_FACTORY_PARAMS) {
 }
 
 template <typename T>
+static void dense_factory_host(SPX_FACTORY_PARAMS) {
+  const auto A = spx::factory_args<T>(SPX_FACTORY_ARGS);
+  for (long long t = 0; t < n; ++t) spx::layer_factory_dense_thread(A, t);
+}
+
+template <typename T>
 static void up_host(SPX_UP_PARAMS) {
   const auto A = spx::up_args<T>(SPX_UP_ARGS);
   for (long long b = 0; b < B; ++b) spx::sw_up_thread(A, b);
@@ -46,6 +52,14 @@ int layer_factory_f32(SPX_FACTORY_PARAMS, void*) {
 }
 int layer_factory_f64(SPX_FACTORY_PARAMS, void*) {
   factory_host<double>(SPX_FACTORY_ARGS);
+  return 0;
+}
+int layer_factory_dense_f32(SPX_FACTORY_PARAMS, void*) {
+  dense_factory_host<float>(SPX_FACTORY_ARGS);
+  return 0;
+}
+int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void*) {
+  dense_factory_host<double>(SPX_FACTORY_ARGS);
   return 0;
 }
 int sw_up_sweep_f32(SPX_UP_PARAMS, void*) {

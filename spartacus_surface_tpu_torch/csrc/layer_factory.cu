@@ -1,16 +1,21 @@
-// Kernel K1: the per-layer operator factory (structured expm).
+// Kernels K1 and K1d: the per-layer operator factory.
 //
-// Replaces the TPU kernel pallas_layer_thin_double, structured branch
-// (spartacus_surface_tpu/ops/pallas_layer.py: _layer_kernel_structured :495,
-// _extract_double :350, _schur_int_kernel :212), in both of its uses: the
-// shortwave (ndir = nreg, int_direct on) and the longwave emission
-// pseudo-beam of pallas_lw_layer_tiles :1013 (ndir = 1, gamma0 = 0,
+// Replace the TPU kernel pallas_layer_thin_double
+// (spartacus_surface_tpu/ops/pallas_layer.py:788) in both of its branches:
+//   K1  (layer_factory_kernel): the structured branch, _layer_kernel_structured
+//       :495 + _extract_double :350 + _schur_int_kernel :212, taken when
+//       nd >= 2 ndir and nd >= 2 (pallas_layer.py:855);
+//   K1d (layer_factory_dense_kernel): the dense branch, _layer_kernel :268,
+//       taken otherwise: every 1-stream shortwave solve (nd = ndir = nreg)
+//       and the 1-stream, 1-region longwave one (nd = ndir = 1).
+// Both serve the shortwave (ndir = nreg, int_direct on) and the longwave
+// emission pseudo-beam of pallas_lw_layer_tiles :1013 (ndir = 1, gamma0 = 0,
 // gamma3 = b, int_direct off: gamma0 is singular, so the direct-beam
 // integrals are neither computed nor written).  Plain versions:
 // ops/layer_kernel.py layer_factory_plain / lw_layer_factory_plain
 // (ops/layer_matrices.py).
 //
-// One thread per (batch element, layer).  Per element:
+// One thread per (batch element, layer).  K1, per element:
 //   1. Gamma*dz in the basis K = [[I, I], [I, -I]] of the two diffuse blocks,
 //      where the diffuse part becomes anti-diagonal [[0, Bm], [Cm, 0]] with
 //      Bm = g2 - g1, Cm = -(g1 + g2);
@@ -18,22 +23,31 @@
 //      2^-K;
 //   3. half-size Pade-7: even powers of the anti-diagonal block are
 //      diag(W^k, W'^k) with W = Bm Cm, W' = Cm Bm, and the direct column is
-//      carried through the power recurrence; solve (V - U) F = (V + U) at
-//      size 2 nd and undo the transform with a butterfly;
+//      carried through the power recurrence; solve (V - U) X = 2 U for
+//      X = F - I at size 2 nd, undo the transform with a butterfly and add
+//      I.  Solving for F - I rather than F keeps the identity out of the
+//      butterfly: the off-diagonal blocks of F are O(dz 2^-K) differences
+//      of its O(1) diagonal blocks, and in float32 that cancellation,
+//      doubled K times, cost R up to 20x the plain version's error (1-stream
+//      longwave, K ~ 8);
 //   4. thin-layer R, T, Sup, Sdn, E from the blocks of F, then this
 //      element's own K adding-doubling steps;
 //   5. block-Schur Gamma^-1 integrals int_diff and, with int_direct,
 //      int_dir and int_dir_diff.
-// All solves are pivot-free.  Requires nd >= 2 ndir and nd >= 2 (the dense
-// branch K1d is not ported).
+// K1d replaces steps 1-3 by the full N = 2 nd + ndir matrix: assemble
+// [[-g1, -g2, -g3], [g2, g1, g3], [0, 0, g0]] dz, the same per-element K,
+// A^2, A^4, A^6, U = A (b7 A^6 + b5 A^4 + b3 A^2 + b1 I) and a size-N solve;
+// steps 4-5 are the same device functions.  All solves are pivot-free.
 //
-// Bound on the H100: the per-thread workspace (15 nd^2 + 15 nd ndir +
-// 10 ndir^2 + N^2 rows, N = 2 nd + ndir) does not fit in registers, so it is
-// a struct-of-arrays global buffer (coalesced across the warp, cached in L1
-// and L2) and the kernel is bound by that traffic.  The wrapper bounds the
-// buffer by launching in chunks of elements.  The norm rule covers the
-// whole [Gamma | b] row, so the longwave (b = O(10^2) W m^-2 per unit
-// height) takes several more doubling steps per element than the shortwave.
+// Bound on the H100: the per-thread workspace (K1: 15 nd^2 + 15 nd ndir +
+// 10 ndir^2 + N^2 rows, N = 2 nd + ndir; K1d: 4 N^2 + max(N^2, 3 nd ndir) +
+// 4 nd^2 + 4 nd ndir + 2 ndir^2, under 500 rows for N <= 9) does not fit in
+// registers, so it is a struct-of-arrays global buffer (coalesced across
+// the warp, cached in L1 and L2) and the kernels are bound by that
+// traffic.  The wrapper bounds the buffer by launching in chunks of
+// elements.  The norm rule covers the whole [Gamma | b] row, so the
+// longwave (b = O(10^2) W m^-2 per unit height) takes several more
+// doubling steps per element than the shortwave.
 
 #include "common.cuh"
 
@@ -184,7 +198,7 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   const T s = A.dz[l * A.B + b];
 
   // Workspace slots (rows): AS = [Bm | Cm | b]; DSM = [D | D2 | D4 | D6 |
-  // vd | ud | m | f33]; XY = [x2 y2 x3 y3 x4 y4 x5 y5 x6 y6]; BIG = nine
+  // vd | ud | m | x33]; XY = [x2 y2 x3 y3 x4 y4 x5 y5 x6 y6]; BIG = nine
   // nd^2 slots shared across stages; F = N^2; RT, SS, EE for extraction.
   const Col<T> AS{A.ws + t, A.n};
   const Col<T> DSM = AS.at(2 * n2 + nr), XY = DSM.at(8 * d2),
@@ -193,7 +207,7 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   const Col<T> Bm = AS, Cm = AS.at(n2), bv = AS.at(2 * n2);
   const Col<T> D = DSM, D2 = DSM.at(d2), D4 = DSM.at(2 * d2),
                D6 = DSM.at(3 * d2), VD = DSM.at(4 * d2), UD = DSM.at(5 * d2),
-               M = DSM.at(6 * d2), F33 = DSM.at(7 * d2);
+               M = DSM.at(6 * d2), X33 = DSM.at(7 * d2);
   const Col<T> x2 = XY, y2 = XY.at(nr), x3 = XY.at(2 * nr), y3 = XY.at(3 * nr),
                x4 = XY.at(4 * nr), y4 = XY.at(5 * nr), x5 = XY.at(6 * nr),
                y5 = XY.at(7 * nr), x6 = XY.at(8 * nr), y6 = XY.at(9 * nr);
@@ -263,7 +277,7 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   }
   mmc(P12, Bm, TMP, nd, nd, nd);  // P12 = Bm u(W')
 
-  // ---- direct block: F33 = (vd - D ud)^-1 (vd + D ud)
+  // ---- direct block: X33 = F33 - I = (vd - D ud)^-1 2 D ud
   mmc(D2, D, D, ndir, ndir, ndir);
   mmc(D4, D2, D2, ndir, ndir, ndir);
   mmc(D6, D2, D4, ndir, ndir, ndir);
@@ -278,9 +292,9 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   mmc(D2, D, UD, ndir, ndir, ndir);  // U33 = D ud
   for (int i = 0; i < d2; ++i) {
     M[i] = VD[i] - D2[i];
-    F33[i] = VD[i] + D2[i];
+    X33[i] = T(2) * D2[i];
   }
-  solve_inplace(M, ndir, F33, ndir, ndir, ndir);
+  solve_inplace(M, ndir, X33, ndir, ndir, ndir);
 
   // ---- direct-coupling column recurrences
   mmc(x2, Bm, bv, nd, nd, ndir);          // x2 = Bm b
@@ -311,8 +325,8 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   mmc(u23, Cm, xu, nd, nd, ndir);         // U23 = Cm xu + b ud
   mmc(u23, bv, UD, nd, ndir, ndir, true);
 
-  // ---- (V - U) in BIG slots 0-3 (the powers are dead); RHS (V + U) with
-  // the direct column pre-corrected by F33, in F's first 2 nd rows
+  // ---- (V - U) in BIG slots 0-3 (the powers are dead); RHS 2 U with the
+  // direct column pre-corrected by X33, in F's first 2 nd rows
   const Col<T> VMU = BIG;
   const int m2 = 2 * nd;
   for (int i = 0; i < nd; ++i) {
@@ -321,17 +335,17 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
       VMU[i * m2 + nd + k] = -P12[i * nd + k];
       VMU[(nd + i) * m2 + k] = -P21[i * nd + k];
       VMU[(nd + i) * m2 + nd + k] = VWp[i * nd + k];
-      F[i * N + k] = VW[i * nd + k];
-      F[i * N + nd + k] = P12[i * nd + k];
-      F[(nd + i) * N + k] = P21[i * nd + k];
-      F[(nd + i) * N + nd + k] = VWp[i * nd + k];
+      F[i * N + k] = T(0);
+      F[i * N + nd + k] = T(2) * P12[i * nd + k];
+      F[(nd + i) * N + k] = T(2) * P21[i * nd + k];
+      F[(nd + i) * N + nd + k] = T(0);
     }
     for (int e = 0; e < ndir; ++e) {
-      T top = xv[i * ndir + e] + u13[i * ndir + e];
-      T mid = yv[i * ndir + e] + u23[i * ndir + e];
+      T top = T(2) * u13[i * ndir + e];
+      T mid = T(2) * u23[i * ndir + e];
       for (int f = 0; f < ndir; ++f) {
-        top -= (xv[i * ndir + f] - u13[i * ndir + f]) * F33[f * ndir + e];
-        mid -= (yv[i * ndir + f] - u23[i * ndir + f]) * F33[f * ndir + e];
+        top -= (xv[i * ndir + f] - u13[i * ndir + f]) * X33[f * ndir + e];
+        mid -= (yv[i * ndir + f] - u23[i * ndir + f]) * X33[f * ndir + e];
       }
       F[i * N + 2 * nd + e] = top;
       F[(nd + i) * N + 2 * nd + e] = mid;
@@ -339,7 +353,7 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   }
   solve_inplace(VMU, m2, F, N, m2, N);
 
-  // ---- undo the similarity (butterfly), then the direct rows
+  // ---- undo the similarity (butterfly) and add I, then the direct rows
   for (int i = 0; i < nd; ++i) {
     for (int k = 0; k < nd; ++k) {
       const T f11 = F[i * N + k], f12 = F[i * N + nd + k];
@@ -355,10 +369,13 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
       F[i * N + 2 * nd + e] = T(0.5) * (fx + fy);
       F[(nd + i) * N + 2 * nd + e] = T(0.5) * (fx - fy);
     }
+    F[i * N + i] += T(1);
+    F[(nd + i) * N + nd + i] += T(1);
   }
   for (int i = 0; i < ndir; ++i) {
     for (int k = 0; k < 2 * nd; ++k) F[(2 * nd + i) * N + k] = T(0);
-    for (int e = 0; e < ndir; ++e) F[(2 * nd + i) * N + 2 * nd + e] = F33[i * ndir + e];
+    for (int e = 0; e < ndir; ++e)
+      F[(2 * nd + i) * N + 2 * nd + e] = X33[i * ndir + e] + T(i == e);
   }
 
   // ---- extraction + doubling (workspaces from the now-dead BIG slots),
@@ -370,6 +387,89 @@ SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
   schur_ints(nd, ndir, A.int_direct != 0, g0, g1, g2, g3, BIG, BIG.at(n2),
              BIG.at(2 * n2), BIG.at(3 * n2), BIG.at(4 * n2), op(A.idiff, n2),
              A.int_direct ? op(A.idir, d2) : none,
+             A.int_direct ? op(A.idd, nr) : none);
+}
+
+// K1d: dense Pade-7 expm of the whole N x N Gamma dz (pallas_layer.py:268).
+// Workspace slots (rows): G, F, W1, W2 = N^2 each; W3 = max(N^2, 3 nd ndir);
+// RT = 4 nd^2, SS = 4 nd ndir, EE = 2 ndir^2 for extraction.  The Schur
+// integrals reuse G, F, W1, W2, W3 as nd^2 slots.
+template <typename T>
+SPX_DEV void layer_factory_dense_thread(const FactoryArgs<T>& A, long long t) {
+  const int nd = A.nd, ndir = A.ndir, N = 2 * nd + ndir, NN = N * N;
+  const int n2 = nd * nd, nr = nd * ndir, d2 = ndir * ndir;
+  const long long j = A.j0 + t, l = j / A.B, b = j % A.B;
+  auto op = [&](const T* p, int rows) {
+    return Col<T>{const_cast<T*>(p) + l * rows * A.B + b, A.B};
+  };
+  const Col<T> g0 = op(A.g0, d2), g1 = op(A.g1, n2), g2 = op(A.g2, n2),
+               g3 = op(A.g3, nr);
+  const T s = A.dz[l * A.B + b];
+  const Col<T> G{A.ws + t, A.n};
+  const Col<T> F = G.at(NN), W1 = F.at(NN), W2 = W1.at(NN), W3 = W2.at(NN),
+               RT = W3.at(NN > 3 * nr ? NN : 3 * nr), SS = RT.at(4 * n2),
+               EE = SS.at(4 * nr);
+
+  // ---- assemble Gamma dz = [[-g1, -g2, -g3], [g2, g1, g3], [0, 0, g0]] dz
+  for (int i = 0; i < nd; ++i) {
+    for (int k = 0; k < nd; ++k) {
+      const T g1r = g1[i * nd + k] * s, g2r = g2[i * nd + k] * s;
+      G[i * N + k] = -g1r;
+      G[i * N + nd + k] = -g2r;
+      G[(nd + i) * N + k] = g2r;
+      G[(nd + i) * N + nd + k] = g1r;
+    }
+    for (int e = 0; e < ndir; ++e) {
+      const T g3r = g3[i * ndir + e] * s;
+      G[i * N + 2 * nd + e] = -g3r;
+      G[(nd + i) * N + 2 * nd + e] = g3r;
+    }
+  }
+  for (int i = 0; i < ndir; ++i) {
+    for (int k = 0; k < 2 * nd; ++k) G[(2 * nd + i) * N + k] = T(0);
+    for (int e = 0; e < ndir; ++e)
+      G[(2 * nd + i) * N + 2 * nd + e] = g0[i * ndir + e] * s;
+  }
+
+  // ---- per-element scaling from the row-sum norm of Gamma dz
+  T nrm = T(0);
+  for (int i = 0; i < N; ++i) {
+    T r = T(0);
+    for (int k = 0; k < N; ++k) r += fabs(G[i * N + k]);
+    nrm = fmax(nrm, r);
+  }
+  const T kf = fmin(fmax(ceil(log2(fmax(nrm, T(1e-30)) / A.theta)), T(0)),
+                    T(A.n_double));
+  const int nK = int(kf);
+  const T fac = ldexp(T(1), -nK);
+  for (int i = 0; i < NN; ++i) G[i] *= fac;
+
+  // ---- Pade-7: V = b6 A6 + b4 A4 + b2 A2 + b0 I in F,
+  // U = A (b7 A6 + b5 A4 + b3 A2 + b1 I) in W2; solve (V - U) F = (V + U)
+  mmc(W1, G, G, N, N, N);    // A2
+  mmc(W2, W1, W1, N, N, N);  // A4
+  mmc(W3, W1, W2, N, N, N);  // A6
+  for (int i = 0; i < NN; ++i) {
+    F[i] = pade<T>(6) * W3[i] + pade<T>(4) * W2[i] + pade<T>(2) * W1[i];
+    W3[i] = pade<T>(7) * W3[i] + pade<T>(5) * W2[i] + pade<T>(3) * W1[i];
+  }
+  for (int i = 0; i < N; ++i) {
+    F[i * N + i] += pade<T>(0);
+    W3[i * N + i] += pade<T>(1);
+  }
+  mmc(W2, G, W3, N, N, N);  // U
+  for (int i = 0; i < NN; ++i) {
+    W1[i] = F[i] - W2[i];
+    F[i] += W2[i];
+  }
+  solve_inplace(W1, N, F, N, N, N);  // F = expm(Gamma dz 2^-K)
+
+  // ---- extraction + doubling, then the Schur integrals (G..W3 are dead)
+  extract_double(nd, ndir, nK, F, W1, W2, W3, RT, SS, EE, op(A.R, n2),
+                 op(A.Tm, n2), op(A.E, d2), op(A.Sup, nr), op(A.Sdn, nr));
+  const Col<T> none{nullptr, A.B};
+  schur_ints(nd, ndir, A.int_direct != 0, g0, g1, g2, g3, G, F, W1, W2, W3,
+             op(A.idiff, n2), A.int_direct ? op(A.idir, d2) : none,
              A.int_direct ? op(A.idd, nr) : none);
 }
 
@@ -406,18 +506,33 @@ __global__ void layer_factory_kernel(spx::FactoryArgs<T> A) {
 }
 
 template <typename T>
+__global__ void layer_factory_dense_kernel(spx::FactoryArgs<T> A) {
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (t < A.n) spx::layer_factory_dense_thread(A, t);
+}
+
+template <typename T, bool dense>
 static int launch_factory(SPX_FACTORY_PARAMS, void* stream) {
   const auto A = spx::factory_args<T>(SPX_FACTORY_ARGS);
   const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  layer_factory_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(A);
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  if (dense)
+    layer_factory_dense_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(A);
+  else
+    layer_factory_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }
 
 extern "C" int layer_factory_f32(SPX_FACTORY_PARAMS, void* stream) {
-  return launch_factory<float>(SPX_FACTORY_ARGS, stream);
+  return launch_factory<float, false>(SPX_FACTORY_ARGS, stream);
 }
 extern "C" int layer_factory_f64(SPX_FACTORY_PARAMS, void* stream) {
-  return launch_factory<double>(SPX_FACTORY_ARGS, stream);
+  return launch_factory<double, false>(SPX_FACTORY_ARGS, stream);
+}
+extern "C" int layer_factory_dense_f32(SPX_FACTORY_PARAMS, void* stream) {
+  return launch_factory<float, true>(SPX_FACTORY_ARGS, stream);
+}
+extern "C" int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void* stream) {
+  return launch_factory<double, true>(SPX_FACTORY_ARGS, stream);
 }
 #endif

@@ -25,6 +25,14 @@ TILE_URBAN = 2
 TILE_VEGETATED_URBAN = 3
 TILE_SIMPLE_URBAN = 4
 TILE_INFINITE_STREET = 5
+TILE_NAMES = {
+    TILE_FLAT: "Flat",
+    TILE_FOREST: "Forest",
+    TILE_URBAN: "Urban",
+    TILE_VEGETATED_URBAN: "VegetatedUrban",
+    TILE_SIMPLE_URBAN: "SimpleUrban",
+    TILE_INFINITE_STREET: "InfiniteStreet",
+}
 
 _COL_FIELDS = ("ground_dn", "ground_dn_dir", "ground_net",
                "ground_vertical_diff", "top_dn", "top_dn_dir", "top_net")

@@ -1,9 +1,14 @@
-"""Kernel K1: the per-layer operator factory, in the struct-of-arrays layout.
+"""Kernels K1 and K1d: the per-layer operator factory, in the
+struct-of-arrays layout.
 
-Replaces the TPU kernel ``pallas_layer_thin_double`` (structured branch:
-``_layer_kernel_structured`` + ``_extract_double`` + ``_schur_int_kernel``,
-spartacus_surface_tpu/ops/pallas_layer.py:495, 350, 212), for the shortwave
-(``layer_factory``) and for the longwave emission pseudo-beam
+Replaces the TPU kernel ``pallas_layer_thin_double``
+(spartacus_surface_tpu/ops/pallas_layer.py:788) in both of its branches,
+chosen by the same predicate (``is_structured``, pallas_layer.py:855):
+K1 is the structured branch (``_layer_kernel_structured`` +
+``_extract_double`` + ``_schur_int_kernel``, :495, 350, 212), K1d the dense
+one (``_layer_kernel`` :268), which every 1-stream shortwave solve and the
+1-stream, 1-region longwave solve take.  Both serve the shortwave
+(``layer_factory``) and the longwave emission pseudo-beam
 (``lw_layer_factory``, as ``pallas_lw_layer_tiles`` :1013 calls it: ndir = 1,
 gamma0 = 0, gamma3 = b, no direct-beam integrals).  CUDA source:
 csrc/layer_factory.cu.  Plain versions: ``layer_factory_plain`` and
@@ -15,14 +20,15 @@ contiguous), so thread b reads row r of layer l at (l*rows + r)*B + b and a
 warp's loads coalesce.  The output is exactly the sweep kernels' input.
 
 On the H100 the factory is bound by its workspace traffic, not by FLOPs: one
-thread per (element, layer) runs a half-size Pade-7 expm, the thin-layer
-extraction, its own K doubling steps and the block-Schur integrals in
-~15 nd^2 rows of per-thread workspace (5,516 rows at nd=16), far more than a
-thread's registers.  The design keeps that workspace in a struct-of-arrays
-global buffer allocated here (coalesced, L1/L2-cached) and bounds its size
-by launching in chunks of ``chunk`` elements.  Each thread loops exactly its
-own K doubling steps, which is the TPU kernel's masked commit
-(pallas_layer.py:400) without the masking.
+thread per (element, layer) runs a Pade-7 expm (K1: half size; K1d: the full
+N = 2 nd + ndir matrix), the thin-layer extraction, its own K doubling steps
+and the block-Schur integrals in ~15 nd^2 rows of per-thread workspace
+(5,516 rows at nd=16), far more than a thread's registers.  The design keeps
+that workspace in a struct-of-arrays global buffer allocated here
+(coalesced, L1/L2-cached) and bounds its size by launching in chunks of
+``chunk`` elements.  Each thread loops exactly its own K doubling steps,
+which is the TPU kernel's masked commit (pallas_layer.py:400) without the
+masking.
 """
 
 from __future__ import annotations
@@ -49,11 +55,24 @@ def out_rows(nd: int, ndir: int) -> dict:
                 int_dir_diff=nr)
 
 
+def is_structured(nd: int, ndir: int) -> bool:
+    """K1 (half-size expm) needs the diffuse block to split; otherwise K1d
+    (pallas_layer.py:855)."""
+    return nd >= 2 * ndir and nd >= 2
+
+
 def workspace_rows(nd: int, ndir: int) -> int:
-    """Per-element workspace of the CUDA kernel: AS, DSM, XY, BIG, F, RT,
-    SS, EE slots (csrc/layer_factory.cu)."""
+    """Per-element workspace of K1: AS, DSM, XY, BIG, F, RT, SS, EE slots
+    (csrc/layer_factory.cu)."""
     n2, nr, d2 = nd * nd, nd * ndir, ndir * ndir
     return 15 * n2 + 15 * nr + 10 * d2 + (2 * nd + ndir) ** 2
+
+
+def dense_workspace_rows(nd: int, ndir: int) -> int:
+    """Per-element workspace of K1d: G, F, W1, W2, W3, RT, SS, EE slots
+    (csrc/layer_factory.cu, pallas_layer.py:871-879)."""
+    nn, nr = (2 * nd + ndir) ** 2, nd * ndir
+    return 4 * nn + max(nn, 3 * nr) + 4 * nd * nd + 4 * nr + 2 * ndir * ndir
 
 
 def layer_factory_plain(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30,
@@ -71,12 +90,13 @@ def layer_factory_plain(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30,
 
 def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
                   int_direct=True):
-    """K1: per-layer operators R, T, E, Sup, Sdn, int_diff and, with
+    """K1 / K1d: per-layer operators R, T, E, Sup, Sdn, int_diff and, with
     int_direct, int_dir and int_dir_diff, each [L, rows, B].
 
     g0 [L, ndir^2, B], g1/g2 [L, nd^2, B], g3 [L, nd*ndir, B], dz [L, B].
     CUDA tensors launch csrc/layer_factory.cu (in chunks of `chunk`
-    elements); CPU tensors take layer_factory_plain.
+    elements): K1 where is_structured(nd, ndir), K1d otherwise.  CPU
+    tensors take layer_factory_plain.
     """
     L, _, B = g1.shape
     dev = cuda_build.validate("layer_factory", {
@@ -87,10 +107,6 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
         return layer_factory_plain(g0, g1, g2, g3, dz, nd=nd, ndir=ndir,
                                    n_double=n_double, chunk=chunk,
                                    int_direct=int_direct)
-    if not (nd >= 2 * ndir and nd >= 2):
-        raise NotImplementedError(
-            f"nd={nd}, ndir={ndir} needs the dense factory (K1d, the TPU"
-            " kernel _layer_kernel), which is not ported yet")
     with torch.cuda.device(dev):
         return launch(cuda_build.load("layer_factory"), g0, g1, g2, g3, dz,
                       nd=nd, ndir=ndir, n_double=n_double, chunk=chunk,
@@ -100,10 +116,15 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
 def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
            int_direct=True):
     """Allocate outputs and workspace and launch lib's layer_factory_f32/f64
-    over the elements in chunks; counts each launch (and, without
-    int_direct, each in lw_layer_factory.launches too)."""
+    (K1) or layer_factory_dense_f32/f64 (K1d) over the elements in chunks.
+    Counts each launch in layer_factory.launches (K1) or
+    layer_factory.dense_launches (K1d) and, without int_direct, in the same
+    counter of lw_layer_factory too."""
     L, _, B = g1.shape
-    fn = lib.layer_factory_f32 if g1.dtype == torch.float32 else lib.layer_factory_f64
+    structured = is_structured(nd, ndir)
+    kind = "" if structured else "_dense"
+    bits = "f32" if g1.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"layer_factory{kind}_{bits}")
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
                    + [ctypes.c_double] + [ctypes.c_longlong] * 3
@@ -112,7 +133,8 @@ def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
     outs = {k: g1.new_empty((L, rows[k], B)) for k in out_names(int_direct)}
     total = L * B
     step = max(1, min(chunk or total, total))
-    ws = g1.new_empty((workspace_rows(nd, ndir) * step,))
+    rows_ws = (workspace_rows if structured else dense_workspace_rows)(nd, ndir)
+    ws = g1.new_empty((rows_ws * step,))
     for j0 in range(0, total, step):
         n = min(step, total - j0)
         err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz)),
@@ -120,14 +142,16 @@ def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
                    for k in OUT_NAMES),
                  cuda_build.ptr(ws), nd, ndir, n_double, int(int_direct),
                  pade7_theta(g1.dtype), B, j0, n, stream)
-        cuda_build.check(err, "layer_factory")
-        layer_factory.launches += 1
-        if not int_direct:
-            lw_layer_factory.launches += 1
+        cuda_build.check(err, f"layer_factory{kind}")
+        counter = "launches" if structured else "dense_launches"
+        wrappers = (layer_factory,) + (() if int_direct else (lw_layer_factory,))
+        for w in wrappers:
+            setattr(w, counter, getattr(w, counter) + 1)
     return outs
 
 
-layer_factory.launches = 0
+layer_factory.launches = 0  # K1
+layer_factory.dense_launches = 0  # K1d
 
 
 # ----------------------------------------------------------------------
@@ -164,9 +188,9 @@ def lw_layer_factory(g1, g2, b, dz, *, nd, n_double=30, chunk=65536):
     """K1 in its LW mode: R, T [L, nd^2, B], p [L, nd, B], int_diff
     [L, nd^2, B], int_source [L, nd, B] for the emission rate b [L, nd, B]
     (g1/g2 [L, nd^2, B], dz [L, B]).  K1 runs with ndir = 1, gamma0 = 0,
-    gamma3 = b and int_direct off; CUDA tensors launch it (counted in
-    layer_factory.launches and lw_layer_factory.launches), CPU tensors take
-    the plain version.
+    gamma3 = b and int_direct off (K1d where nd = 1); CUDA tensors launch it
+    (counted in the launches / dense_launches of layer_factory and of
+    lw_layer_factory), CPU tensors take the plain version.
     """
     g0, g3 = _lw_operands(g1, b)
     lay = layer_factory(g0, g1, g2, g3, dz, nd=nd, ndir=1, n_double=n_double,
@@ -183,3 +207,4 @@ def launch_lw(lib, g1, g2, b, dz, *, nd, n_double, chunk, stream):
 
 
 lw_layer_factory.launches = 0
+lw_layer_factory.dense_launches = 0

@@ -1,14 +1,19 @@
-"""Seeded example inputs, the same arrays as __graft_entry__'s builders.
+"""Seeded example inputs, the same arrays as __graft_entry__'s builders, and
+a seeded input file for the CLI.
 
 ``example_inputs`` follows ``__graft_entry__._example_inputs`` and
 ``example_arrays`` follows ``__graft_entry__._example_arrays`` draw for draw
 (numpy default_rng, same seeds and order), so the tests and chip_smoke.py
 give both packages identical arrays.  Both return host numpy.
+``write_example_input`` writes a NetCDF3 input file under the reference's
+variable names, which both packages' ``driver.read_input`` read.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from scipy.io import netcdf_file
 
 from .constants import StefanBoltzmann as SB
 
@@ -123,3 +128,74 @@ def example_arrays(C=12, L=3, S=1, dtype=np.float32, seed=1,
         lw_veg_ssa=f(C, L, S),
         **_lw_fields(C, L, S, dtype),
     )
+
+
+def write_example_input(path, i_representation, L=8, S=1, seed=0) -> None:
+    """Write a seeded NetCDF3 (classic) input file for the CLI.
+
+    i_representation [C]: tile code per column (0 Flat, 1 Forest, 2 Urban,
+    3 VegetatedUrban, 4 SimpleUrban, 5 InfiniteStreet).  Layered tiles get
+    L layers, the simple-urban ones 1, Flat 0.  Variables: those that
+    driver/read_input.py reads (nlayer, height, surface_type,
+    cos_solar_zenith_angle, building_* and veg_* per layer, SW albedos and
+    the vegetation single-scattering albedos, LW emissivities and
+    temperatures, top_flux_dn_sw, top_flux_dn_direct_sw, sky_temperature);
+    with S > 1 the albedos, emissivities and ssa carry a band dimension of
+    S.  Cover fractions are zero where the tile type has no buildings or no
+    vegetation.  Values are drawn per column and layer from
+    default_rng(seed).
+    """
+    rep = np.asarray(i_representation, np.int32)
+    C = rep.size
+    rng = np.random.default_rng(seed)
+    nlay = np.select([rep == 0, rep >= 4], [0, 1], L).astype(np.int32)
+    urban = np.isin(rep, [2, 3, 4, 5])[:, None]
+    veg = np.isin(rep, [1, 3])[:, None]
+    band = ("band",) if S > 1 else ()
+    shapes = {"column": C, "layer": L, "band": S}
+    # each field: (dims, low, high) of a uniform draw
+    col, lay = ("column",), ("column", "layer")
+    draws = {
+        "cos_solar_zenith_angle": (col, 0.2, 0.9),
+        "building_fraction": (lay, 0.05, 0.4),
+        "building_scale": (lay, 20.0, 60.0),
+        "veg_fraction": (lay, 0.1, 0.4),
+        "veg_extinction": (lay, 0.1, 0.4),
+        "veg_scale": (lay, 60.0, 180.0),
+        "veg_fsd": (lay, 0.5, 0.9),
+        "veg_contact_fraction": (lay, 0.1, 0.4),
+        "ground_sw_albedo": (col + band, 0.1, 0.3),
+        "roof_sw_albedo": (lay + band, 0.1, 0.4),
+        "wall_sw_albedo": (lay + band, 0.1, 0.4),
+        "veg_sw_ssa": (lay + band, 0.2, 0.8),
+        "top_flux_dn_sw": (col + band, 200.0, 1000.0),
+        "top_flux_dn_direct_sw": (col + band, 0.5, 0.9),  # x top_flux_dn_sw
+        "ground_lw_emissivity": (col + band, 0.9, 1.0),
+        "roof_lw_emissivity": (lay + band, 0.85, 0.95),
+        "wall_lw_emissivity": (lay + band, 0.85, 0.95),
+        "veg_lw_ssa": (lay + band, 0.02, 0.1),
+        "ground_temperature": (col, 280.0, 300.0),
+        "roof_temperature": (lay, 275.0, 305.0),
+        "wall_temperature": (lay, 275.0, 305.0),
+        "air_temperature": (lay, 278.0, 298.0),
+        "veg_temperature": (lay, 278.0, 300.0),
+        "sky_temperature": (col, 240.0, 270.0),
+    }
+    dz = rng.uniform(3.0, 8.0, (C, L))
+    fields = {name: (dims, rng.uniform(lo, hi, [shapes[d] for d in dims]))
+              for name, (dims, lo, hi) in draws.items()}
+    fields["top_flux_dn_direct_sw"][1][:] *= fields["top_flux_dn_sw"][1]
+    for name, mask in (("building_fraction", urban), ("veg_fraction", veg),
+                       ("veg_contact_fraction", veg & urban)):
+        fields[name][1][:] *= mask
+    fields["height"] = (("column", "layer_interface"), np.concatenate(
+        [np.zeros((C, 1)), np.cumsum(dz, 1)], 1))
+    with netcdf_file(path, "w") as f:
+        for dim, size in (("column", C), ("layer", L),
+                          ("layer_interface", L + 1), ("band", S)):
+            if dim != "band" or S > 1:
+                f.createDimension(dim, size)
+        for name, val in (("nlayer", nlay), ("surface_type", rep)):
+            f.createVariable(name, "i", col)[:] = val
+        for name, (dims, val) in fields.items():
+            f.createVariable(name, "d", dims)[:] = val

@@ -30,6 +30,9 @@ import spartacus_surface_tpu_torch.models.dispatch as d
 import spartacus_surface_tpu_torch.models.flux_utils
 import spartacus_surface_tpu_torch.ops.cuda_build as cb
 import spartacus_surface_tpu_torch.utils.convert
+import spartacus_surface_tpu_torch.driver.duplicate_profiles
+import spartacus_surface_tpu_torch.driver.main
+import spartacus_surface_tpu_torch.driver.test_kernels
 from spartacus_surface_tpu_torch.utils.config import Config
 from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 out = d.run_radsurf(Config(do_lw=False).consolidate(),
@@ -44,8 +47,9 @@ print("clean")
 
 
 def test_port_imports_no_jax_and_needs_no_nvcc(tmp_path):
-    """Import every module and run run_radsurf on the CPU with no nvcc on
-    PATH: no JAX (nor JAX-package) module is loaded and nothing is built."""
+    """Import every module (the CLI's too) and run run_radsurf on the CPU
+    with no nvcc on PATH: no JAX (nor JAX-package) module is loaded and
+    nothing is built."""
     bin_dir = tmp_path / "bin"
     bin_dir.mkdir()
     os.symlink(sys.executable, bin_dir / "python")

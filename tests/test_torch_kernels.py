@@ -1,12 +1,14 @@
-"""The hand-written kernels (K1 layer factory in its SW and LW modes, K2 SW
-up-sweep, K3 fused SW down-sweep, K4 LW up-sweep, K5 fused LW down-sweep)
-against their plain PyTorch versions on the same operands, captured from the
-solver's kernel routes on seeded example inputs (LW facet and Planck fields
-drawn per column, layer and band).
+"""The hand-written kernels (K1 / K1d layer factory in its SW and LW modes,
+K2 SW up-sweep, K3 fused SW down-sweep, K4 LW up-sweep, K5 fused LW
+down-sweep) against their plain PyTorch versions on the same operands,
+captured from the solver's kernel routes on seeded example inputs (LW facet
+and Planck fields drawn per column, layer and band), for the four entry
+configurations and the three 1-stream ones (where the factory is K1d).
 
 * host build: csrc/host_check.cpp compiles the kernels' per-thread bodies
   with the host C++ compiler and runs them thread by thread on the CPU, so
-  the kernels' indexing and algebra are checked here without a GPU;
+  the kernels' indexing and algebra are checked here without a GPU; the
+  K1d body is also held against the JAX package's layer_matrices;
 * cuda (marked, skipped without a GPU): the nvcc-built kernels on the card.
 
 Tolerances: float64 per-field max|diff| / max(1, max|plain|) <= 1e-9 for
@@ -39,6 +41,7 @@ from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
 from spartacus_surface_tpu_torch.utils.inputs import example_inputs, random_lw_fields
 
 ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))
+ONE_STREAM_CONFIGS = ((1, 1), (2, 1), (3, 1))  # K1d in SW; and in LW at nreg 1
 KERNELS = ("layer_factory", "sw_up_sweep", "sw_down_sweep_both",
            "lw_layer_factory", "lw_up_sweep", "lw_down_sweep_both")
 PLAIN = {"layer_factory": LK.layer_factory_plain,
@@ -148,10 +151,73 @@ def host_launch(host_lib, calls):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS)
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS)
 def test_host_built_kernels_match_plain(host_lib, monkeypatch, nreg, ns, dtype):
     calls = capture(monkeypatch, nreg, ns, dtype, "cpu")
     assert_matches_plain(host_launch(host_lib, calls), calls, dtype == np.float32)
+
+
+@pytest.mark.parametrize("nreg,ns", [(2, 1), (3, 1), (2, 4)])
+def test_host_built_factory_float32_accuracy(host_lib, monkeypatch, nreg, ns):
+    """In float32 each factory output of K1 / K1d is as close to the float64
+    answer as the plain version's, within a factor 2 plus 1e-6 (at 1 stream
+    the LW elements take ~8 doubling steps, which amplify any rounding of
+    the thin-layer blocks)."""
+    calls = capture(monkeypatch, nreg, ns, np.float32, "cpu", C=150, L=4, S=2)
+    launched = host_launch(host_lib, calls)
+    for name in ("layer_factory", "lw_layer_factory"):
+        a, k, _ = calls[name]
+        truth = PLAIN[name](*(x.double() for x in a), **k)
+        plain = PLAIN[name](*a, **k)
+        for n in truth:
+            err = lambda x: (x[n].double() - truth[n]).abs().max().item()
+            assert err(launched[name]) <= 2 * err(plain) + 1e-6, (name, n)
+
+
+def _soa(x, L, B):
+    """[L*B, n, m] numpy -> [L, n*m, B] tensor (element e = l*B + b)."""
+    return torch.as_tensor(np.ascontiguousarray(
+        x.reshape(L, B, -1).transpose(0, 2, 1)))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("mode,nreg", [("sw", 1), ("sw", 2), ("sw", 3),
+                                       ("lw", 1)])
+def test_host_built_dense_factory_matches_jax(host_lib, mode, nreg, dtype):
+    """K1d's body (1 stream per hemisphere: nd = nreg) against the JAX
+    package's layer_matrices / lw_layer_matrices (the XLA route the TPU
+    kernel is held to) on the same operands: f64 1e-9 per field, f32
+    elementwise rtol 2e-4 / atol 2e-5 (tests/test_pallas_layer.py:45)."""
+    import importlib
+
+    from tests.test_layer_matrices import make_gammas
+
+    jlm = importlib.import_module("spartacus_surface_tpu.ops.layer_matrices")
+    rng = np.random.default_rng(nreg)
+    L, B = 2, 5
+    g0, g1, g2, g3 = (np.stack(x).astype(dtype) for x in zip(
+        *(make_gammas(rng, 1, nreg) for _ in range(L * B))))
+    dz = rng.uniform(0.3, 10.0, L * B).astype(dtype)
+    assert not LK.is_structured(nreg, nreg if mode == "sw" else 1)
+    if mode == "sw":
+        ref = jlm.layer_matrices(g0, g1, g2, g3, dz, n_double=30)
+        got = LK.launch(host_lib, *(_soa(g, L, B) for g in (g0, g1, g2, g3)),
+                        torch.as_tensor(dz.reshape(L, B)), nd=nreg, ndir=nreg,
+                        n_double=30, chunk=3, stream=None)
+    else:
+        b = rng.uniform(50.0, 400.0, (L * B, nreg)).astype(dtype)
+        ref = jlm.lw_layer_matrices(g1, g2, b, dz, n_double=30)
+        got = LK.launch_lw(host_lib, _soa(g1, L, B), _soa(g2, L, B),
+                           _soa(b, L, B), torch.as_tensor(dz.reshape(L, B)),
+                           nd=nreg, n_double=30, chunk=3, stream=None)
+    assert set(got) == set(ref)
+    for key in ref:
+        r = torch.as_tensor(np.asarray(ref[key]).reshape(L, B, -1)
+                            .transpose(0, 2, 1).copy())
+        if dtype == np.float32:
+            torch.testing.assert_close(got[key], r, rtol=2e-4, atol=2e-5)
+        else:
+            assert field_err([r], [got[key]]) <= 1e-9, key
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -176,8 +242,12 @@ def test_nan_output_fails_comparison(host_lib, monkeypatch, kernel, dtype):
     res = smoke.compare_kernels(
         {n: [(*calls[n][:2], launched[n])] for n in KERNELS},
         torch.float32 if dtype == np.float32 else torch.float64, LK, SK, LSK)
-    bad = [kernel in names for *_, names in smoke.KERNELS]
-    assert [ok for _, ok in res] == [not b for b in bad]
+    # a kernel of smoke.KERNELS is compared where one of its calls ran on it
+    ran = [any(smoke.runs_on(factory, calls[n][1], LK) for n in names)
+           for *_, names, factory in smoke.KERNELS]
+    bad = [r and kernel in k[4] for r, k in zip(ran, smoke.KERNELS)]
+    assert [ok for _, ok in res] == [(not b) if r else None
+                                     for b, r in zip(bad, ran)]
     assert res[bad.index(True)][0] == math.inf
 
 
@@ -255,26 +325,65 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _counters(nreg, ns):
+    """The launch counters a SW + LW solve at (nreg, ns) raises: K1 or K1d
+    (the SW factory has ndir = nreg, the LW one ndir = 1), and K2-K5."""
+    nd = nreg * ns
+    sw = "launches" if LK.is_structured(nd, nreg) else "dense_launches"
+    lw = "launches" if LK.is_structured(nd, 1) else "dense_launches"
+    return ((LK.layer_factory, sw), (LK.lw_layer_factory, lw),
+            (SK.sw_up_sweep, "launches"), (SK.sw_down_sweep_both, "launches"),
+            (LSK.lw_up_sweep, "launches"), (LSK.lw_down_sweep_both, "launches"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS)
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS)
 def test_cuda_kernels_match_plain(cuda_device, monkeypatch, nreg, ns, dtype):
-    wrappers = (LK.layer_factory, SK.sw_up_sweep, SK.sw_down_sweep_both,
-                LK.lw_layer_factory, LSK.lw_up_sweep, LSK.lw_down_sweep_both)
-    before = [w.launches for w in wrappers]
+    counters = _counters(nreg, ns)
+    before = [getattr(w, c) for w, c in counters]
     calls = capture(monkeypatch, nreg, ns, dtype, cuda_device, C=300, L=4, S=2)
     torch.cuda.synchronize()
-    assert all(w.launches > n for w, n in zip(wrappers, before))
+    assert all(getattr(w, c) > n for (w, c), n in zip(counters, before))
     assert_matches_plain({n: c[2] for n, c in calls.items()}, calls,
                          dtype == np.float32)
 
 
+def _random_gammas(rng, L, B, nd, ndir, dtype):
+    """Seeded, SPARTACUS-like [L, rows, B] operands: extinction on the
+    diagonals of g0 and g1, weaker exchange and scattering off them."""
+    def op(n, m, diag, off):
+        a = off * rng.uniform(0.0, 1.0, (L, B, n, m))
+        k = min(n, m)
+        a[..., range(k), range(k)] = diag * rng.uniform(0.2, 1.0, (L, B, k))
+        return torch.as_tensor(a.reshape(L, B, n * m).transpose(0, 2, 1)
+                               .astype(dtype).copy())
+    return (op(ndir, ndir, -1.5, 0.05), op(nd, nd, -2.0, 0.1),
+            op(nd, nd, 0.4, 0.05), op(nd, ndir, 0.3, 0.05),
+            torch.as_tensor(rng.uniform(0.3, 8.0, (L, B)).astype(dtype)))
+
+
 @pytest.mark.cuda
-def test_cuda_dense_factory_is_refused(cuda_device):
-    g = lambda *s: torch.zeros(s, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K1d"):
-        LK.layer_factory(g(1, 4, 8), g(1, 4, 8), g(1, 4, 8), g(1, 4, 8), g(1, 8),
-                         nd=2, ndir=2)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nd,ndir", [(1, 1), (2, 2), (3, 3), (2, 4)])
+def test_cuda_dense_factory_launches(cuda_device, nd, ndir, dtype):
+    """Where the structured factory does not apply, K1d launches (its own
+    counter rises, K1's does not) and matches the plain version."""
+    assert not LK.is_structured(nd, ndir)
+    ops = [x.to(cuda_device) for x in
+           _random_gammas(np.random.default_rng(nd), 3, 257, nd, ndir, dtype)]
+    n1, nd1 = LK.layer_factory.launches, LK.layer_factory.dense_launches
+    got = LK.layer_factory(*ops, nd=nd, ndir=ndir, chunk=500)
+    torch.cuda.synchronize()
+    assert LK.layer_factory.dense_launches == nd1 + 2  # 771 elements, 2 chunks
+    assert LK.layer_factory.launches == n1
+    ref = LK.layer_factory_plain(*ops, nd=nd, ndir=ndir)
+    assert set(got) == set(ref)
+    for k in ref:
+        if dtype == np.float32:
+            torch.testing.assert_close(got[k], ref[k], rtol=2e-4, atol=2e-5)
+        else:
+            assert field_err([ref[k]], [got[k]]) <= 1e-9, k
 
 
 @pytest.mark.cuda

@@ -44,7 +44,7 @@ from tests.test_solver_conservation import add_lw, make_inputs, residual_sw
 from tests.test_torch_models import canopy, close, close_dicts
 from tests.test_torch_ops import JLM
 from tests.test_torch_ops import close as close_rt
-from tests.test_torch_solver import ENTRY_CONFIGS, field_err
+from tests.test_torch_solver import ENTRY_CONFIGS, ONE_STREAM_CONFIGS, field_err
 
 T = torch.as_tensor
 C, L, S = 6, 4, 2
@@ -210,7 +210,7 @@ def port(nreg, ns, urban, route, pad_layers=0, inp=None, **opt_kw):
 
 @pytest.mark.parametrize("route", ["scan", "kernel"])
 @pytest.mark.parametrize("urban", [True, False], ids=["urban", "forest"])
-@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS)
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS)
 def test_spartacus_lw_matches_jax(nreg, ns, urban, route):
     err = field_err(jax_ref(nreg, ns, urban), port(nreg, ns, urban, route))
     assert err < TOL, err

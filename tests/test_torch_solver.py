@@ -23,6 +23,9 @@ from spartacus_surface_tpu_torch.utils.convert import to_canopy_inputs
 from tests.test_solver_conservation import make_inputs
 
 ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))  # __graft_entry__.ENTRY_CONFIGS
+# One stream per hemisphere: the SW factory takes the dense branch (K1d) at
+# every nreg, the LW one at nreg = 1
+ONE_STREAM_CONFIGS = ((1, 1), (2, 1), (3, 1))
 TOL = 1e-9
 
 
@@ -66,7 +69,7 @@ def port(nreg, ns, urban, route, pad_layers=0, **opt_kw):
 
 @pytest.mark.parametrize("route", ["scan", "kernel"])
 @pytest.mark.parametrize("urban", [True, False], ids=["urban", "forest"])
-@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS)
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS)
 def test_spartacus_sw_matches_jax(nreg, ns, urban, route):
     err = field_err(jax_ref(nreg, ns, urban), port(nreg, ns, urban, route))
     assert err < TOL, err
