@@ -6,8 +6,9 @@
 
 Phases, one JSON line each (failures make the script exit nonzero before the
 final line):
-  1. build   - nvcc builds csrc/*.cu for sm_90a, all sources at once
-     (ptxas register/spill report).
+  1. build   - nvcc builds csrc/*.cu for sm_90a (the layer factory, the SW
+     and LW sweeps, the roofline probes), one nvcc per source, all started
+     together (ptxas register/spill report).
   2. kernel_vs_plain - each kernel against its plain PyTorch version on the
      same operands: the layer factory K1 (structured) and K1d (dense; the
      1-stream systems), each in its SW and its LW calls, K2 SW up-sweep, K3
@@ -59,6 +60,23 @@ final line):
      launched, and the demo's own factory calls (SW on K1d, LW on K1)
      against their plain versions on the same operands, every output field,
      <= 1e-9 in f64.
+  roofline - the roofline tool's main path, tools.roofline.main(
+     ["--cols-per-sec", <headline rate>]) with the probe counters set to 0
+     just before it and read just after (K6 and K7 must launch); K6
+     (chained FMA, float32 and float64) and K7 (o = x + 1 over 512 MB)
+     against their plain versions on the tool's seeded operands (K6 rtol
+     1e-4 in float32, since fma rounds once a step where mul + add rounds
+     twice, and 1e-12 in float64; K7 torch.equal); the measured FMA
+     ceilings and HBM bandwidth, each a share of the H100's published
+     peak (67 / 34 TFLOP/s, 3.35 TB/s), which must lie in [0.5, 1.05];
+     K7's library call torch.add(x, 1.0, out=o); the SM clock and power
+     draw nvidia-smi reads while each probe runs; every kernel row's
+     FLOPs and compulsory bytes (tools.roofline.kernel_work on the timed
+     call's operands) and its bound, whose share of the measured time must
+     not exceed 1.05; and the whole-solve roofline: warm walls (median of 3
+     calls) of the float32 headline and rami5_shape kernel routes as
+     layered columns/s against solve_work_model's ceiling at the run's own
+     mean doubling counts.
   4. profile (--profile only) - for each slice run: warm wall seconds of
      both routes (median, min, max of 5 calls), and one torch.profiler trace
      of a warm kernel-route call: device launches, device busy ms (union of
@@ -68,8 +86,12 @@ Then the per-kernel summary line {"kernels": [...]} (K1-K5: launches
 counted over the headline float32 run of phase 3, ms / plain_ms timed with
 CUDA events on that run's operands; K1d: launches over the cli_ns1 single
 run, timed on its largest SW call and its LW call; the LW calls as
-launches_lw / ms_lw / plain_ms_lw), the card's name and power limit from
-nvidia-smi, and the final {"ok": true, "device": {...}} line.
+launches_lw / ms_lw / plain_ms_lw; K6 and K7: launches over the roofline
+tool's run, timed on its operands, K6's float64 as *_f64; every row with
+flops, bytes, bound_ms, bound_by and share, the factory rows also
+bound_ms_lw and share_lw; library_ms for K7 only: no single PyTorch call
+computes K1-K6), the card's name and power limit from nvidia-smi, and the
+final {"ok": true, "device": {...}} line.
 
 Inputs are random from fixed numpy seeds (spartacus_surface_tpu_torch/utils/
 inputs.py); the CLI's files are written under build/chip_smoke_cli/.
@@ -91,7 +113,7 @@ from pathlib import Path
 
 ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))  # (nreg, nstream)
 ONE_STREAM_CONFIGS = ((1, 1), (2, 1), (3, 1))  # the factory is K1d here
-SOURCES = ("layer_factory", "sw_sweeps", "lw_sweeps")  # csrc/<name>.cu
+SOURCES = ("layer_factory", "sw_sweeps", "lw_sweeps", "roofline_probes")  # csrc/<name>.cu
 # (name, source, TPU kernel replaced, device symbol, solver wrappers, which
 # factory calls: "structured" (K1), "dense" (K1d) or None for every call)
 KERNELS = (
@@ -116,11 +138,20 @@ KERNELS = (
      "layer_factory_dense_kernel", ("layer_factory", "lw_layer_factory"),
      "dense"),
 )
+# the probe kernels of the roofline tool: (name, source, TPU kernel replaced)
+PROBES = (("K6 fma_chain", "spartacus_surface_tpu_torch/csrc/roofline_probes.cu",
+           "tools/roofline.py:39"),
+          ("K7 copy_add", "spartacus_surface_tpu_torch/csrc/roofline_probes.cu",
+           "tools/roofline.py:83"))
 WRAPPERS = ("layer_factory", "lw_layer_factory", "sw_up_sweep",
             "sw_down_sweep_both", "lw_up_sweep", "lw_down_sweep_both")
 # the launch counters a run must raise: a 4-stream path, and a 1-stream one
 PATH_4 = ("K1", "K2", "K3", "K4", "K5", "K1 LW mode")
 PATH_1 = PATH_4 + ("K1d", "K1d LW mode")
+# tile types of layered columns (forest, urban, vegetated urban), and the
+# work model's (nreg, nstream, layers, bands) of each slice run
+LAYERED = (1, 2, 3)
+SOLVE_MODELS = {"headline": (2, 4, 8, 1), "rami5_shape": (3, 4, 62, 14)}
 CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
 CLI_NAMELIST = """&radsurf
   n_stream_sw_forest = {ns}, n_stream_sw_urban = {ns},
@@ -247,6 +278,13 @@ def compare_kernels(calls, dtype, LK, SK, LSK):
     return out
 
 
+def mean_doubling_steps(calls, kernel, RL):
+    """Mean doubling count per element over the captured calls of a factory
+    wrapper (tools.roofline.doubling_steps)."""
+    steps = [RL.doubling_steps(kernel, *a, **k) for a, k, _ in calls]
+    return sum(float(x.sum()) for x in steps) / sum(x.numel() for x in steps)
+
+
 def time_ms(fn, reps=3):
     import torch
 
@@ -260,6 +298,38 @@ def time_ms(fn, reps=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def clocks_during(fn, seconds=2.0):
+    """The SM clock (MHz) and power draw (W) nvidia-smi reads every 100 ms
+    while fn runs again and again on the card for `seconds`: medians and
+    the sample count, or None where nvidia-smi gives no sample."""
+    import torch
+
+    try:
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        return None
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    samples = []
+    for line in out.splitlines():
+        with contextlib.suppress(ValueError):
+            samples.append([float(v) for v in line.split(",")][:2])
+    if not samples:
+        return None
+    return {"sm_mhz": statistics.median(m for m, _ in samples),
+            "power_w": statistics.median(w for _, w in samples),
+            "samples": len(samples)}
 
 
 def wall_seconds(fn, reps=5):
@@ -376,8 +446,10 @@ def main(argv=None) -> int:
     from spartacus_surface_tpu_torch.ops import cuda_build
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
+    from spartacus_surface_tpu_torch.ops import probe_kernels as PK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
     from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
+    from spartacus_surface_tpu_torch.tools import roofline as RL
     from spartacus_surface_tpu_torch.utils import profiling
     from spartacus_surface_tpu_torch.utils.config import Config, DriverConfig
     from spartacus_surface_tpu_torch.utils.inputs import (
@@ -490,6 +562,7 @@ def main(argv=None) -> int:
     }
     runs = [(sname, dname, Config(do_lw=True, **cfg).consolidate(), rep, L, S)
             for sname, (rep, L, S, cfg) in slices.items() for dname in dtypes]
+    mean_steps = {}  # {slice: [SW, LW] mean doubling steps per factory element}
     for sname, dname, config, rep, L, S in runs:
         np_dt, dt = dtypes[dname]
         arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np_dt,
@@ -549,15 +622,19 @@ def main(argv=None) -> int:
              seconds_kernel_route=t_kernel, seconds_scan_route=t_scan,
              peak_gib_kernel_route=mem_kernel, peak_gib_scan_route=mem_scan,
              finite=finite, shapes_ok=shapes)
+        if f32:  # each factory element's doubling count, for the roofline
+            mean_steps[sname] = [mean_doubling_steps(cap.calls[n], n, RL)
+                                 for n in ("layer_factory", "lw_layer_factory")]
         if sname == "headline" and f32:  # the main path of K1-K5
             main_launches, errs = launches, kernel_errs
             wrappers = {n: getattr(solver, n) for n in WRAPPERS}
             plains = plain_versions(LK, SK, LSK)
-            timings = {}
+            timings, works = {}, {}
             for n in WRAPPERS:
                 a, k, _ = cap.calls[n][0]
                 timings[n] = (time_ms(lambda: wrappers[n](*a, **k)),
                               time_ms(lambda: plains[n](*a, **k)))
+                works[n] = RL.kernel_work(n, *a, **k)
         del cap
         torch.cuda.empty_cache()
 
@@ -647,11 +724,12 @@ def main(argv=None) -> int:
                            key=lambda c: c[0][1].shape[0] * c[0][1].shape[2])
                 wrappers = {n: getattr(solver, n) for n in dense}
                 plains = plain_versions(LK, SK, LSK)
-                dense_timings = {}
+                dense_timings, dense_works = {}, {}
                 for n, (a, k) in (("layer_factory", (a, k)),
                                   ("lw_layer_factory", dense["lw_layer_factory"][0])):
                     dense_timings[n] = (time_ms(lambda: wrappers[n](*a, **k)),
                                         time_ms(lambda: plains[n](*a, **k)))
+                    dense_works[n] = RL.kernel_work(n, *a, **k)
             del cap
             torch.cuda.empty_cache()
     cli.run_radsurf = run_radsurf
@@ -682,6 +760,111 @@ def main(argv=None) -> int:
          self_check=next((ln for ln in stdout.getvalue().splitlines()
                           if ln.startswith("Schur vs brute-force")), None))
 
+    # ---- roofline: the tool's main path (K6, K7), each probe against its
+    # plain version, the measured ceilings, every kernel's bound, and the
+    # whole solve against the work model
+    f32 = torch.float32
+    walls = {}  # {slice: (layered columns, warm wall s)}, float32 kernel route
+    for sname, dname, config, rep, L, S in runs:
+        if dname == "float32":
+            arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np.float32,
+                                    i_representation=rep)
+            walls[sname] = (int(np.isin(rep, LAYERED).sum()), wall_seconds(
+                lambda: run_radsurf(config, arrays, dev), reps=3)[0])
+            del arrays
+            torch.cuda.empty_cache()
+    cols_per_sec = {sname: n / w for sname, (n, w) in walls.items()}
+    PK.fma_chain.launches = PK.copy_add.launches = 0
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        rc = RL.main(["--cols-per-sec", repr(cols_per_sec["headline"])])
+    torch.cuda.synchronize()
+    probe_launches = {"K6": PK.fma_chain.launches, "K7": PK.copy_add.launches}
+    tool_lines = stdout.getvalue().splitlines()
+    check(rc == 0, f"roofline: the tool's exit code {rc}")
+    check(min(probe_launches.values()) > 0,
+          f"roofline: a probe was not launched {probe_launches}")
+    report = json.loads(tool_lines[-1])
+    emit(phase="roofline", item="tool", exit_code=rc, launches=probe_launches,
+         output=tool_lines[:-1])
+
+    probes = {}  # {"K6 float32" | "K6 float64" | "K7": measurements}
+    for dname, dt in (("float32", f32), ("float64", torch.float64)):
+        x = RL.fma_operands(dt, dev)
+        got = PK.fma_chain(x, RL.FMA_B, RL.FMA_C)
+        ref = PK.fma_chain_plain(x, RL.FMA_B, RL.FMA_C)
+        err = max_abs_diff([ref], [got])
+        check(bool(got.isfinite().all()) and torch.allclose(
+            got, ref, rtol=1e-4 if dt == f32 else 1e-12, atol=0.0),
+            f"roofline: K6 {dname} vs plain {err}")
+        probes[f"K6 {dname}"] = dict(
+            max_abs_err=err, dtype=dt, flops=RL.fma_flops(x), bytes=2.0 * x.nbytes,
+            ms=time_ms(lambda: PK.fma_chain(x, RL.FMA_B, RL.FMA_C)),
+            plain_ms=time_ms(lambda: PK.fma_chain_plain(x, RL.FMA_B, RL.FMA_C)),
+            clocks=clocks_during(lambda: [PK.fma_chain(x, RL.FMA_B, RL.FMA_C)
+                                          for _ in range(100)]))
+        del x, got, ref
+    x = RL.hbm_operand(dev)
+    o = torch.empty_like(x)
+    got, ref = PK.copy_add(x), PK.copy_add_plain(x)
+    err = max_abs_diff([ref], [got])
+    check(torch.equal(got, ref), f"roofline: K7 vs plain {err}")
+    del got, ref
+    probes["K7"] = dict(
+        max_abs_err=err, dtype=f32, flops=float(x.numel()), bytes=2.0 * x.nbytes,
+        ms=time_ms(lambda: PK.copy_add(x)), plain_ms=time_ms(lambda: PK.copy_add_plain(x)),
+        library_ms=time_ms(lambda: torch.add(x, 1.0, out=o)),
+        clocks=clocks_during(lambda: [PK.copy_add(x) for _ in range(100)]))
+    del x, o
+    torch.cuda.empty_cache()
+    emit(phase="roofline", item="probes_vs_plain",
+         **{k: {n: v for n, v in p.items() if n != "dtype"} for k, p in probes.items()})
+
+    published = {"fma_float32": RL.PUBLISHED_FMA_PEAK[f32],
+                 "fma_float64": RL.PUBLISHED_FMA_PEAK[torch.float64],
+                 "hbm": RL.PUBLISHED_HBM_BW}
+    measured = {"fma_float32": report["fma_peak"]["float32"],
+                "fma_float64": report["fma_peak"]["float64"], "hbm": report["hbm_bw"]}
+    shares = {k: measured[k] / published[k] for k in published}
+    for k, v in shares.items():
+        check(0.5 <= v <= 1.05, f"roofline: the measured {k} ceiling is {v:.3f}"
+              " of the published peak (outside [0.5, 1.05])")
+    emit(phase="roofline", item="ceilings", card=report["card"], measured=measured,
+         published=published, share_of_published=shares)
+
+    def bound(flops, nbytes, ms, dtype=f32):
+        return dict(flops=flops, bytes=nbytes, **RL.roofline(flops, nbytes, ms, dtype))
+
+    bounds = {}  # {kernel row: [bound of each timed call]}
+    for kname, _, _, _, names, factory in KERNELS:
+        w, t = (dense_works, dense_timings) if factory == "dense" else (works, timings)
+        bounds[kname] = [bound(*w[n], t[n][0]) for n in names]
+    for key, p in probes.items():
+        bounds[key] = [bound(p["flops"], p["bytes"], p["ms"], p["dtype"])]
+    for kname, bs in bounds.items():
+        for b in bs:
+            check(b["share"] <= 1.05, f"roofline: {kname} ran in {b['share']:.3f}"
+                  " of its bound: its work count is wrong")
+    emit(phase="roofline", item="bounds", card=report["card"], bounds=bounds)
+
+    for sname, (nreg, ns, L, S) in SOLVE_MODELS.items():
+        k_sw, k_lw = mean_steps[sname]
+        flops, nbytes = (S * v for v in RL.solve_work_model(
+            nreg, ns, L, K_mean=k_sw, K_mean_lw=k_lw))
+        pub = RL.roofline(flops, nbytes)
+        meas = RL.roofline(flops, nbytes, fma_peak=measured["fma_float32"],
+                           hbm_bw=measured["hbm"])
+        ceiling = 1e3 / pub["bound_ms"]
+        emit(phase="roofline", item="whole_solve", run=sname, dtype="float32",
+             nreg=nreg, nstream=ns, layers=L, bands=S,
+             layered_columns=walls[sname][0], warm_wall_seconds=walls[sname][1],
+             cols_per_sec=cols_per_sec[sname], mean_doubling_steps_sw_lw=[k_sw, k_lw],
+             flops_per_col=flops, bytes_per_col=nbytes,
+             ceiling_cols_per_sec=ceiling, bound_by=pub["bound_by"],
+             share=cols_per_sec[sname] / ceiling,
+             measured_ceiling_cols_per_sec=1e3 / meas["bound_ms"],
+             share_of_measured=cols_per_sec[sname] * meas["bound_ms"] / 1e3)
+
     # ---- 4. warm wall times and a device trace of each slice run
     if profile:
         for sname, dname, config, rep, L, S in runs:
@@ -704,10 +887,26 @@ def main(argv=None) -> int:
                                main_launches["K1 LW mode"], e[0], timings)
         row = {"name": kname, "route": "cuda", "source": src, "replaces": rep,
                "launches": n, "max_abs_err": err, "ms": t[names[0]][0],
-               "plain_ms": t[names[0]][1]}
+               "plain_ms": t[names[0]][1], **bounds[kname][0], "library_ms": None}
         if len(names) > 1:  # the factory: its LW call
+            lw = bounds[kname][1]
             row.update(launches_lw=n_lw, ms_lw=t[names[1]][0],
-                       plain_ms_lw=t[names[1]][1])
+                       plain_ms_lw=t[names[1]][1], flops_lw=lw["flops"],
+                       bytes_lw=lw["bytes"], bound_ms_lw=lw["bound_ms"],
+                       bound_by_lw=lw["bound_by"], share_lw=lw["share"])
+        rows.append(row)
+    for (kname, src, rep), key in zip(PROBES, ("K6 float32", "K7")):
+        p = probes[key]
+        row = {"name": kname, "route": "cuda", "source": src, "replaces": rep,
+               "launches": probe_launches[kname.split()[0]],
+               "max_abs_err": p["max_abs_err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
+               **bounds[key][0], "library_ms": p.get("library_ms")}
+        if key.startswith("K6"):  # its float64 instantiation
+            p64, b64 = probes["K6 float64"], bounds["K6 float64"][0]
+            row.update(max_abs_err_f64=p64["max_abs_err"], ms_f64=p64["ms"],
+                       plain_ms_f64=p64["plain_ms"], flops_f64=b64["flops"],
+                       bytes_f64=b64["bytes"], bound_ms_f64=b64["bound_ms"],
+                       share_f64=b64["share"])
         rows.append(row)
     emit(kernels=rows)
     smi = subprocess.run(

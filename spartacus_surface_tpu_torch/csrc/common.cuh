@@ -21,6 +21,7 @@
 namespace spx {
 using std::ceil;
 using std::fabs;
+using std::fma;
 using std::fmax;
 using std::fmin;
 using std::ldexp;

@@ -1,10 +1,12 @@
 // Host build of the CUDA kernels' per-thread bodies, for the CPU tests
-// (tests/test_torch_kernels.py): each "launch" runs the thread function for
+// (tests/test_torch_kernels.py; tests/test_torch_roofline.py for the probes
+// K6 and K7): each "launch" runs the thread function for
 // every thread index in turn, on host memory, with the same arguments as the
 // CUDA launchers.  Built with a host C++ compiler; nvcc never sees this file.
 
 #include "layer_factory.cu"
 #include "lw_sweeps.cu"
+#include "roofline_probes.cu"
 #include "sw_sweeps.cu"
 
 template <typename T>
@@ -41,6 +43,12 @@ template <typename T>
 static void lw_down_host(SPX_LW_DOWN_PARAMS) {
   const auto A = spx::lw_down_args<T>(SPX_LW_DOWN_ARGS);
   for (long long b = 0; b < B; ++b) spx::lw_down_thread(A, b);
+}
+
+template <typename T>
+static void fma_host(SPX_FMA_PARAMS) {
+  for (long long t = 0; t < n; ++t)
+    spx::fma_chain_thread((const T*)x, (T*)out, T(b), T(c), n, t);
 }
 
 // Same C interface as the CUDA launchers; the stream is ignored and the
@@ -92,6 +100,20 @@ int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, void*) {
 }
 int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, void*) {
   lw_down_host<double>(SPX_LW_DOWN_ARGS);
+  return 0;
+}
+int fma_chain_f32(SPX_FMA_PARAMS, void*) {
+  fma_host<float>(SPX_FMA_ARGS);
+  return 0;
+}
+int fma_chain_f64(SPX_FMA_PARAMS, void*) {
+  fma_host<double>(SPX_FMA_ARGS);
+  return 0;
+}
+int copy_add_f32(SPX_COPY_PARAMS, void*) {
+  // 64 "threads" striding over the groups, as the card's grid-stride loop
+  for (long long t = 0; t < 64; ++t)
+    spx::copy_add_thread((const float*)x, (float*)o, n, t, 64);
   return 0;
 }
 }

@@ -1,0 +1,110 @@
+// Counting host build of the kernels' per-thread bodies (K1, K1d, K2-K5),
+// for the CPU tests of the roofline work model (tests/test_torch_roofline.py):
+// the bodies run with T = spx::Counted<double>, a double that adds one to a
+// counter for every add, subtract, multiply and divide it performs (an fma
+// counts two); negation, fabs, fmax, fmin, ceil, log2, ldexp and sqrt count
+// nothing.  Each "launch" runs the thread function for every thread index in
+// turn and records that thread's count.  Counted<double> has the size and
+// layout of a double, so the buffers are float64 tensors and the exported
+// functions have the C interface of the float64 CUDA launchers.  Built with
+// a host C++ compiler; nvcc never sees this file.
+
+#include <cmath>
+#include <vector>
+
+#include "common.cuh"
+
+namespace spx {
+
+inline long long flops = 0;
+
+template <typename V>
+struct Counted {
+  V v;
+  Counted() = default;
+  explicit Counted(V x) : v(x) {}
+  explicit operator int() const { return int(v); }
+
+  friend Counted operator+(Counted a, Counted b) { ++flops; return Counted(a.v + b.v); }
+  friend Counted operator-(Counted a, Counted b) { ++flops; return Counted(a.v - b.v); }
+  friend Counted operator*(Counted a, Counted b) { ++flops; return Counted(a.v * b.v); }
+  friend Counted operator/(Counted a, Counted b) { ++flops; return Counted(a.v / b.v); }
+  friend Counted operator-(Counted a) { return Counted(-a.v); }
+  Counted& operator+=(Counted b) { return *this = *this + b; }
+  Counted& operator-=(Counted b) { return *this = *this - b; }
+  Counted& operator*=(Counted b) { return *this = *this * b; }
+  Counted& operator/=(Counted b) { return *this = *this / b; }
+
+  friend Counted fabs(Counted a) { return Counted(std::fabs(a.v)); }
+  friend Counted fmax(Counted a, Counted b) { return Counted(std::fmax(a.v, b.v)); }
+  friend Counted fmin(Counted a, Counted b) { return Counted(std::fmin(a.v, b.v)); }
+  friend Counted ceil(Counted a) { return Counted(std::ceil(a.v)); }
+  friend Counted log2(Counted a) { return Counted(std::log2(a.v)); }
+  friend Counted ldexp(Counted a, int e) { return Counted(std::ldexp(a.v, e)); }
+  friend Counted sqrt(Counted a) { return Counted(std::sqrt(a.v)); }
+  friend Counted fma(Counted a, Counted b, Counted c) {
+    flops += 2;
+    return Counted(std::fma(a.v, b.v, c.v));
+  }
+};
+
+static_assert(sizeof(Counted<double>) == sizeof(double), "layout of a double");
+
+}  // namespace spx
+
+#include "layer_factory.cu"
+#include "lw_sweeps.cu"
+#include "sw_sweeps.cu"
+
+using CT = spx::Counted<double>;
+
+static std::vector<long long> thread_flops;  // one entry per thread run
+
+template <typename F>
+static void each_thread(long long n, F body) {
+  for (long long t = 0; t < n; ++t) {
+    const long long before = spx::flops;
+    body(t);
+    thread_flops.push_back(spx::flops - before);
+  }
+}
+
+extern "C" {
+void count_reset() { thread_flops.clear(); }
+long long count_threads() { return (long long)thread_flops.size(); }
+// the per-thread FLOP totals of every thread run since count_reset
+void count_per_thread(long long* out) {
+  for (size_t i = 0; i < thread_flops.size(); ++i) out[i] = thread_flops[i];
+}
+
+int layer_factory_f64(SPX_FACTORY_PARAMS, void*) {
+  const auto A = spx::factory_args<CT>(SPX_FACTORY_ARGS);
+  each_thread(n, [&](long long t) { spx::layer_factory_thread(A, t); });
+  return 0;
+}
+int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void*) {
+  const auto A = spx::factory_args<CT>(SPX_FACTORY_ARGS);
+  each_thread(n, [&](long long t) { spx::layer_factory_dense_thread(A, t); });
+  return 0;
+}
+int sw_up_sweep_f64(SPX_UP_PARAMS, void*) {
+  const auto A = spx::up_args<CT>(SPX_UP_ARGS);
+  each_thread(B, [&](long long b) { spx::sw_up_thread(A, b); });
+  return 0;
+}
+int sw_down_sweep_f64(SPX_DOWN_PARAMS, void*) {
+  const auto A = spx::down_args<CT>(SPX_DOWN_ARGS);
+  each_thread(B, [&](long long b) { spx::sw_down_thread(A, b); });
+  return 0;
+}
+int lw_up_sweep_f64(SPX_LW_UP_PARAMS, void*) {
+  const auto A = spx::lw_up_args<CT>(SPX_LW_UP_ARGS);
+  each_thread(B, [&](long long b) { spx::lw_up_thread(A, b); });
+  return 0;
+}
+int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, void*) {
+  const auto A = spx::lw_down_args<CT>(SPX_LW_DOWN_ARGS);
+  each_thread(B, [&](long long b) { spx::lw_down_thread(A, b); });
+  return 0;
+}
+}

@@ -95,7 +95,9 @@ def lw_operators(device) -> dict:
                                int_diff=(nd, nd), int_source=(nd,)))
 
 
-def demo_sw(device="cpu"):
+def demo_sw(device="cuda"):
+    """Print the SW operators on `device` (cuda: the kernels, cpu: their
+    plain versions) and run the Schur self-check; True if it passes."""
     g0, g1, g2, g3 = _hardcoded_gammas()
     lay = sw_operators(device)
     print("Shortwave layer operators (2-region, 1 stream/hemisphere,"
@@ -124,7 +126,9 @@ def demo_sw(device="cpu"):
     return ok
 
 
-def demo_lw(device="cpu"):
+def demo_lw(device="cuda"):
+    """Print the LW operators on `device` (cuda: the kernels, cpu: their
+    plain versions)."""
     lay = lw_operators(device)
     print(f"Longwave layer operators (dz={DZ}, b={LW_EMISSION_RATE}):")
     for key in ("R", "T"):

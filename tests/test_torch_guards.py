@@ -33,6 +33,8 @@ import spartacus_surface_tpu_torch.utils.convert
 import spartacus_surface_tpu_torch.driver.duplicate_profiles
 import spartacus_surface_tpu_torch.driver.main
 import spartacus_surface_tpu_torch.driver.test_kernels
+import spartacus_surface_tpu_torch.ops.probe_kernels
+import spartacus_surface_tpu_torch.tools.roofline
 from spartacus_surface_tpu_torch.utils.config import Config
 from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 out = d.run_radsurf(Config(do_lw=False).consolidate(),
@@ -47,7 +49,7 @@ print("clean")
 
 
 def test_port_imports_no_jax_and_needs_no_nvcc(tmp_path):
-    """Import every module (the CLI's too) and run run_radsurf on the CPU
+    """Import every module (the CLI's and the roofline tool's too) and run run_radsurf on the CPU
     with no nvcc on PATH: no JAX (nor JAX-package) module is loaded and
     nothing is built."""
     bin_dir = tmp_path / "bin"
@@ -70,6 +72,24 @@ def test_missing_device_raises():
     src = SimpleNamespace(**example_inputs(C=2, L=2, S=1))
     with pytest.raises((RuntimeError, AssertionError)):
         to_canopy_inputs(src, dev)
+
+
+def test_kernel_demo_defaults_to_the_card(capsys):
+    """demo_sw / demo_lw called with no device run on the card: without
+    CUDA they raise instead of running the plain versions on the CPU."""
+    from spartacus_surface_tpu_torch.driver import test_kernels as demo
+    from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+
+    if torch.cuda.is_available():
+        n_sw, n_lw = LK.layer_factory.dense_launches, LK.lw_layer_factory.launches
+        assert demo.demo_sw() and demo.demo_lw()
+        assert LK.layer_factory.dense_launches > n_sw
+        assert LK.lw_layer_factory.launches > n_lw
+        return
+    for fn in (demo.demo_sw, demo.demo_lw):
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn()
+    assert "operators" not in capsys.readouterr().out
 
 
 def test_kernel_route_refuses_gradients():

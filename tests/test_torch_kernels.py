@@ -119,34 +119,42 @@ def assert_matches_plain(launched, calls, f32):
 # host build of the kernel bodies
 # ----------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def host_lib():
+def build_host(source):
+    """Build csrc/<source> (host_check.cpp, host_count.cpp) with the host C++
+    compiler into build/host/, cached by the hash of the sources; skips
+    where there is no host compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
-        pytest.skip("no host C++ compiler to build csrc/host_check.cpp")
-    srcs = sorted(cuda_build.CSRC.glob("*.cu*")) + [cuda_build.CSRC / "host_check.cpp"]
+        pytest.skip(f"no host C++ compiler to build csrc/{source}")
+    srcs = sorted(cuda_build.CSRC.glob("*.cu*")) + [cuda_build.CSRC / source]
     digest = hashlib.sha1(b"".join(p.read_bytes() for p in srcs)).hexdigest()[:12]
-    out = cuda_build.BUILD_DIR.parent / "host" / f"host_check-{digest}.so"
+    out = cuda_build.BUILD_DIR.parent / "host" / f"{Path(source).stem}-{digest}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
-                        str(cuda_build.CSRC / "host_check.cpp"), "-o", str(tmp)],
-                       check=True)
+                        str(cuda_build.CSRC / source), "-o", str(tmp)], check=True)
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
 
 
+@pytest.fixture(scope="module")
+def host_lib():
+    return build_host("host_check.cpp")
+
+
+LAUNCH = {"layer_factory": LK.launch, "lw_layer_factory": LK.launch_lw,
+          "sw_up_sweep": SK.launch_up, "sw_down_sweep_both": SK.launch_down,
+          "lw_up_sweep": LSK.launch_up, "lw_down_sweep_both": LSK.launch_down}
+
+
 def host_launch(host_lib, calls):
     """{kernel: result} of the host-built kernels on calls' operands."""
-    launch = {"layer_factory": LK.launch, "lw_layer_factory": LK.launch_lw,
-              "sw_up_sweep": SK.launch_up, "sw_down_sweep_both": SK.launch_down,
-              "lw_up_sweep": LSK.launch_up, "lw_down_sweep_both": LSK.launch_down}
     launched = {}
     for name in KERNELS:
         a, k, _ = calls[name]
         kw = dict(k, chunk=5) if "factory" in name else k  # ragged chunks
-        launched[name] = launch[name](host_lib, *a, stream=None, **kw)
+        launched[name] = LAUNCH[name](host_lib, *a, stream=None, **kw)
     return launched
 
 
