@@ -66,10 +66,18 @@ final line):
      (chained FMA, float32 and float64) and K7 (o = x + 1 over 512 MB)
      against their plain versions on the tool's seeded operands (K6 rtol
      1e-4 in float32, since fma rounds once a step where mul + add rounds
-     twice, and 1e-12 in float64; K7 torch.equal); the measured FMA
+     twice, and 1e-12 in float64; K7 torch.equal, into a new tensor and
+     into a preallocated one); the measured FMA
      ceilings and HBM bandwidth, each a share of the H100's published
      peak (67 / 34 TFLOP/s, 3.35 TB/s), which must lie in [0.5, 1.05];
-     K7's library call torch.add(x, 1.0, out=o); the SM clock and power
+     K7 against its library call torch.add(x, 1.0, out=o), both writing
+     the same preallocated o, both timed the same two ways, each in turns
+     (kernel, library, library, kernel): the tool's event_ms (20
+     back-to-back launches after a warm-up, median of 3) and the
+     kernel-only device time of one torch.profiler trace of 20 calls;
+     K1's cost of divergent doubling counts (the headline float32 SW and LW
+     calls timed on their elements as they come and sorted by doubling
+     count, the same work); the SM clock and power
      draw nvidia-smi reads while each probe runs; every kernel row's
      FLOPs and compulsory bytes (tools.roofline.kernel_work on the timed
      call's operands) and its bound, whose share of the measured time must
@@ -82,12 +90,17 @@ final line):
      of a warm kernel-route call: device launches, device busy ms (union of
      the device intervals), the device idle share of the call, and each
      kernel's device ms.
+Phase 3 also prints K1's launch shape for each run (team size, teams and
+threads per block, slab and shared bytes per block, resident blocks per
+SM, registers; layer_kernel.factory_config).
 Then the per-kernel summary line {"kernels": [...]} (K1-K5: launches
 counted over the headline float32 run of phase 3, ms / plain_ms timed with
-CUDA events on that run's operands; K1d: launches over the cli_ns1 single
+CUDA events on that run's operands, the K1 row also with K1's launch shape
+at the headline, SW and LW; K1d: launches over the cli_ns1 single
 run, timed on its largest SW call and its LW call; the LW calls as
 launches_lw / ms_lw / plain_ms_lw; K6 and K7: launches over the roofline
-tool's run, timed on its operands, K6's float64 as *_f64; every row with
+tool's run, timed on its operands, K6's float64 as *_f64, K7 and its
+library call both with event_ms and the profiler; every row with
 flops, bytes, bound_ms, bound_by and share, the factory rows also
 bound_ms_lw and share_lw; library_ms for K7 only: no single PyTorch call
 computes K1-K6), the card's name and power limit from nvidia-smi, and the
@@ -286,18 +299,59 @@ def mean_doubling_steps(calls, kernel, RL):
 
 
 def time_ms(fn, reps=3):
+    """Device ms per call of `reps` back-to-back calls after a warm-up call
+    that is still running when the window opens (so the first call's host
+    work is not inside it)."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    fn()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_ms(fn, calls=20):
+    """Kernel-only device ms per call: the summed durations of the device
+    kernels of one torch.profiler trace of `calls` calls, over `calls`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def sorted_by_doubling(a, k, kernel, RL):
+    """The operands of a factory call as one layer of L*B elements, (as
+    they come, sorted by doubling count), and the share of the doubling
+    steps a warp of teams does that its elements need (sum K over the sum
+    of each warp's largest K, per team)."""
+    import torch
+
+    steps = RL.doubling_steps(kernel, *a, **k).reshape(-1)
+    order = torch.argsort(steps, stable=True)
+    flat = [x.reshape(1, -1) if x.dim() == 2
+            else x.permute(1, 0, 2).reshape(1, x.shape[1], -1) for x in a]
+    flat = [x.contiguous() for x in flat]
+    nd = k["nd"]
+    per_warp = 32 // min(32, 1 << max(1, (nd - 1).bit_length()))
+    n = steps.numel() // per_warp * per_warp
+    warp_max = steps[:n].reshape(-1, per_warp).amax(1)
+    useful = float(steps[:n].sum() / (warp_max.sum() * per_warp)) if n else 1.0
+    return flat, [x[..., order].contiguous() for x in flat], useful
 
 
 def clocks_during(fn, seconds=2.0):
@@ -512,7 +566,7 @@ def main(argv=None) -> int:
     # ---- 1. build, one nvcc per source, all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(cuda_build.load, SOURCES))
+        factory_lib = list(pool.map(cuda_build.load, SOURCES))[0]
     ptxas = {name: [line.split(":", 1)[-1].strip()
                     for line in log.splitlines()
                     if "entry function" in line or "Used" in line
@@ -601,6 +655,11 @@ def main(argv=None) -> int:
                   and out_k["bc_out"]["lw_emission"].shape == (len(rep), S))
         f32 = dname == "float32"
         tag = f"{sname} {dname}"
+        k1_shape = {}
+        for n, mode in (("layer_factory", "sw"), ("lw_layer_factory", "lw")):
+            a, k, _ = cap.calls[n][0]
+            k1_shape[mode] = LK.factory_config(
+                factory_lib, k["nd"], k.get("ndir", 1), a[1].shape[0] * a[1].shape[2], dt)
         emission_scale = max(1.0, float(np.abs(arrays["ground_emission"]).max()))
         resid_sw, resid_lw = budgets(out_k, rep, f32, emission_scale, tag)
         del out_k, out_s, got
@@ -621,12 +680,12 @@ def main(argv=None) -> int:
              kernel_vs_plain_passed=[ok for _, ok in kernel_errs],
              seconds_kernel_route=t_kernel, seconds_scan_route=t_scan,
              peak_gib_kernel_route=mem_kernel, peak_gib_scan_route=mem_scan,
-             finite=finite, shapes_ok=shapes)
+             finite=finite, shapes_ok=shapes, k1_launch_shape=k1_shape)
         if f32:  # each factory element's doubling count, for the roofline
             mean_steps[sname] = [mean_doubling_steps(cap.calls[n], n, RL)
                                  for n in ("layer_factory", "lw_layer_factory")]
         if sname == "headline" and f32:  # the main path of K1-K5
-            main_launches, errs = launches, kernel_errs
+            main_launches, errs, main_k1_shape = launches, kernel_errs, k1_shape
             wrappers = {n: getattr(solver, n) for n in WRAPPERS}
             plains = plain_versions(LK, SK, LSK)
             timings, works = {}, {}
@@ -635,6 +694,18 @@ def main(argv=None) -> int:
                 timings[n] = (time_ms(lambda: wrappers[n](*a, **k)),
                               time_ms(lambda: plains[n](*a, **k)))
                 works[n] = RL.kernel_work(n, *a, **k)
+            # K1's divergent doubling counts: the same elements as they
+            # come and sorted by doubling count
+            divergence = {}
+            for n in ("layer_factory", "lw_layer_factory"):
+                a, k, _ = cap.calls[n][0]
+                flat, ordered, useful = sorted_by_doubling(a, k, n, RL)
+                divergence[n] = dict(
+                    ms_as_they_come=time_ms(lambda: wrappers[n](*flat, **k)),
+                    ms_sorted=time_ms(lambda: wrappers[n](*ordered, **k)),
+                    useful_doubling_share=useful)
+                del flat, ordered
+            emit(phase="k1_divergence", run=sname, dtype=dname, **divergence)
         del cap
         torch.cuda.empty_cache()
 
@@ -805,16 +876,25 @@ def main(argv=None) -> int:
                                           for _ in range(100)]))
         del x, got, ref
     x = RL.hbm_operand(dev)
-    o = torch.empty_like(x)
+    o = torch.full_like(x, math.nan)
     got, ref = PK.copy_add(x), PK.copy_add_plain(x)
     err = max_abs_diff([ref], [got])
-    check(torch.equal(got, ref), f"roofline: K7 vs plain {err}")
+    check(torch.equal(got, ref) and PK.copy_add(x, out=o) is o and torch.equal(o, ref),
+          f"roofline: K7 vs plain {err}")
     del got, ref
+    # the kernel and the library call write the same preallocated o, timed
+    # alike and in turns (kernel, library, library, kernel; the mean of
+    # each one's two readings): event_ms, then the kernel-only device time
+    # from the profiler
+    kernel, library = (lambda: PK.copy_add(x, out=o)), (lambda: torch.add(x, 1.0, out=o))
+    turns = {}
+    for how, timer in (("", RL.event_ms), ("_profiler", profiled_ms)):
+        k1, l1, l2, k2 = timer(kernel), timer(library), timer(library), timer(kernel)
+        turns.update({f"ms{how}": (k1 + k2) / 2, f"library_ms{how}": (l1 + l2) / 2})
     probes["K7"] = dict(
-        max_abs_err=err, dtype=f32, flops=float(x.numel()), bytes=2.0 * x.nbytes,
-        ms=time_ms(lambda: PK.copy_add(x)), plain_ms=time_ms(lambda: PK.copy_add_plain(x)),
-        library_ms=time_ms(lambda: torch.add(x, 1.0, out=o)),
-        clocks=clocks_during(lambda: [PK.copy_add(x) for _ in range(100)]))
+        max_abs_err=err, dtype=f32, flops=float(x.numel()), bytes=2.0 * x.nbytes, **turns,
+        plain_ms=time_ms(lambda: PK.copy_add_plain(x)),
+        clocks=clocks_during(lambda: [kernel() for _ in range(100)]))
     del x, o
     torch.cuda.empty_cache()
     emit(phase="roofline", item="probes_vs_plain",
@@ -888,6 +968,14 @@ def main(argv=None) -> int:
         row = {"name": kname, "route": "cuda", "source": src, "replaces": rep,
                "launches": n, "max_abs_err": err, "ms": t[names[0]][0],
                "plain_ms": t[names[0]][1], **bounds[kname][0], "library_ms": None}
+        if factory == "structured":  # K1's launch shape at the headline
+            for mode, c in main_k1_shape.items():
+                sfx = "" if mode == "sw" else "_lw"
+                row.update({f"registers{sfx}": c["registers"],
+                            f"smem_per_block{sfx}": c["smem_per_block"],
+                            f"team_size{sfx}": c["team_size"],
+                            f"elements_per_block{sfx}": c["teams_per_block"],
+                            f"blocks_per_sm{sfx}": c["blocks_per_sm"]})
         if len(names) > 1:  # the factory: its LW call
             lw = bounds[kname][1]
             row.update(launches_lw=n_lw, ms_lw=t[names[1]][0],
@@ -901,6 +989,9 @@ def main(argv=None) -> int:
                "launches": probe_launches[kname.split()[0]],
                "max_abs_err": p["max_abs_err"], "ms": p["ms"], "plain_ms": p["plain_ms"],
                **bounds[key][0], "library_ms": p.get("library_ms")}
+        if key == "K7":  # both timed from the profiler too
+            row.update(ms_profiler=p["ms_profiler"],
+                       library_ms_profiler=p["library_ms_profiler"])
         if key.startswith("K6"):  # its float64 instantiation
             p64, b64 = probes["K6 float64"], bounds["K6 float64"][0]
             row.update(max_abs_err_f64=p64["max_abs_err"], ms_f64=p64["ms"],

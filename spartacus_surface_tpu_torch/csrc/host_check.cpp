@@ -2,7 +2,13 @@
 // (tests/test_torch_kernels.py; tests/test_torch_roofline.py for the probes
 // K6 and K7): each "launch" runs the thread function for
 // every thread index in turn, on host memory, with the same arguments as the
-// CUDA launchers.  Built with a host C++ compiler; nvcc never sees this file.
+// CUDA launchers.  K1's team body runs as a team of one lane (TS = 1) per
+// element on a host slab laid out as on the card, which is filled with NaN
+// before each element, so a read of a slot the body has not written shows
+// in the results.  Built with a host C++ compiler; nvcc never sees this file.
+
+#include <limits>
+#include <vector>
 
 #include "layer_factory.cu"
 #include "lw_sweeps.cu"
@@ -12,7 +18,22 @@
 template <typename T>
 static void factory_host(SPX_FACTORY_PARAMS) {
   const auto A = spx::factory_args<T>(SPX_FACTORY_ARGS);
-  for (long long t = 0; t < n; ++t) spx::layer_factory_thread(A, t);
+  const spx::Slab S = spx::slab_layout(nd, ndir);
+  std::vector<T> slab(S.size);
+  for (long long t = 0; t < n; ++t) {
+    slab.assign(S.size, std::numeric_limits<T>::quiet_NaN());
+    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, j0 + t, slab.data(), 0u);
+  }
+}
+
+// K1's launch configuration on the host: a team of one lane per element,
+// one element a "block", the slab in host memory (no scratch).
+template <typename T>
+static int factory_config_host(int nd, int ndir, long long n, long long* info) {
+  const long long vals[SPX_K1_INFO] = {
+      1, 1, 1, (long long)(spx::slab_layout(nd, ndir).size * sizeof(T)), 0, 0, 0, n, 0};
+  for (int i = 0; i < SPX_K1_INFO; ++i) info[i] = vals[i];
+  return 0;
 }
 
 template <typename T>
@@ -61,6 +82,12 @@ int layer_factory_f32(SPX_FACTORY_PARAMS, void*) {
 int layer_factory_f64(SPX_FACTORY_PARAMS, void*) {
   factory_host<double>(SPX_FACTORY_ARGS);
   return 0;
+}
+int layer_factory_config_f32(int nd, int ndir, long long n, long long* info) {
+  return factory_config_host<float>(nd, ndir, n, info);
+}
+int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
+  return factory_config_host<double>(nd, ndir, n, info);
 }
 int layer_factory_dense_f32(SPX_FACTORY_PARAMS, void*) {
   dense_factory_host<float>(SPX_FACTORY_ARGS);
@@ -111,9 +138,10 @@ int fma_chain_f64(SPX_FMA_PARAMS, void*) {
   return 0;
 }
 int copy_add_f32(SPX_COPY_PARAMS, void*) {
-  // 64 "threads" striding over the groups, as the card's grid-stride loop
-  for (long long t = 0; t < 64; ++t)
-    spx::copy_add_thread((const float*)x, (float*)o, n, t, 64);
+  // every thread of every block of the card's grid, in turn
+  for (long long blk = 0; blk < spx::copy_add_blocks(n); ++blk)
+    for (int t = 0; t < SPX_COPY_THREADS; ++t)
+      spx::copy_add_thread((const float*)x, (float*)o, n, blk, t);
   return 0;
 }
 }

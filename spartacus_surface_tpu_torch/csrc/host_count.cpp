@@ -4,7 +4,9 @@
 // counter for every add, subtract, multiply and divide it performs (an fma
 // counts two); negation, fabs, fmax, fmin, ceil, log2, ldexp and sqrt count
 // nothing.  Each "launch" runs the thread function for every thread index in
-// turn and records that thread's count.  Counted<double> has the size and
+// turn (K1: its team body as a team of one lane per element, so an element's
+// work counts once, not once per lane) and records that thread's count.
+// Counted<double> has the size and
 // layout of a double, so the buffers are float64 tensors and the exported
 // functions have the C interface of the float64 CUDA launchers.  Built with
 // a host C++ compiler; nvcc never sees this file.
@@ -79,7 +81,16 @@ void count_per_thread(long long* out) {
 
 int layer_factory_f64(SPX_FACTORY_PARAMS, void*) {
   const auto A = spx::factory_args<CT>(SPX_FACTORY_ARGS);
-  each_thread(n, [&](long long t) { spx::layer_factory_thread(A, t); });
+  const spx::Slab S = spx::slab_layout(nd, ndir);
+  std::vector<CT> slab(S.size);
+  each_thread(n, [&](long long t) {
+    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, j0 + t, slab.data(), 0u);
+  });
+  return 0;
+}
+int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
+  const long long vals[SPX_K1_INFO] = {1, 1, 1, 0, 0, 0, 0, n, 0};
+  for (int i = 0; i < SPX_K1_INFO; ++i) info[i] = vals[i];
   return 0;
 }
 int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void*) {

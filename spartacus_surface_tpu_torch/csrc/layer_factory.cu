@@ -15,7 +15,7 @@
 // ops/layer_kernel.py layer_factory_plain / lw_layer_factory_plain
 // (ops/layer_matrices.py).
 //
-// One thread per (batch element, layer).  K1, per element:
+// K1, per element (batch element, layer):
 //   1. Gamma*dz in the basis K = [[I, I], [I, -I]] of the two diffuse blocks,
 //      where the diffuse part becomes anti-diagonal [[0, Bm], [Cm, 0]] with
 //      Bm = g2 - g1, Cm = -(g1 + g2);
@@ -37,17 +37,40 @@
 // K1d replaces steps 1-3 by the full N = 2 nd + ndir matrix: assemble
 // [[-g1, -g2, -g3], [g2, g1, g3], [0, 0, g0]] dz, the same per-element K,
 // A^2, A^4, A^6, U = A (b7 A^6 + b5 A^4 + b3 A^2 + b1 I) and a size-N solve;
-// steps 4-5 are the same device functions.  All solves are pivot-free.
+// steps 4-5 are the same device functions (extract_double, schur_ints),
+// run by a team of one lane.  All solves are pivot-free.
 //
-// Bound on the H100: the per-thread workspace (K1: 15 nd^2 + 15 nd ndir +
-// 10 ndir^2 + N^2 rows, N = 2 nd + ndir; K1d: 4 N^2 + max(N^2, 3 nd ndir) +
-// 4 nd^2 + 4 nd ndir + 2 ndir^2, under 500 rows for N <= 9) does not fit in
-// registers, so it is a struct-of-arrays global buffer (coalesced across
-// the warp, cached in L1 and L2) and the kernels are bound by that
-// traffic.  The wrapper bounds the buffer by launching in chunks of
-// elements.  The norm rule covers the whole [Gamma | b] row, so the
-// longwave (b = O(10^2) W m^-2 per unit height) takes several more
-// doubling steps per element than the shortwave.
+// K1's design on the H100.  One team of TS lanes of a warp per element (TS
+// the power of two >= nd, at most 32: 8 at nd = 8, 4 elements a warp; 16 at
+// nd = 12 and 16; 32 at nd = 24), TS a template parameter.  A lane owns the
+// rows lane, lane + TS, ... of every matrix it writes; a product is row
+// parallel (tmm: the lane's row of A in registers, B read whole from shared
+// memory as a broadcast), the pivot-free LU eliminates with one broadcast
+// pivot row a step and back-substitutes by columns (tsolve), and the team
+// syncs with __syncwarp(team mask), never a block barrier.  The element's
+// working set lives in a slab of shared memory sized by its live set
+// (slab_layout: ~11 nd^2 + 11 nd ndir + 8 ndir^2, the Pade and column
+// recurrence stage; 984 floats at nd = 8, ndir = 2), with odd row strides
+// for the nd-wide matrices so a team's lanes reading their rows hit
+// distinct banks, and a slab stride that puts the teams of a warp TS banks
+// apart for their broadcasts.  Nothing goes to device memory but the
+// operands (read once or twice) and the results.  What bounds it: shared
+// memory per SM, which sets the resident elements (56 at the headline in
+// float32, 12 at nd = 12 in float64), with few warps to hide the latency
+// of each lane's chain of shared-memory loads and FMAs; and the doubling
+// counts, which differ between the teams of a warp: each team loops its
+// own K (the lanes of a team share K, so its syncs are uniform), the warp
+// runs its largest, and the teams meet again (__syncwarp over the warp's
+// live lanes) before the Schur integrals.  A slab above the card's shared
+// memory per block (nd > ~45 in float64) goes to a global scratch of one
+// slab per resident team, which the wrapper allocates.
+//
+// K1d stays one thread per element with its workspace in a struct-of-arrays
+// global buffer (4 N^2 + max(N^2, 3 nd ndir) + 4 nd^2 + 4 nd ndir + 2 ndir^2
+// rows, under 500 for N <= 9), launched in chunks of elements by the
+// wrapper.  The norm rule covers the whole [Gamma | b] row, so the longwave
+// (b = O(10^2) W m^-2 per unit height) takes several more doubling steps
+// per element than the shortwave.
 
 #include "common.cuh"
 
@@ -57,7 +80,9 @@ template <typename T>
 struct FactoryArgs {
   const T *g0, *g1, *g2, *g3, *dz;  // [L, rows, B] and dz [L, B]
   T *R, *Tm, *E, *Sup, *Sdn, *idiff, *idir, *idd;  // [L, rows, B]
-  T* ws;  // workspace: [rows, n]
+  // K1d: workspace [rows, n]; K1: null, or one slab per resident team
+  // where a slab exceeds the shared memory of a block
+  T* ws;
   int nd, ndir, n_double, int_direct;  // int_direct 0: idir, idd unused
   T theta;
   long long B, j0, n;  // batch; this launch covers elements j0 .. j0+n-1
@@ -71,323 +96,463 @@ SPX_DEV T pade(int k) {
   return T(b[k]);
 }
 
-// Thin-layer extraction from F = expm(Gamma s) (row-major N x N) plus nK
-// adding-doubling steps; writes R, T, E, Sup, Sdn.  Workspace: W1 >= nd^2,
-// W2 >= nd (nd + ndir), W3 >= 3 nd ndir rows; F's first nd^2 rows are a
-// temporary during doubling.  RT = [R | T | Vt | tmp], SS = [Sup | Sdn |
-// S_mid | SupE], EE = [E | E2].
-template <typename T>
-SPX_DEV void extract_double(int nd, int ndir, int nK, Col<T> F, Col<T> W1,
-                            Col<T> W2, Col<T> W3, Col<T> RT, Col<T> SS,
-                            Col<T> EE, Col<T> r_out, Col<T> t_out,
-                            Col<T> e_out, Col<T> sup_out, Col<T> sdn_out) {
-  const int N = 2 * nd + ndir, mx = nd + ndir;
-  const int n2 = nd * nd, nr = nd * ndir, d2 = ndir * ndir;
+// The largest v over the team's lanes (fmax is exact in any order).
+template <int TS, typename T>
+SPX_DEV T team_max(const Team<TS>& tm, T v) {
+#ifdef __CUDACC__
+  SPX_UNROLL
+  for (int off = TS / 2; off > 0; off >>= 1)
+    v = fmax(v, __shfl_xor_sync(tm.mask, v, off));
+#endif
+  return v;
+}
+
+// Workspaces of extract_double: W1 (nd x nd), W2 (nd x (nd + ndir)), W3a-c
+// (nd x ndir), R, Tt, TMP, TT (nd x nd), Sup, Sdn, SMID, SUPE (nd x ndir),
+// E, E2 (ndir x ndir).
+template <class M>
+struct ExtractWs {
+  M W1, W2, W3a, W3b, W3c, R, Tt, TMP, TT, Sup, Sdn, SMID, SUPE, E, E2;
+};
+
+// Thin-layer extraction from F = expm(Gamma s) (its first 2 nd rows, and
+// its direct block F33) plus nK adding-doubling steps; writes R, T, E, Sup,
+// Sdn.  TT may overlay F (F is dead after the first step).  Ends with a
+// team sync.
+template <int TS, int CAP, class MF, class M, class MO>
+SPX_DEV void extract_double(const Team<TS>& tm, int nd, int ndir, int nK,
+                            MF F, MF F33, const ExtractWs<M>& w, MO r_out,
+                            MO t_out, MO e_out, MO sup_out, MO sdn_out) {
+  using T = elem_t<M>;
+  const int mx = nd + ndir;
   // X = F11^-1 [F12 | F13]
-  for (int i = 0; i < nd; ++i) {
-    for (int j = 0; j < nd; ++j) W1[i * nd + j] = F[i * N + j];
-    for (int j = 0; j < mx; ++j) W2[i * mx + j] = F[i * N + nd + j];
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int j = 0; j < nd; ++j) w.W1(i, j) = F(i, j);
+    for (int j = 0; j < mx; ++j) w.W2(i, j) = F(i, nd + j);
   }
-  solve_inplace(W1, nd, W2, mx, nd, mx);
+  tm.sync();
+  tsolve(tm, w.W1, w.W2, nd, mx);
   // R = -X1, Sup = -X2; T = F22 - F21 X1, Sdn = F23 - F21 X2; E = F33
-  for (int i = 0; i < nd; ++i) {
-    for (int j = 0; j < nd; ++j) RT[i * nd + j] = -W2[i * mx + j];
-    for (int e = 0; e < ndir; ++e) SS[i * ndir + e] = -W2[i * mx + nd + e];
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int j = 0; j < nd; ++j) w.R(i, j) = -w.W2(i, j);
+    for (int e = 0; e < ndir; ++e) w.Sup(i, e) = -w.W2(i, nd + e);
     for (int j = 0; j < mx; ++j) {
-      T acc = F[(nd + i) * N + nd + j];
-      for (int k = 0; k < nd; ++k) acc -= F[(nd + i) * N + k] * W2[k * mx + j];
+      T acc = F(nd + i, nd + j);
+      for (int k = 0; k < nd; ++k) acc -= F(nd + i, k) * w.W2(k, j);
       if (j < nd)
-        RT[n2 + i * nd + j] = acc;
+        w.Tt(i, j) = acc;
       else
-        SS[nr + i * ndir + (j - nd)] = acc;
+        w.Sdn(i, j - nd) = acc;
     }
   }
-  for (int i = 0; i < ndir; ++i)
-    for (int e = 0; e < ndir; ++e) EE[i * ndir + e] = F[(2 * nd + i) * N + 2 * nd + e];
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) w.E(i, e) = F33(i, e);
+  tm.sync();
 
-  Col<T> R = RT, Tt = RT.at(n2), TMP = RT.at(3 * n2);
-  Col<T> Sup = SS, Sdn = SS.at(nr), SMID = SS.at(2 * nr), SUPE = SS.at(3 * nr);
-  Col<T> E = EE, E2 = EE.at(d2);
   for (int step = 0; step < nK; ++step) {
     // SupE = Sup E; S_mid = Sdn + R SupE
-    mmc(SUPE, Sup, E, nd, ndir, ndir);
-    copy(SMID, Sdn, nr);
-    mmc(SMID, R, SUPE, nd, nd, ndir, true);
+    tmm<TS, CAP>(tm, w.SUPE, w.Sup, w.E, nd, ndir, ndir);
+    tcopy(tm, w.SMID, w.Sdn, nd, ndir);
+    tmm<TS, CAP>(tm, w.SMID, w.R, w.SUPE, nd, nd, ndir, true);
     // (I - R R) [Vt | Vs] = [T | S_mid]
-    mmc(W1, R, R, nd, nd, nd);
-    for (int i = 0; i < nd; ++i) {
+    tmm<TS, CAP>(tm, w.W1, w.R, w.R, nd, nd, nd);
+    for (int i = tm.lane; i < nd; i += TS) {
       for (int j = 0; j < nd; ++j) {
-        W1[i * nd + j] = T(i == j) - W1[i * nd + j];
-        W2[i * mx + j] = Tt[i * nd + j];
+        w.W1(i, j) = T(i == j) - w.W1(i, j);
+        w.W2(i, j) = w.Tt(i, j);
       }
-      for (int e = 0; e < ndir; ++e) W2[i * mx + nd + e] = SMID[i * ndir + e];
+      for (int e = 0; e < ndir; ++e) w.W2(i, nd + e) = w.SMID(i, e);
     }
-    solve_inplace(W1, nd, W2, mx, nd, mx);
-    // TMP = R Vt; W3[0:nr] = R Vs + SupE
-    mm(TMP, nd, R, nd, W2, mx, nd, nd, nd);
-    copy(W3, SUPE, nr);
-    mm(W3, ndir, R, nd, W2.at(nd), mx, nd, nd, ndir, true);
-    // R' = R + T TMP -> W1; T' = T Vt -> F[0:n2];
-    // Sup' = Sup + T W3[0:nr] -> W3[nr:]; Sdn' = T Vs + Sdn E -> W3[2nr:]
-    copy(W1, R, n2);
-    mmc(W1, Tt, TMP, nd, nd, nd, true);
-    mm(F, nd, Tt, nd, W2, mx, nd, nd, nd);
-    copy(W3.at(nr), Sup, nr);
-    mmc(W3.at(nr), Tt, W3, nd, nd, ndir, true);
-    mm(W3.at(2 * nr), ndir, Tt, nd, W2.at(nd), mx, nd, nd, ndir);
-    mmc(W3.at(2 * nr), Sdn, E, nd, ndir, ndir, true);
-    mmc(E2, E, E, ndir, ndir, ndir);
-    copy(R, W1, n2);
-    copy(Tt, F, n2);
-    copy(Sup, W3.at(nr), nr);
-    copy(Sdn, W3.at(2 * nr), nr);
-    copy(E, E2, d2);
+    tm.sync();
+    tsolve(tm, w.W1, w.W2, nd, mx);
+    // TMP = R Vt; W3a = R Vs + SupE
+    tmm<TS, CAP>(tm, w.TMP, w.R, w.W2, nd, nd, nd);
+    tcopy(tm, w.W3a, w.SUPE, nd, ndir);
+    tmm<TS, CAP>(tm, w.W3a, w.R, w.W2.sub(0, nd), nd, nd, ndir, true);
+    // R' = R + T TMP -> W1; T' = T Vt -> TT;
+    // Sup' = Sup + T W3a -> W3b; Sdn' = T Vs + Sdn E -> W3c
+    tcopy(tm, w.W1, w.R, nd, nd);
+    tmm<TS, CAP>(tm, w.W1, w.Tt, w.TMP, nd, nd, nd, true);
+    tmm<TS, CAP>(tm, w.TT, w.Tt, w.W2, nd, nd, nd);
+    tcopy(tm, w.W3b, w.Sup, nd, ndir);
+    tmm<TS, CAP>(tm, w.W3b, w.Tt, w.W3a, nd, nd, ndir, true);
+    tmm<TS, CAP>(tm, w.W3c, w.Tt, w.W2.sub(0, nd), nd, nd, ndir);
+    tmm<TS, CAP>(tm, w.W3c, w.Sdn, w.E, nd, ndir, ndir, true);
+    tmm<TS, CAP>(tm, w.E2, w.E, w.E, ndir, ndir, ndir);
+    for (int i = tm.lane; i < nd; i += TS) {
+      for (int j = 0; j < nd; ++j) {
+        w.R(i, j) = w.W1(i, j);
+        w.Tt(i, j) = w.TT(i, j);
+      }
+      for (int e = 0; e < ndir; ++e) {
+        w.Sup(i, e) = w.W3b(i, e);
+        w.Sdn(i, e) = w.W3c(i, e);
+      }
+    }
+    for (int i = tm.lane; i < ndir; i += TS)
+      for (int e = 0; e < ndir; ++e) w.E(i, e) = w.E2(i, e);
+    tm.sync();
   }
-  copy(r_out, R, n2);
-  copy(t_out, Tt, n2);
-  copy(e_out, E, d2);
-  copy(sup_out, Sup, nr);
-  copy(sdn_out, Sdn, nr);
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int j = 0; j < nd; ++j) {
+      r_out(i, j) = w.R(i, j);
+      t_out(i, j) = w.Tt(i, j);
+    }
+    for (int e = 0; e < ndir; ++e) {
+      sup_out(i, e) = w.Sup(i, e);
+      sdn_out(i, e) = w.Sdn(i, e);
+    }
+  }
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) e_out(i, e) = w.E(i, e);
+  tm.sync();
 }
 
 // Block-Schur Gamma^-1 integral matrices (radtool_schur.F90:45-51), with
-// five nd^2 workspaces G, Fs, W1, W2, W3; the direct-beam ones (which need
-// inv(g0)) only with int_direct.
-template <typename T>
-SPX_DEV void schur_ints(int nd, int ndir, bool int_direct, Col<T> g0,
-                        Col<T> g1, Col<T> g2, Col<T> g3, Col<T> G, Col<T> Fs,
-                        Col<T> W1, Col<T> W2, Col<T> W3, Col<T> idiff,
-                        Col<T> idir, Col<T> idd) {
-  const int n2 = nd * nd, d2 = ndir * ndir;
-  copy(W1, g1, n2);  // W2 = inv(g1)
-  eye(W2, nd);
-  solve_inplace(W1, nd, W2, nd, nd, nd);
-  mmc(G, W2, g2, nd, nd, nd);   // inv(g1) g2
-  mmc(Fs, g2, W2, nd, nd, nd);  // g2 inv(g1)
-  mmc(W1, g2, G, nd, nd, nd);   // Schur complement g1 - g2 inv(g1) g2
-  for (int i = 0; i < n2; ++i) W1[i] = g1[i] - W1[i];
-  eye(W3, nd);                  // W3 = g1i
-  solve_inplace(W1, nd, W3, nd, nd, nd);
-  mmc(G, W3, Fs, nd, nd, nd);   // g2i = g1i g2 inv(g1)
-  for (int i = 0; i < n2; ++i) idiff[i] = G[i] - W3[i];
+// five nd x nd workspaces G, Fs, W1, W2, W3 (used as ndir-column matrices
+// of row stride ldr in the direct part); the direct-beam ones (which need
+// inv(g0)) only with int_direct.  Ends with a team sync.
+template <int TS, int CAP, class MG, class M, class MO>
+SPX_DEV void schur_ints(const Team<TS>& tm, int nd, int ndir, int ldr,
+                        bool int_direct, MG g0, MG g1, MG g2, MG g3, M G,
+                        M Fs, M W1, M W2, M W3, MO idiff, MO idir, MO idd) {
+  using T = elem_t<M>;
+  tcopy(tm, W1, g1, nd, nd);  // W2 = inv(g1)
+  teye(tm, W2, nd);
+  tsolve(tm, W1, W2, nd, nd);
+  tmm<TS, CAP>(tm, G, W2, g2, nd, nd, nd);   // inv(g1) g2
+  tmm<TS, CAP>(tm, Fs, g2, W2, nd, nd, nd);  // g2 inv(g1)
+  tmm<TS, CAP>(tm, W1, g2, G, nd, nd, nd);   // Schur complement g1 - g2 inv(g1) g2
+  for (int i = tm.lane; i < nd; i += TS)
+    for (int j = 0; j < nd; ++j) W1(i, j) = g1(i, j) - W1(i, j);
+  teye(tm, W3, nd);  // W3 = g1i
+  tsolve(tm, W1, W3, nd, nd);
+  tmm<TS, CAP>(tm, G, W3, Fs, nd, nd, nd);  // g2i = g1i g2 inv(g1)
+  for (int i = tm.lane; i < nd; i += TS)
+    for (int j = 0; j < nd; ++j) idiff(i, j) = G(i, j) - W3(i, j);
+  tm.sync();
   if (!int_direct) return;
-  copy(W1, g0, d2);             // W2 = g0i
-  eye(W2, ndir);
-  solve_inplace(W1, ndir, W2, ndir, ndir, ndir);
-  for (int i = 0; i < d2; ++i) idir[i] = -W2[i];
-  mmc(Fs, g3, W2, nd, ndir, ndir);  // g3 g0i
-  for (int i = 0; i < nd; ++i)
+  const M W1d{W1.v, ldr}, W2d{W2.v, ldr}, Fsd{Fs.v, ldr};
+  tcopy(tm, W1d, g0, ndir, ndir);  // W2d = g0i
+  teye(tm, W2d, ndir);
+  tsolve(tm, W1d, W2d, ndir, ndir);
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) idir(i, e) = -W2d(i, e);
+  tmm<TS, CAP>(tm, Fsd, g3, W2d, nd, ndir, ndir);  // g3 g0i
+  for (int i = tm.lane; i < nd; i += TS)
     for (int e = 0; e < ndir; ++e) {
       T acc = T(0);
-      for (int k = 0; k < nd; ++k)
-        acc += (W3[i * nd + k] - G[i * nd + k]) * Fs[k * ndir + e];
-      idd[i * ndir + e] = T(2) * acc;
+      for (int k = 0; k < nd; ++k) acc += (W3(i, k) - G(i, k)) * Fsd(k, e);
+      idd(i, e) = T(2) * acc;
     }
+  tm.sync();
 }
 
-template <typename T>
-SPX_DEV void layer_factory_thread(const FactoryArgs<T>& A, long long t) {
+// K1's per-element slab: offsets (in elements) of its matrices and their
+// row strides.  Stages: 1-2 assembly, Pade, direct block, column
+// recurrences and the (V - U) solve; 3 extraction and doubling; 4 Schur
+// integrals.  The direct block (dblk: D D2 D4 D6 VD UD M X33, X33 becoming
+// F33) lives through stage 3's start; the V - U matrix (vmu) holds VW, P12,
+// P21, VWp as its blocks; the right-hand side F overlays the stage-1
+// temporaries (bm .. tmp); stage 3 takes the dead vmu and xy slots where a
+// matrix fits, else the room after F, with TT over F; stage 4 starts over.
+struct Slab {
+  int ldn, ld2, ldN, ldm;  // row strides of nd-, 2 nd-, N-, nd+ndir-wide
+  int dblk, vmu, xy, bm, cm, bv, w, wp, w2, wp2, tmp, f;
+  int w1, w2x, r, t, tmq, tt, sup, sdn, smid, supe, w3a, w3b, w3c, e, e2;
+  int g0, g1, g2, g3, sg, sf, s1, s2, s3;
+  int size;
+};
+
+inline Slab slab_layout(int nd, int ndir) {
+  Slab S{};
+  const int N = 2 * nd + ndir;
+  S.ldn = nd | 1;
+  S.ld2 = (2 * nd) | 1;
+  S.ldN = N | 1;
+  S.ldm = (nd + ndir) | 1;
+  const int sq = nd * S.ldn, rc = nd * ndir, dd = ndir * ndir;
+  int o = 0;
+  auto take = [&o](int rows) { const int at = o; o += rows; return at; };
+  S.dblk = take(8 * dd);
+  const int base = o;
+  S.vmu = take(2 * nd * S.ld2);
+  S.xy = take(10 * rc);
+  const int reg2 = o;
+  S.bm = take(sq), S.cm = take(sq), S.bv = take(rc);
+  S.w = take(sq), S.wp = take(sq), S.w2 = take(sq), S.wp2 = take(sq);
+  S.tmp = take(sq);
+  S.f = reg2;
+  const int end_f = reg2 + 2 * nd * S.ldN;
+  int size = o > end_f ? o : end_f;
+  int oa = base, ob = end_f;
+  auto take3 = [&](int rows) {
+    int at;
+    if (oa + rows <= reg2) {
+      at = oa;
+      oa += rows;
+    } else {
+      at = ob;
+      ob += rows;
+    }
+    return at;
+  };
+  S.w1 = take3(sq), S.w2x = take3(nd * S.ldm), S.r = take3(sq);
+  S.t = take3(sq), S.tmq = take3(sq);
+  S.sup = take3(rc), S.sdn = take3(rc), S.smid = take3(rc), S.supe = take3(rc);
+  S.w3a = take3(rc), S.w3b = take3(rc), S.w3c = take3(rc);
+  S.e = take3(dd), S.e2 = take3(dd);
+  S.tt = S.f;
+  size = ob > size ? ob : size;
+  o = base;
+  S.g0 = take(dd), S.g1 = take(sq), S.g2 = take(sq), S.g3 = take(rc);
+  S.sg = take(sq), S.sf = take(sq), S.s1 = take(sq), S.s2 = take(sq);
+  S.s3 = take(sq);
+  S.size = o > size ? o : size;
+  return S;
+}
+
+// K1, one element j (a team of TS lanes; TS = 1 on the host) with its slab.
+// `live` names the lanes of the warp whose teams run this body now: they
+// meet after the doubling steps, where their K differ, so the warp runs the
+// Schur integrals once for all its teams rather than once per K.  Ends with
+// a team sync, so the team may take its next element.
+template <int TS, int CAP, typename T>
+SPX_DEV void layer_factory_team(const FactoryArgs<T>& A, const Slab& S,
+                                const Team<TS>& tm, long long j, T* slab,
+                                unsigned live) {
   const int nd = A.nd, ndir = A.ndir, N = 2 * nd + ndir;
   const int n2 = nd * nd, nr = nd * ndir, d2 = ndir * ndir;
-  const long long j = A.j0 + t, l = j / A.B, b = j % A.B;
-  auto op = [&](const T* p, int rows) {
-    return Col<T>{const_cast<T*>(p) + l * rows * A.B + b, A.B};
+  const long long l = j / A.B, b = j % A.B;
+  auto op = [&](const T* p, int rows, int ld) {
+    return mat(Col<T>{const_cast<T*>(p) + l * rows * A.B + b, A.B}, ld);
   };
-  const Col<T> g0 = op(A.g0, d2), g1 = op(A.g1, n2), g2 = op(A.g2, n2),
-               g3 = op(A.g3, nr);
+  const auto g0 = op(A.g0, d2, ndir), g1 = op(A.g1, n2, nd),
+             g2 = op(A.g2, n2, nd), g3 = op(A.g3, nr, ndir);
   const T s = A.dz[l * A.B + b];
-
-  // Workspace slots (rows): AS = [Bm | Cm | b]; DSM = [D | D2 | D4 | D6 |
-  // vd | ud | m | x33]; XY = [x2 y2 x3 y3 x4 y4 x5 y5 x6 y6]; BIG = nine
-  // nd^2 slots shared across stages; F = N^2; RT, SS, EE for extraction.
-  const Col<T> AS{A.ws + t, A.n};
-  const Col<T> DSM = AS.at(2 * n2 + nr), XY = DSM.at(8 * d2),
-               BIG = XY.at(10 * nr), F = BIG.at(9 * n2), RT = F.at(N * N),
-               SS = RT.at(4 * n2), EE = SS.at(4 * nr);
-  const Col<T> Bm = AS, Cm = AS.at(n2), bv = AS.at(2 * n2);
-  const Col<T> D = DSM, D2 = DSM.at(d2), D4 = DSM.at(2 * d2),
-               D6 = DSM.at(3 * d2), VD = DSM.at(4 * d2), UD = DSM.at(5 * d2),
-               M = DSM.at(6 * d2), X33 = DSM.at(7 * d2);
-  const Col<T> x2 = XY, y2 = XY.at(nr), x3 = XY.at(2 * nr), y3 = XY.at(3 * nr),
-               x4 = XY.at(4 * nr), y4 = XY.at(5 * nr), x5 = XY.at(6 * nr),
-               y5 = XY.at(7 * nr), x6 = XY.at(8 * nr), y6 = XY.at(9 * nr);
+  const Sh<T> sm{slab};
+  auto at = [&](int off, int ld) { return mat(sm.at(off), ld); };
+  const int ldn = S.ldn;
+  const auto Bm = at(S.bm, ldn), Cm = at(S.cm, ldn), bv = at(S.bv, ndir);
+  const auto D = at(S.dblk, ndir), D2 = at(S.dblk + d2, ndir),
+             D4 = at(S.dblk + 2 * d2, ndir), D6 = at(S.dblk + 3 * d2, ndir),
+             VD = at(S.dblk + 4 * d2, ndir), UD = at(S.dblk + 5 * d2, ndir),
+             M = at(S.dblk + 6 * d2, ndir), X33 = at(S.dblk + 7 * d2, ndir);
+  auto xy = [&](int k) { return at(S.xy + k * nr, ndir); };
+  const auto x2 = xy(0), y2 = xy(1), x3 = xy(2), y3 = xy(3), x4 = xy(4),
+             y4 = xy(5), x5 = xy(6), y5 = xy(7), x6 = xy(8), y6 = xy(9);
   // late-stage quantities reuse finished recurrence slots
-  const Col<T> xv = x3, yv = y3, xu = x5, yu = y5, u13 = x2, u23 = y2;
-  const Col<T> W = BIG, Wp = BIG.at(n2), W2 = BIG.at(2 * n2),
-               Wp2 = BIG.at(3 * n2), TMP = BIG.at(4 * n2), VW = BIG.at(5 * n2),
-               VWp = BIG.at(6 * n2), P12 = BIG.at(7 * n2), P21 = BIG.at(8 * n2);
+  const auto xv = x3, yv = y3, xu = x5, yu = y5, u13 = x2, u23 = y2;
+  const auto W = at(S.w, ldn), Wp = at(S.wp, ldn), W2 = at(S.w2, ldn),
+             Wp2 = at(S.wp2, ldn), TMP = at(S.tmp, ldn);
+  // V - U: [[VW, -P12], [-P21, VWp]], its blocks computed in place
+  const auto VMU = at(S.vmu, S.ld2);
+  const auto VW = VMU, P12 = VMU.sub(0, nd), P21 = VMU.sub(nd, 0),
+             VWp = VMU.sub(nd, nd);
 
   // ---- assembly in the transformed basis, scaled by dz
-  for (int i = 0; i < nd; ++i) {
+  for (int i = tm.lane; i < nd; i += TS) {
     for (int k = 0; k < nd; ++k) {
-      const T g1r = g1[i * nd + k] * s, g2r = g2[i * nd + k] * s;
-      Bm[i * nd + k] = g2r - g1r;
-      Cm[i * nd + k] = -(g1r + g2r);
+      const T g1r = g1(i, k) * s, g2r = g2(i, k) * s;
+      Bm(i, k) = g2r - g1r;
+      Cm(i, k) = -(g1r + g2r);
     }
-    for (int e = 0; e < ndir; ++e) bv[i * ndir + e] = T(-2) * g3[i * ndir + e] * s;
+    for (int e = 0; e < ndir; ++e) bv(i, e) = T(-2) * g3(i, e) * s;
   }
-  for (int i = 0; i < d2; ++i) D[i] = g0[i] * s;
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) D(i, e) = g0(i, e) * s;
 
   // ---- per-element scaling from the row-sum norm of the dense Gamma dz
   T nrm = T(0);
-  for (int i = 0; i < nd; ++i) {
+  for (int i = tm.lane; i < nd; i += TS) {
     T r1 = T(0), r2 = T(0), r3 = T(0);
     for (int k = 0; k < nd; ++k) {
-      r1 += fabs(g1[i * nd + k]);
-      r2 += fabs(g2[i * nd + k]);
+      r1 += fabs(g1(i, k));
+      r2 += fabs(g2(i, k));
     }
-    for (int e = 0; e < ndir; ++e) r3 += fabs(g3[i * ndir + e]);
+    for (int e = 0; e < ndir; ++e) r3 += fabs(g3(i, e));
     nrm = fmax(nrm, (r1 + r2 + r3) * s);
   }
-  for (int i = 0; i < ndir; ++i) {
+  for (int i = tm.lane; i < ndir; i += TS) {
     T r0 = T(0);
-    for (int e = 0; e < ndir; ++e) r0 += fabs(g0[i * ndir + e]);
+    for (int e = 0; e < ndir; ++e) r0 += fabs(g0(i, e));
     nrm = fmax(nrm, r0 * s);
   }
+  nrm = team_max(tm, nrm);
   const T kf = fmin(fmax(ceil(log2(fmax(nrm, T(1e-30)) / A.theta)), T(0)),
                     T(A.n_double));
   const int nK = int(kf);
   const T fac = ldexp(T(1), -nK);
-  for (int i = 0; i < 2 * n2 + nr; ++i) AS[i] *= fac;
-  for (int i = 0; i < d2; ++i) D[i] *= fac;
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int k = 0; k < nd; ++k) Bm(i, k) *= fac;
+    for (int k = 0; k < nd; ++k) Cm(i, k) *= fac;
+    for (int e = 0; e < ndir; ++e) bv(i, e) *= fac;
+  }
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) D(i, e) *= fac;
+  tm.sync();
 
   // ---- half-size powers and the even/odd Pade polynomials
-  mmc(W, Bm, Cm, nd, nd, nd);
-  mmc(Wp, Cm, Bm, nd, nd, nd);
-  mmc(W2, W, W, nd, nd, nd);
-  mmc(Wp2, Wp, Wp, nd, nd, nd);
-  mmc(TMP, W, W2, nd, nd, nd);  // W^3
-  for (int i = 0; i < n2; ++i) {
-    VW[i] = pade<T>(2) * W[i] + pade<T>(4) * W2[i] + pade<T>(6) * TMP[i];
-    P12[i] = pade<T>(3) * W[i] + pade<T>(5) * W2[i] + pade<T>(7) * TMP[i];
+  tmm<TS, CAP>(tm, W, Bm, Cm, nd, nd, nd);
+  tmm<TS, CAP>(tm, Wp, Cm, Bm, nd, nd, nd);
+  tmm<TS, CAP>(tm, W2, W, W, nd, nd, nd);
+  tmm<TS, CAP>(tm, Wp2, Wp, Wp, nd, nd, nd);
+  tmm<TS, CAP>(tm, TMP, W, W2, nd, nd, nd);  // W^3
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int k = 0; k < nd; ++k) {
+      VW(i, k) = pade<T>(2) * W(i, k) + pade<T>(4) * W2(i, k) + pade<T>(6) * TMP(i, k);
+      P12(i, k) = pade<T>(3) * W(i, k) + pade<T>(5) * W2(i, k) + pade<T>(7) * TMP(i, k);
+    }
+    VW(i, i) += pade<T>(0);
+    P12(i, i) += pade<T>(1);
   }
-  for (int i = 0; i < nd; ++i) {
-    VW[i * nd + i] += pade<T>(0);
-    P12[i * nd + i] += pade<T>(1);
+  tm.sync();
+  tmm<TS, CAP>(tm, P21, Cm, P12, nd, nd, nd);  // P21 = Cm u(W)
+  tmm<TS, CAP>(tm, TMP, Wp, Wp2, nd, nd, nd);  // W'^3
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int k = 0; k < nd; ++k) {
+      VWp(i, k) = pade<T>(2) * Wp(i, k) + pade<T>(4) * Wp2(i, k) + pade<T>(6) * TMP(i, k);
+      TMP(i, k) = pade<T>(3) * Wp(i, k) + pade<T>(5) * Wp2(i, k) + pade<T>(7) * TMP(i, k);
+    }
+    VWp(i, i) += pade<T>(0);
+    TMP(i, i) += pade<T>(1);
   }
-  mmc(P21, Cm, P12, nd, nd, nd);  // P21 = Cm u(W)
-  mmc(TMP, Wp, Wp2, nd, nd, nd);  // W'^3
-  for (int i = 0; i < n2; ++i) {
-    VWp[i] = pade<T>(2) * Wp[i] + pade<T>(4) * Wp2[i] + pade<T>(6) * TMP[i];
-    TMP[i] = pade<T>(3) * Wp[i] + pade<T>(5) * Wp2[i] + pade<T>(7) * TMP[i];
-  }
-  for (int i = 0; i < nd; ++i) {
-    VWp[i * nd + i] += pade<T>(0);
-    TMP[i * nd + i] += pade<T>(1);
-  }
-  mmc(P12, Bm, TMP, nd, nd, nd);  // P12 = Bm u(W')
+  tm.sync();
+  tmm<TS, CAP>(tm, P12, Bm, TMP, nd, nd, nd);  // P12 = Bm u(W')
 
   // ---- direct block: X33 = F33 - I = (vd - D ud)^-1 2 D ud
-  mmc(D2, D, D, ndir, ndir, ndir);
-  mmc(D4, D2, D2, ndir, ndir, ndir);
-  mmc(D6, D2, D4, ndir, ndir, ndir);
-  for (int i = 0; i < d2; ++i) {
-    VD[i] = pade<T>(2) * D2[i] + pade<T>(4) * D4[i] + pade<T>(6) * D6[i];
-    UD[i] = pade<T>(3) * D2[i] + pade<T>(5) * D4[i] + pade<T>(7) * D6[i];
+  tmm<TS, CAP>(tm, D2, D, D, ndir, ndir, ndir);
+  tmm<TS, CAP>(tm, D4, D2, D2, ndir, ndir, ndir);
+  tmm<TS, CAP>(tm, D6, D2, D4, ndir, ndir, ndir);
+  for (int i = tm.lane; i < ndir; i += TS) {
+    for (int e = 0; e < ndir; ++e) {
+      VD(i, e) = pade<T>(2) * D2(i, e) + pade<T>(4) * D4(i, e) + pade<T>(6) * D6(i, e);
+      UD(i, e) = pade<T>(3) * D2(i, e) + pade<T>(5) * D4(i, e) + pade<T>(7) * D6(i, e);
+    }
+    VD(i, i) += pade<T>(0);
+    UD(i, i) += pade<T>(1);
   }
-  for (int i = 0; i < ndir; ++i) {
-    VD[i * ndir + i] += pade<T>(0);
-    UD[i * ndir + i] += pade<T>(1);
-  }
-  mmc(D2, D, UD, ndir, ndir, ndir);  // U33 = D ud
-  for (int i = 0; i < d2; ++i) {
-    M[i] = VD[i] - D2[i];
-    X33[i] = T(2) * D2[i];
-  }
-  solve_inplace(M, ndir, X33, ndir, ndir, ndir);
+  tm.sync();
+  tmm<TS, CAP>(tm, D2, D, UD, ndir, ndir, ndir);  // U33 = D ud
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) {
+      M(i, e) = VD(i, e) - D2(i, e);
+      X33(i, e) = T(2) * D2(i, e);
+    }
+  tm.sync();
+  tsolve(tm, M, X33, ndir, ndir);
 
   // ---- direct-coupling column recurrences
-  mmc(x2, Bm, bv, nd, nd, ndir);          // x2 = Bm b
-  mmc(y2, bv, D, nd, ndir, ndir);         // y2 = b D
-  mmc(x3, x2, D, nd, ndir, ndir);         // x3 = x2 D
-  mmc(y3, Wp, bv, nd, nd, ndir);          // y3 = W' b + y2 D
-  mmc(y3, y2, D, nd, ndir, ndir, true);
-  mmc(x4, W, x2, nd, nd, ndir);           // x4 = W x2 + x3 D
-  mmc(x4, x3, D, nd, ndir, ndir, true);
-  mmc(y4, y3, D, nd, ndir, ndir);         // y4 = y3 D
-  mmc(x5, x4, D, nd, ndir, ndir);         // x5 = x4 D
-  mmc(y5, Wp2, bv, nd, nd, ndir);         // y5 = W'^2 b + y4 D
-  mmc(y5, y4, D, nd, ndir, ndir, true);
-  mmc(x6, W2, x2, nd, nd, ndir);          // x6 = W^2 x2 + x5 D
-  mmc(x6, x5, D, nd, ndir, ndir, true);
-  mmc(y6, y5, D, nd, ndir, ndir);         // y6 = y5 D
-  for (int i = 0; i < nr; ++i) {
-    const T vx = pade<T>(2) * x2[i] + pade<T>(4) * x4[i] + pade<T>(6) * x6[i];
-    const T vy = pade<T>(2) * y2[i] + pade<T>(4) * y4[i] + pade<T>(6) * y6[i];
-    const T ux = pade<T>(3) * x2[i] + pade<T>(5) * x4[i] + pade<T>(7) * x6[i];
-    const T uy = pade<T>(3) * y2[i] + pade<T>(5) * y4[i] + pade<T>(7) * y6[i];
-    xv[i] = vx;
-    yv[i] = vy;
-    xu[i] = ux;
-    yu[i] = uy;
-  }
-  mmc(u13, Bm, yu, nd, nd, ndir);         // U13 = Bm yu
-  mmc(u23, Cm, xu, nd, nd, ndir);         // U23 = Cm xu + b ud
-  mmc(u23, bv, UD, nd, ndir, ndir, true);
+  tmm<TS, CAP>(tm, x2, Bm, bv, nd, nd, ndir);         // x2 = Bm b
+  tmm<TS, CAP>(tm, y2, bv, D, nd, ndir, ndir);        // y2 = b D
+  tmm<TS, CAP>(tm, x3, x2, D, nd, ndir, ndir);        // x3 = x2 D
+  tmm<TS, CAP>(tm, y3, Wp, bv, nd, nd, ndir);         // y3 = W' b + y2 D
+  tmm<TS, CAP>(tm, y3, y2, D, nd, ndir, ndir, true);
+  tmm<TS, CAP>(tm, x4, W, x2, nd, nd, ndir);          // x4 = W x2 + x3 D
+  tmm<TS, CAP>(tm, x4, x3, D, nd, ndir, ndir, true);
+  tmm<TS, CAP>(tm, y4, y3, D, nd, ndir, ndir);        // y4 = y3 D
+  tmm<TS, CAP>(tm, x5, x4, D, nd, ndir, ndir);        // x5 = x4 D
+  tmm<TS, CAP>(tm, y5, Wp2, bv, nd, nd, ndir);        // y5 = W'^2 b + y4 D
+  tmm<TS, CAP>(tm, y5, y4, D, nd, ndir, ndir, true);
+  tmm<TS, CAP>(tm, x6, W2, x2, nd, nd, ndir);         // x6 = W^2 x2 + x5 D
+  tmm<TS, CAP>(tm, x6, x5, D, nd, ndir, ndir, true);
+  tmm<TS, CAP>(tm, y6, y5, D, nd, ndir, ndir);        // y6 = y5 D
+  for (int i = tm.lane; i < nd; i += TS)
+    for (int e = 0; e < ndir; ++e) {
+      const T vx = pade<T>(2) * x2(i, e) + pade<T>(4) * x4(i, e) + pade<T>(6) * x6(i, e);
+      const T vy = pade<T>(2) * y2(i, e) + pade<T>(4) * y4(i, e) + pade<T>(6) * y6(i, e);
+      const T ux = pade<T>(3) * x2(i, e) + pade<T>(5) * x4(i, e) + pade<T>(7) * x6(i, e);
+      const T uy = pade<T>(3) * y2(i, e) + pade<T>(5) * y4(i, e) + pade<T>(7) * y6(i, e);
+      xv(i, e) = vx;
+      yv(i, e) = vy;
+      xu(i, e) = ux;
+      yu(i, e) = uy;
+    }
+  tm.sync();
+  tmm<TS, CAP>(tm, u13, Bm, yu, nd, nd, ndir);        // U13 = Bm yu
+  tmm<TS, CAP>(tm, u23, Cm, xu, nd, nd, ndir);        // U23 = Cm xu + b ud
+  tmm<TS, CAP>(tm, u23, bv, UD, nd, ndir, ndir, true);
 
-  // ---- (V - U) in BIG slots 0-3 (the powers are dead); RHS 2 U with the
-  // direct column pre-corrected by X33, in F's first 2 nd rows
-  const Col<T> VMU = BIG;
-  const int m2 = 2 * nd;
-  for (int i = 0; i < nd; ++i) {
+  // ---- V - U (negate the off-diagonal blocks in place); RHS 2 U with the
+  // direct column pre-corrected by X33, in F over the dead temporaries
+  const auto F = at(S.f, S.ldN);
+  for (int i = tm.lane; i < nd; i += TS) {
     for (int k = 0; k < nd; ++k) {
-      VMU[i * m2 + k] = VW[i * nd + k];
-      VMU[i * m2 + nd + k] = -P12[i * nd + k];
-      VMU[(nd + i) * m2 + k] = -P21[i * nd + k];
-      VMU[(nd + i) * m2 + nd + k] = VWp[i * nd + k];
-      F[i * N + k] = T(0);
-      F[i * N + nd + k] = T(2) * P12[i * nd + k];
-      F[(nd + i) * N + k] = T(2) * P21[i * nd + k];
-      F[(nd + i) * N + nd + k] = T(0);
+      F(i, k) = T(0);
+      F(i, nd + k) = T(2) * P12(i, k);
+      F(nd + i, k) = T(2) * P21(i, k);
+      F(nd + i, nd + k) = T(0);
+      P12(i, k) = -P12(i, k);
+      P21(i, k) = -P21(i, k);
     }
     for (int e = 0; e < ndir; ++e) {
-      T top = T(2) * u13[i * ndir + e];
-      T mid = T(2) * u23[i * ndir + e];
+      T top = T(2) * u13(i, e);
+      T mid = T(2) * u23(i, e);
       for (int f = 0; f < ndir; ++f) {
-        top -= (xv[i * ndir + f] - u13[i * ndir + f]) * X33[f * ndir + e];
-        mid -= (yv[i * ndir + f] - u23[i * ndir + f]) * X33[f * ndir + e];
+        top -= (xv(i, f) - u13(i, f)) * X33(f, e);
+        mid -= (yv(i, f) - u23(i, f)) * X33(f, e);
       }
-      F[i * N + 2 * nd + e] = top;
-      F[(nd + i) * N + 2 * nd + e] = mid;
+      F(i, 2 * nd + e) = top;
+      F(nd + i, 2 * nd + e) = mid;
     }
   }
-  solve_inplace(VMU, m2, F, N, m2, N);
+  tm.sync();
+  tsolve(tm, VMU, F, 2 * nd, N);
 
-  // ---- undo the similarity (butterfly) and add I, then the direct rows
-  for (int i = 0; i < nd; ++i) {
+  // ---- undo the similarity (butterfly) and add I; F33 = X33 + I
+  for (int i = tm.lane; i < nd; i += TS) {
     for (int k = 0; k < nd; ++k) {
-      const T f11 = F[i * N + k], f12 = F[i * N + nd + k];
-      const T f21 = F[(nd + i) * N + k], f22 = F[(nd + i) * N + nd + k];
+      const T f11 = F(i, k), f12 = F(i, nd + k);
+      const T f21 = F(nd + i, k), f22 = F(nd + i, nd + k);
       const T sa = f11 + f21, sb = f12 + f22, da = f11 - f21, db = f12 - f22;
-      F[i * N + k] = T(0.5) * (sa + sb);
-      F[i * N + nd + k] = T(0.5) * (sa - sb);
-      F[(nd + i) * N + k] = T(0.5) * (da + db);
-      F[(nd + i) * N + nd + k] = T(0.5) * (da - db);
+      F(i, k) = T(0.5) * (sa + sb);
+      F(i, nd + k) = T(0.5) * (sa - sb);
+      F(nd + i, k) = T(0.5) * (da + db);
+      F(nd + i, nd + k) = T(0.5) * (da - db);
     }
     for (int e = 0; e < ndir; ++e) {
-      const T fx = F[i * N + 2 * nd + e], fy = F[(nd + i) * N + 2 * nd + e];
-      F[i * N + 2 * nd + e] = T(0.5) * (fx + fy);
-      F[(nd + i) * N + 2 * nd + e] = T(0.5) * (fx - fy);
+      const T fx = F(i, 2 * nd + e), fy = F(nd + i, 2 * nd + e);
+      F(i, 2 * nd + e) = T(0.5) * (fx + fy);
+      F(nd + i, 2 * nd + e) = T(0.5) * (fx - fy);
     }
-    F[i * N + i] += T(1);
-    F[(nd + i) * N + nd + i] += T(1);
+    F(i, i) += T(1);
+    F(nd + i, nd + i) += T(1);
   }
-  for (int i = 0; i < ndir; ++i) {
-    for (int k = 0; k < 2 * nd; ++k) F[(2 * nd + i) * N + k] = T(0);
-    for (int e = 0; e < ndir; ++e)
-      F[(2 * nd + i) * N + 2 * nd + e] = X33[i * ndir + e] + T(i == e);
-  }
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) X33(i, e) = X33(i, e) + T(i == e);
+  tm.sync();
 
-  // ---- extraction + doubling (workspaces from the now-dead BIG slots),
-  // then the Schur integrals (BIG slots 0-4)
-  extract_double(nd, ndir, nK, F, BIG.at(4 * n2), BIG.at(5 * n2),
-                 BIG.at(7 * n2), RT, SS, EE, op(A.R, n2), op(A.Tm, n2),
-                 op(A.E, d2), op(A.Sup, nr), op(A.Sdn, nr));
-  const Col<T> none{nullptr, A.B};
-  schur_ints(nd, ndir, A.int_direct != 0, g0, g1, g2, g3, BIG, BIG.at(n2),
-             BIG.at(2 * n2), BIG.at(3 * n2), BIG.at(4 * n2), op(A.idiff, n2),
-             A.int_direct ? op(A.idir, d2) : none,
-             A.int_direct ? op(A.idd, nr) : none);
+  // ---- extraction + doubling, then the Schur integrals on the operands
+  // copied into the slab
+  const ExtractWs<Mat<Sh<T>>> ws{
+      at(S.w1, ldn),  at(S.w2x, S.ldm), at(S.w3a, ndir), at(S.w3b, ndir),
+      at(S.w3c, ndir), at(S.r, ldn),    at(S.t, ldn),    at(S.tmq, ldn),
+      at(S.tt, ldn),  at(S.sup, ndir),  at(S.sdn, ndir), at(S.smid, ndir),
+      at(S.supe, ndir), at(S.e, ndir),  at(S.e2, ndir)};
+  extract_double<TS, CAP>(tm, nd, ndir, nK, F, X33, ws, op(A.R, n2, nd),
+                          op(A.Tm, n2, nd), op(A.E, d2, ndir),
+                          op(A.Sup, nr, ndir), op(A.Sdn, nr, ndir));
+#ifdef __CUDACC__
+  if (TS < 32) __syncwarp(live);
+#endif
+  const auto G0 = at(S.g0, ndir), G1 = at(S.g1, ldn), G2 = at(S.g2, ldn),
+             G3 = at(S.g3, ndir);
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int k = 0; k < nd; ++k) {
+      G1(i, k) = g1(i, k);
+      G2(i, k) = g2(i, k);
+    }
+    for (int e = 0; e < ndir; ++e) G3(i, e) = g3(i, e);
+  }
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) G0(i, e) = g0(i, e);
+  tm.sync();
+  const auto none = mat(Col<T>{nullptr, A.B}, 0);
+  schur_ints<TS, CAP>(tm, nd, ndir, ndir, A.int_direct != 0, G0, G1, G2, G3,
+                      at(S.sg, ldn), at(S.sf, ldn), at(S.s1, ldn),
+                      at(S.s2, ldn), at(S.s3, ldn), op(A.idiff, n2, nd),
+                      A.int_direct ? op(A.idir, d2, ndir) : none,
+                      A.int_direct ? op(A.idd, nr, ndir) : none);
 }
 
 // K1d: dense Pade-7 expm of the whole N x N Gamma dz (pallas_layer.py:268).
@@ -464,13 +629,27 @@ SPX_DEV void layer_factory_dense_thread(const FactoryArgs<T>& A, long long t) {
   }
   solve_inplace(W1, N, F, N, N, N);  // F = expm(Gamma dz 2^-K)
 
-  // ---- extraction + doubling, then the Schur integrals (G..W3 are dead)
-  extract_double(nd, ndir, nK, F, W1, W2, W3, RT, SS, EE, op(A.R, n2),
-                 op(A.Tm, n2), op(A.E, d2), op(A.Sup, nr), op(A.Sdn, nr));
-  const Col<T> none{nullptr, A.B};
-  schur_ints(nd, ndir, A.int_direct != 0, g0, g1, g2, g3, G, F, W1, W2, W3,
-             op(A.idiff, n2), A.int_direct ? op(A.idir, d2) : none,
-             A.int_direct ? op(A.idd, nr) : none);
+  // ---- extraction + doubling, then the Schur integrals (G..W3 are dead),
+  // through the team functions with a team of one lane on the workspace
+  const Team<1> one{0, 0u};
+  const auto Fm = mat(F, N);
+  const ExtractWs<Mat<Col<T>>> ws{
+      mat(W1, nd),         mat(W2, nd + ndir),  mat(W3, ndir),
+      mat(W3.at(nr), ndir), mat(W3.at(2 * nr), ndir), mat(RT, nd),
+      mat(RT.at(n2), nd),  mat(RT.at(3 * n2), nd), mat(F, nd),
+      mat(SS, ndir),       mat(SS.at(nr), ndir), mat(SS.at(2 * nr), ndir),
+      mat(SS.at(3 * nr), ndir), mat(EE, ndir),  mat(EE.at(d2), ndir)};
+  extract_double<1, 0>(one, nd, ndir, nK, Fm, Fm.sub(2 * nd, 2 * nd), ws,
+                       mat(op(A.R, n2), nd), mat(op(A.Tm, n2), nd),
+                       mat(op(A.E, d2), ndir), mat(op(A.Sup, nr), ndir),
+                       mat(op(A.Sdn, nr), ndir));
+  const auto none = mat(Col<T>{nullptr, A.B}, 0);
+  schur_ints<1, 0>(one, nd, ndir, ndir, A.int_direct != 0, mat(g0, ndir),
+                   mat(g1, nd), mat(g2, nd), mat(g3, ndir), mat(G, nd),
+                   mat(F, nd), mat(W1, nd), mat(W2, nd), mat(W3, nd),
+                   mat(op(A.idiff, n2), nd),
+                   A.int_direct ? mat(op(A.idir, d2), ndir) : none,
+                   A.int_direct ? mat(op(A.idd, nr), ndir) : none);
 }
 
 template <typename T>
@@ -497,13 +676,139 @@ FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
 #define SPX_FACTORY_ARGS                                                      \
   g0, g1, g2, g3, dz, R, Tm, E, Sup, Sdn, idiff, idir, idd, ws, nd, ndir,    \
       n_double, int_direct, theta, B, j0, n
+// K1's launch configuration, as layer_factory_config_f32/f64 report it
+#define SPX_K1_INFO 9  // ts, teams/block, threads/block, slab bytes,
+                       // shared bytes/block, blocks/SM, registers, grid,
+                       // global scratch elements (0: the slabs are shared)
 
 #ifdef __CUDACC__
-template <typename T>
-__global__ void layer_factory_kernel(spx::FactoryArgs<T> A) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t < A.n) spx::layer_factory_thread(A, t);
+// The source compiles in parts, one nvcc each, started together
+// (ops/cuda_build.py PARTS): SPX_PART_TS16, SPX_PART_TS32_F32 and
+// SPX_PART_TS32_F64 instantiate K1 at those team sizes; the main part
+// (neither macro) the rest, K1d and the C interface.
+#if defined(SPX_PART_TS16) || defined(SPX_PART_TS32_F32) || defined(SPX_PART_TS32_F64)
+#define SPX_PART_SIDE
+#endif
+
+// K1: teams of TS lanes, blockDim.x / TS of them a block, each looping over
+// the elements j = its index, + the grid's teams, ...; the slab in dynamic
+// shared memory, or (GLOBAL, at TS = 32 only) in the wrapper's scratch at
+// A.ws.
+template <typename T, int TS, bool GLOBAL>
+__global__ void layer_factory_kernel(spx::FactoryArgs<T> A, spx::Slab S,
+                                     int stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int per_block = blockDim.x / TS, team = threadIdx.x / TS;
+  const unsigned ones = (unsigned)((1ull << TS) - 1ull);
+  const spx::Team<TS> tm{(int)(threadIdx.x % TS),
+                         ones << ((threadIdx.x % 32) / TS * TS)};
+  const long long first = (long long)blockIdx.x * per_block + team;
+  const long long step = (long long)gridDim.x * per_block;
+  T* slab = GLOBAL ? A.ws + first * stride
+                   : reinterpret_cast<T*>(smem_raw) + team * stride;
+  // every lane of the warp takes each round, so the teams with an element
+  // know one another (live)
+  for (long long j = first;; j += step) {
+    const unsigned live = __ballot_sync(0xffffffffu, j < A.n);
+    if (live == 0) break;
+    if (j < A.n) spx::layer_factory_team<TS, TS>(A, S, tm, A.j0 + j, slab, live);
+  }
 }
+
+// K1's launch configuration for nd, ndir and n elements at team size TS,
+// written to info (SPX_K1_INFO): the slab stride (the teams of a warp TS
+// banks apart); the teams per block, two or four warps' worth, whichever
+// keeps more teams resident on an SM (the CUDA occupancy calculator:
+// shared memory, registers), or one warp's where two do not fit (blocks of
+// one warp ran K1 at the rami5 shape in f32 1.8x slower than blocks of two
+// at the same resident teams, on the H100); a global slab where one slab
+// exceeds the shared memory a block may take (only at TS = 32: nd > ~45 in
+// float64); the grid.
+template <typename T, int TS>
+static cudaError_t k1_config(int nd, int ndir, long long n, spx::Slab* S,
+                             long long* info) {
+  *S = spx::slab_layout(nd, ndir);
+  int stride = S->size;
+  const int words = (int)(sizeof(T) / 4);
+  while ((stride * words) % 32 != TS % 32) ++stride;
+  int device = 0, optin = 0, sms = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long slab = (long long)stride * sizeof(T);
+  const bool global = TS == 32 && slab > optin;
+  auto* k = global ? layer_factory_kernel<T, TS, TS == 32>
+                   : layer_factory_kernel<T, TS, false>;
+  int per_block = 1, blocks_sm = 0;
+  cudaError_t err = cudaSuccess;
+  for (const int warps : {2, 4, 1}) {
+    if (err != cudaSuccess || (warps == 1 && blocks_sm > 0)) break;
+    const int pb = warps * 32 / TS;
+    const int smem = global ? 0 : (int)(pb * slab);
+    if (smem > optin) continue;
+    int b = 0;
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, pb * TS, smem);
+    if (b * pb > blocks_sm * per_block) per_block = pb, blocks_sm = b;
+  }
+  const int smem = global ? 0 : (int)(per_block * slab);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes fa{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, k);
+  if (err == cudaSuccess && blocks_sm == 0) err = cudaErrorInvalidConfiguration;
+  long long grid = (n + per_block - 1) / per_block;
+  if (grid < 1) grid = 1;
+  if (global && grid > (long long)blocks_sm * sms) grid = (long long)blocks_sm * sms;
+  const long long vals[SPX_K1_INFO] = {
+      TS, per_block, per_block * TS, slab, smem, blocks_sm, fa.numRegs, grid,
+      global ? grid * per_block * stride : 0};
+  for (int i = 0; i < SPX_K1_INFO; ++i) info[i] = vals[i];
+  return err;
+}
+
+// K1 at team size TS: with info, only its configuration (written there);
+// else the launch.
+template <typename T, int TS>
+static int launch_k1(const spx::FactoryArgs<T>& A, cudaStream_t stream,
+                     long long* info) {
+  spx::Slab S;
+  long long local[SPX_K1_INFO];
+  long long* cfg = info ? info : local;
+  cudaError_t err = k1_config<T, TS>(A.nd, A.ndir, A.n, &S, cfg);
+  if (err != cudaSuccess || info) return (int)err;
+  const int stride = (int)(cfg[3] / sizeof(T));
+  if (cfg[8] > 0) {  // the slabs in the wrapper's scratch
+    if (A.ws == nullptr) return (int)cudaErrorInvalidValue;
+    layer_factory_kernel<T, TS, TS == 32>
+        <<<(unsigned)cfg[7], (unsigned)cfg[2], 0, stream>>>(A, S, stride);
+  } else {
+    layer_factory_kernel<T, TS, false>
+        <<<(unsigned)cfg[7], (unsigned)cfg[2], (size_t)cfg[4], stream>>>(A, S, stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+#define SPX_K1_ENTRY(name, T, TS)                                             \
+  extern "C" int name(const void* A, void* stream, long long* info) {        \
+    return launch_k1<T, TS>(*(const spx::FactoryArgs<T>*)A,                   \
+                            (cudaStream_t)stream, info);                      \
+  }
+#if defined(SPX_PART_TS16)
+SPX_K1_ENTRY(spx_k1_ts16_f32, float, 16)
+SPX_K1_ENTRY(spx_k1_ts16_f64, double, 16)
+#elif defined(SPX_PART_TS32_F32)
+SPX_K1_ENTRY(spx_k1_ts32_f32, float, 32)
+#elif defined(SPX_PART_TS32_F64)
+SPX_K1_ENTRY(spx_k1_ts32_f64, double, 32)
+#endif
+
+#ifndef SPX_PART_SIDE
+extern "C" int spx_k1_ts16_f32(const void*, void*, long long*);
+extern "C" int spx_k1_ts16_f64(const void*, void*, long long*);
+extern "C" int spx_k1_ts32_f32(const void*, void*, long long*);
+extern "C" int spx_k1_ts32_f64(const void*, void*, long long*);
 
 template <typename T>
 __global__ void layer_factory_dense_kernel(spx::FactoryArgs<T> A) {
@@ -511,16 +816,36 @@ __global__ void layer_factory_dense_kernel(spx::FactoryArgs<T> A) {
   if (t < A.n) spx::layer_factory_dense_thread(A, t);
 }
 
+// K1 by team size (the power of two >= nd, at most 32); with info, only
+// the configuration is computed and written there.
+template <typename T>
+static int launch_structured(const spx::FactoryArgs<T>& A, void* stream,
+                             long long* info) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool f32 = sizeof(T) == 4;
+  if (A.nd <= 2) return launch_k1<T, 2>(A, s, info);
+  if (A.nd <= 4) return launch_k1<T, 4>(A, s, info);
+  if (A.nd <= 8) return launch_k1<T, 8>(A, s, info);
+  if (A.nd <= 16)
+    return (f32 ? spx_k1_ts16_f32 : spx_k1_ts16_f64)(&A, stream, info);
+  return (f32 ? spx_k1_ts32_f32 : spx_k1_ts32_f64)(&A, stream, info);
+}
+
 template <typename T, bool dense>
 static int launch_factory(SPX_FACTORY_PARAMS, void* stream) {
   const auto A = spx::factory_args<T>(SPX_FACTORY_ARGS);
+  if (!dense) return launch_structured<T>(A, stream, nullptr);
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  if (dense)
-    layer_factory_dense_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(A);
-  else
-    layer_factory_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(A);
+  layer_factory_dense_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int factory_config(int nd, int ndir, long long n, long long* info) {
+  spx::FactoryArgs<T> A{};
+  A.nd = nd, A.ndir = ndir, A.n = n;
+  return launch_structured<T>(A, nullptr, info);
 }
 
 extern "C" int layer_factory_f32(SPX_FACTORY_PARAMS, void* stream) {
@@ -535,4 +860,11 @@ extern "C" int layer_factory_dense_f32(SPX_FACTORY_PARAMS, void* stream) {
 extern "C" int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void* stream) {
   return launch_factory<double, true>(SPX_FACTORY_ARGS, stream);
 }
+extern "C" int layer_factory_config_f32(int nd, int ndir, long long n, long long* info) {
+  return factory_config<float>(nd, ndir, n, info);
+}
+extern "C" int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
+  return factory_config<double>(nd, ndir, n, info);
+}
+#endif  // SPX_PART_SIDE
 #endif

@@ -15,13 +15,20 @@
 // FMA whose operands are ready although each one waits for the last of its
 // own chain; the chains start from an input array and b, c are arguments,
 // so nothing folds, and each step is exactly the fma() that the FLOP count
-// (2 per FMA) assumes.  K7 moves 16 bytes per thread and access (float4)
-// in a grid-stride loop; its array is ten times the 50 MB L2.
+// (2 per FMA) assumes.  K7 is a one-shot grid, as PyTorch's elementwise
+// kernels launch: no grid-stride loop, each
+// thread moves one float4 (16 bytes an access) with streaming cache hints
+// (__ldcs / __stcs: the data is touched once); block 0 also does the
+// ragged tail of n % 4.  Its array is ten times the 50 MB L2.
 
 #include "common.cuh"
 
 #define SPX_FMA_ACC 8
 #define SPX_FMA_INNER 512
+// K7's threads a block: of 128, 256 or 512 threads a block and 1, 2, 4 or 8
+// float4 a thread, one float4 and 512 threads was the fastest on the H100
+// (against torch.add on the same 512 MB, in turns)
+#define SPX_COPY_THREADS 512
 
 namespace spx {
 
@@ -68,15 +75,37 @@ SPX_DEV Float4 add_one(Float4 v) {
   return v;
 }
 
-// K7, one thread of `stride`: groups t, t + stride, ... of four floats, then
-// the element 4 (n / 4) + t of the ragged tail.
+SPX_DEV Float4 load_stream(const Float4* p) {
+#ifdef __CUDACC__
+  return __ldcs(p);
+#else
+  return *p;
+#endif
+}
+
+SPX_DEV void store_stream(Float4* p, Float4 v) {
+#ifdef __CUDACC__
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// K7, thread t of block blk: the float4 group blk * THREADS + t, then in
+// block 0 the element 4 (n / 4) + t of the ragged tail.
 SPX_DEV void copy_add_thread(const float* x, float* o, long long n,
-                             long long t, long long stride) {
+                             long long blk, int t) {
   const Float4* xv = reinterpret_cast<const Float4*>(x);
   Float4* ov = reinterpret_cast<Float4*>(o);
-  const long long n4 = n / 4;
-  for (long long i = t; i < n4; i += stride) ov[i] = add_one(xv[i]);
-  if (t < n - 4 * n4) o[4 * n4 + t] = x[4 * n4 + t] + 1.0f;
+  const long long n4 = n / 4, i = blk * SPX_COPY_THREADS + t;
+  if (i < n4) store_stream(ov + i, add_one(load_stream(xv + i)));
+  if (blk == 0 && t < n - 4 * n4) o[4 * n4 + t] = x[4 * n4 + t] + 1.0f;
+}
+
+// K7's blocks for n floats (at least one, for the tail).
+inline long long copy_add_blocks(long long n) {
+  const long long b = (n / 4 + SPX_COPY_THREADS - 1) / SPX_COPY_THREADS;
+  return b > 0 ? b : 1;
 }
 
 }  // namespace spx
@@ -93,10 +122,9 @@ __global__ void fma_chain_kernel(const T* x, T* out, T b, T c, long long n) {
   if (t < n) spx::fma_chain_thread(x, out, b, c, n, t);
 }
 
-__global__ void copy_add_kernel(const float* x, float* o, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  spx::copy_add_thread(x, o, n, blockIdx.x * (long long)blockDim.x + threadIdx.x,
-                       stride);
+__global__ void __launch_bounds__(SPX_COPY_THREADS)
+    copy_add_kernel(const float* x, float* o, long long n) {
+  spx::copy_add_thread(x, o, n, blockIdx.x, threadIdx.x);
 }
 
 // K6: one thread per chain set, 256 to a block (ragged last block masked).
@@ -115,16 +143,10 @@ extern "C" int fma_chain_f64(SPX_FMA_PARAMS, void* stream) {
   return launch_fma<double>(SPX_FMA_ARGS, stream);
 }
 
-// K7: eight blocks of 256 threads per SM (a full SM's 2,048 threads), or
-// fewer for a short array.
+// K7: one block per THREADS float4 groups.
 extern "C" int copy_add_f32(SPX_COPY_PARAMS, void* stream) {
-  int device = 0, sms = 1;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long groups = (n / 4 + 255) / 256;
-  const long long blocks = groups < 8LL * sms ? (groups > 0 ? groups : 1) : 8LL * sms;
-  copy_add_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)o, n);
+  copy_add_kernel<<<(unsigned)spx::copy_add_blocks(n), SPX_COPY_THREADS, 0,
+                    (cudaStream_t)stream>>>((const float*)x, (float*)o, n);
   return (int)cudaGetLastError();
 }
 #endif

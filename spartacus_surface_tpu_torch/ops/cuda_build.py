@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
 ``build/kernels/<name>-<hash>.so`` at the repo root (the hash covers the
-source and the shared headers, so an edited source is rebuilt).  Nothing here
+source and the shared headers, so an edited source is rebuilt).  A source
+listed in PARTS compiles as several objects, one nvcc each with one of its
+macros, all started together, then links into the one library (the layer
+factory's team sizes 16 and 32 are most of its build).  Nothing here
 runs at import time: a machine without nvcc imports every module, and only a
 launch on a CUDA tensor builds.  Also the operand checks and ctypes helpers
 that the kernel wrappers share.
@@ -23,7 +26,11 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# {source: the macro of each part} (csrc/layer_factory.cu: SPX_PART_*); ""
+# is the main part
+PARTS = {"layer_factory": ("", "SPX_PART_TS16", "SPX_PART_TS32_F32",
+                           "SPX_PART_TS32_F64")}
 
 _libs: dict = {}
 build_seconds: dict = {}  # name -> nvcc wall seconds (absent: cached build)
@@ -52,16 +59,34 @@ def load(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{res.stderr}")
+        base = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
+        parts = PARTS.get(name)
+        if parts is None:
+            log = _nvcc_all([[*base, "-shared", "-o", str(tmp), str(src)]], src)
+        else:
+            objs = [tmp.with_name(f"{tmp.name}.{i}.o") for i in range(len(parts))]
+            log = _nvcc_all([[*base, *([f"-D{m}"] if m else []), "-c", "-o", str(o),
+                              str(src)] for m, o in zip(parts, objs)], src)
+            log += _nvcc_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]], src)
+            for o in objs:
+                o.unlink()
         os.replace(tmp, lib_path)
         build_seconds[name] = time.perf_counter() - t0
-        build_log[name] = res.stderr
+        build_log[name] = log
     _libs[name] = ctypes.CDLL(str(lib_path))
     return _libs[name]
+
+
+def _nvcc_all(cmds, src) -> str:
+    """Run the nvcc commands at once and wait for every one; their stderr
+    (the ptxas report), or raise if one failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errs = [proc.communicate()[1] for proc in procs]
+    for proc, err in zip(procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{err}")
+    return "".join(errs)
 
 
 def validate(kernel: str, operands: dict) -> torch.device:
@@ -83,6 +108,15 @@ def validate(kernel: str, operands: dict) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} is not contiguous")
     return dev
+
+
+def bind(lib, name: str, argtypes, restype=ctypes.c_int):
+    """lib's C function `name`, its argtypes and restype set at its first
+    use and kept (ctypes caches the function object on the library)."""
+    fn = getattr(lib, name)
+    if not getattr(fn, "_spx_bound", False):
+        fn.restype, fn.argtypes, fn._spx_bound = restype, argtypes, True
+    return fn
 
 
 def ptr(t) -> ctypes.c_void_p:

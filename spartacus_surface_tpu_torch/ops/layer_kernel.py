@@ -16,17 +16,25 @@ csrc/layer_factory.cu.  Plain versions: ``layer_factory_plain`` and
 operands.
 
 Layout: every operand is [L, rows, B] (B = columns x bands, the batch
-contiguous), so thread b reads row r of layer l at (l*rows + r)*B + b and a
-warp's loads coalesce.  The output is exactly the sweep kernels' input.
+contiguous), so element (l, b) reads row r at (l*rows + r)*B + b.  The
+output is exactly the sweep kernels' input.
 
-On the H100 the factory is bound by its workspace traffic, not by FLOPs: one
-thread per (element, layer) runs a Pade-7 expm (K1: half size; K1d: the full
-N = 2 nd + ndir matrix), the thin-layer extraction, its own K doubling steps
-and the block-Schur integrals in ~15 nd^2 rows of per-thread workspace
-(5,516 rows at nd=16), far more than a thread's registers.  The design keeps
-that workspace in a struct-of-arrays global buffer allocated here
-(coalesced, L1/L2-cached) and bounds its size by launching in chunks of
-``chunk`` elements.  Each thread loops exactly its own K doubling steps,
+K1 gives each (element, layer) a team of TS lanes of one warp (TS the
+power of two >= nd, at most 32) and a slab of shared memory sized by the
+element's live working set (csrc/layer_factory.cu ``slab_layout``: a Pade-7
+expm at half size, the thin-layer extraction, the element's own K doubling
+steps and the block-Schur integrals); the lanes split every matrix's rows.
+One launch covers all L*B elements and allocates nothing but the outputs
+(and, only where one slab exceeds a block's shared memory, nd > ~45 in
+float64, a scratch of one slab per resident team).  What bounds it on the
+H100: shared memory, whose slabs set how many elements an SM runs at once
+(56 at the headline in float32), too few warps to hide each lane's chain
+of shared-memory loads and FMAs; and the doubling counts, which differ
+between the teams of a warp (the warp runs its largest).
+``factory_config`` reports the launch shape (team size, teams per block,
+shared memory, resident blocks per SM, registers).  K1d stays one thread
+per element with a struct-of-arrays global workspace, launched in chunks of
+``chunk`` elements.  Each element loops exactly its own K doubling steps,
 which is the TPU kernel's masked commit (pallas_layer.py:400) without the
 masking.
 """
@@ -61,13 +69,6 @@ def is_structured(nd: int, ndir: int) -> bool:
     return nd >= 2 * ndir and nd >= 2
 
 
-def workspace_rows(nd: int, ndir: int) -> int:
-    """Per-element workspace of K1: AS, DSM, XY, BIG, F, RT, SS, EE slots
-    (csrc/layer_factory.cu)."""
-    n2, nr, d2 = nd * nd, nd * ndir, ndir * ndir
-    return 15 * n2 + 15 * nr + 10 * d2 + (2 * nd + ndir) ** 2
-
-
 def dense_workspace_rows(nd: int, ndir: int) -> int:
     """Per-element workspace of K1d: G, F, W1, W2, W3, RT, SS, EE slots
     (csrc/layer_factory.cu, pallas_layer.py:871-879)."""
@@ -94,9 +95,10 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
     int_direct, int_dir and int_dir_diff, each [L, rows, B].
 
     g0 [L, ndir^2, B], g1/g2 [L, nd^2, B], g3 [L, nd*ndir, B], dz [L, B].
-    CUDA tensors launch csrc/layer_factory.cu (in chunks of `chunk`
-    elements): K1 where is_structured(nd, ndir), K1d otherwise.  CPU
-    tensors take layer_factory_plain.
+    CUDA tensors launch csrc/layer_factory.cu: K1 where is_structured(nd,
+    ndir), once over every element; K1d otherwise, in chunks of `chunk`
+    elements.  CPU tensors take layer_factory_plain (`chunk` elements at a
+    time).
     """
     L, _, B = g1.shape
     dev = cuda_build.validate("layer_factory", {
@@ -113,38 +115,61 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
                       int_direct=int_direct, stream=cuda_build.stream(dev))
 
 
+# the C signatures of the launchers (csrc/layer_factory.cu)
+FACTORY_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                    + [ctypes.c_double] + [ctypes.c_longlong] * 3
+                    + [ctypes.c_void_p])
+CONFIG_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+# what layer_factory_config_f32/f64 report (SPX_K1_INFO)
+CONFIG_FIELDS = ("team_size", "teams_per_block", "threads_per_block",
+                 "slab_bytes", "smem_per_block", "blocks_per_sm",
+                 "registers", "grid", "scratch_elements")
+
+
+def factory_config(lib, nd, ndir, n, dtype) -> dict:
+    """K1's launch configuration for n elements at (nd, ndir) in dtype, as
+    lib computes it (CONFIG_FIELDS; on the card, the kernel's registers and
+    its resident blocks per SM from the CUDA occupancy calculator)."""
+    bits = "f32" if dtype == torch.float32 else "f64"
+    fn = cuda_build.bind(lib, f"layer_factory_config_{bits}", CONFIG_ARGTYPES)
+    info = (ctypes.c_longlong * len(CONFIG_FIELDS))()
+    cuda_build.check(fn(nd, ndir, n, info), "layer_factory_config")
+    return dict(zip(CONFIG_FIELDS, info))
+
+
 def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
            int_direct=True):
-    """Allocate outputs and workspace and launch lib's layer_factory_f32/f64
-    (K1) or layer_factory_dense_f32/f64 (K1d) over the elements in chunks.
-    Counts each launch in layer_factory.launches (K1) or
+    """Allocate the outputs and launch lib's layer_factory_f32/f64 (K1:
+    one launch over every element, no workspace) or
+    layer_factory_dense_f32/f64 (K1d: in chunks of `chunk` elements, with
+    its workspace).  Counts each launch in layer_factory.launches (K1) or
     layer_factory.dense_launches (K1d) and, without int_direct, in the same
     counter of lw_layer_factory too."""
     L, _, B = g1.shape
     structured = is_structured(nd, ndir)
     kind = "" if structured else "_dense"
     bits = "f32" if g1.dtype == torch.float32 else "f64"
-    fn = getattr(lib, f"layer_factory{kind}_{bits}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
-                   + [ctypes.c_double] + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p])
+    fn = cuda_build.bind(lib, f"layer_factory{kind}_{bits}", FACTORY_ARGTYPES)
     rows = out_rows(nd, ndir)
     outs = {k: g1.new_empty((L, rows[k], B)) for k in out_names(int_direct)}
     total = L * B
-    step = max(1, min(chunk or total, total))
-    rows_ws = (workspace_rows if structured else dense_workspace_rows)(nd, ndir)
-    ws = g1.new_empty((rows_ws * step,))
-    for j0 in range(0, total, step):
-        n = min(step, total - j0)
+    if structured:
+        scratch = factory_config(lib, nd, ndir, total, g1.dtype)["scratch_elements"]
+        spans = [(0, total, g1.new_empty((scratch,)) if scratch else None)]
+    else:
+        step = max(1, min(chunk or total, total))
+        ws = g1.new_empty((dense_workspace_rows(nd, ndir) * step,))
+        spans = [(j0, min(step, total - j0), ws) for j0 in range(0, total, step)]
+    counter = "launches" if structured else "dense_launches"
+    wrappers = (layer_factory,) + (() if int_direct else (lw_layer_factory,))
+    for j0, n, ws in spans:
         err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz)),
                  *(cuda_build.ptr(outs[k]) if k in outs else None
                    for k in OUT_NAMES),
-                 cuda_build.ptr(ws), nd, ndir, n_double, int(int_direct),
-                 pade7_theta(g1.dtype), B, j0, n, stream)
+                 None if ws is None else cuda_build.ptr(ws), nd, ndir,
+                 n_double, int(int_direct), pade7_theta(g1.dtype), B, j0, n,
+                 stream)
         cuda_build.check(err, f"layer_factory{kind}")
-        counter = "launches" if structured else "dense_launches"
-        wrappers = (layer_factory,) + (() if int_direct else (lw_layer_factory,))
         for w in wrappers:
             setattr(w, counter, getattr(w, counter) + 1)
     return outs
@@ -190,7 +215,8 @@ def lw_layer_factory(g1, g2, b, dz, *, nd, n_double=30, chunk=65536):
     (g1/g2 [L, nd^2, B], dz [L, B]).  K1 runs with ndir = 1, gamma0 = 0,
     gamma3 = b and int_direct off (K1d where nd = 1); CUDA tensors launch it
     (counted in the launches / dense_launches of layer_factory and of
-    lw_layer_factory), CPU tensors take the plain version.
+    lw_layer_factory), CPU tensors take the plain version.  `chunk` bounds
+    the elements of a K1d launch and of a plain-version step.
     """
     g0, g3 = _lw_operands(g1, b)
     lay = layer_factory(g0, g1, g2, g3, dz, nd=nd, ndir=1, n_double=n_double,

@@ -28,6 +28,12 @@ from . import cuda_build
 from .matrix import matvec, solve
 from .sweep_kernels import _check_sizes, _cols, _ground_blocks, _mats
 
+# the C signatures of the launchers (csrc/lw_sweeps.cu)
+UP_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+               + [ctypes.c_longlong, ctypes.c_void_p])
+DOWN_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong, ctypes.c_void_p])
+
 
 def lw_stack_rows(nd: int, ns: int, nreg: int) -> int:
     nd2 = (nreg + 1) * ns
@@ -124,10 +130,8 @@ def launch_up(lib, R, T, p, uov, vov, reps, remit, exposed, grd, hw, *, nd,
     """Allocate outputs and workspace and launch lib's lw_up_sweep_f32/f64;
     counts the launch."""
     L, _, B = R.shape
-    fn = lib.lw_up_sweep_f32 if R.dtype == torch.float32 else lib.lw_up_sweep_f64
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn = cuda_build.bind(lib, "lw_up_sweep_f32" if R.dtype == torch.float32
+                         else "lw_up_sweep_f64", UP_ARGTYPES)
     stacks = R.new_empty((L, lw_stack_rows(nd, ns, nreg), B))
     top = R.new_empty((nd * nd + nd, B))
     ws = R.new_empty(((5 * nd + 3) * nd * B,))
@@ -264,11 +268,8 @@ def launch_down(lib, R, T, p, idif, isrc, stacks, vov, aux, hw, rmu, rtan, *,
     """Allocate outputs and workspace and launch lib's lw_down_sweep_f32/f64;
     counts the launch."""
     L, _, B = R.shape
-    fn = (lib.lw_down_sweep_f32 if R.dtype == torch.float32
-          else lib.lw_down_sweep_f64)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn = cuda_build.bind(lib, "lw_down_sweep_f32" if R.dtype == torch.float32
+                         else "lw_down_sweep_f64", DOWN_ARGTYPES)
     outs = R.new_empty((L, 2 * len(lw_out_rows(do_urban, nreg, with_profiles)), B))
     fin = R.new_empty((2 * nd, B))
     ws = R.new_empty(((6 * nd + 2 * (nreg + 1) * ns) * B,))

@@ -9,8 +9,10 @@ csrc/roofline_probes.cu.  Plain versions: ``fma_chain_plain`` and
   starting values of FMA_ACC independent chains for each of n threads;
   each chain takes FMA_INNER steps acc = fma(acc, c, b).  FLOPs per call:
   2 * n * FMA_ACC * FMA_INNER.  Bound by operations.
-* K7 ``copy_add(x)``: o = x + 1 over a float32 array, 16 bytes per access.
-  Bytes per call: 2 * x.nbytes.  Bound by device-memory bytes.
+* K7 ``copy_add(x, out=None)``: o = x + 1 over a float32 array, 16 bytes
+  per access, into a new tensor or into ``out`` (as ``torch.add(x, 1.0,
+  out=o)`` writes a preallocated one).  Bytes per call: 2 * x.nbytes.
+  Bound by device-memory bytes.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.  The plain fma_chain rounds twice a step (mul, then add) where the
@@ -48,13 +50,17 @@ def fma_chain(x, b: float, c: float):
                           stream=cuda_build.stream(dev))
 
 
+# the C signatures of the launchers (csrc/roofline_probes.cu)
+FMA_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_double] * 2 + [
+    ctypes.c_longlong, ctypes.c_void_p]
+COPY_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
+
+
 def launch_fma(lib, x, b, c, *, stream):
     """Allocate the output and launch lib's fma_chain_f32/f64; counts the
     launch."""
-    fn = lib.fma_chain_f32 if x.dtype == torch.float32 else lib.fma_chain_f64
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_double] * 2 + [
-        ctypes.c_longlong, ctypes.c_void_p]
+    fn = cuda_build.bind(lib, "fma_chain_f32" if x.dtype == torch.float32
+                         else "fma_chain_f64", FMA_ARGTYPES)
     out = torch.empty_like(x)
     err = fn(cuda_build.ptr(x), cuda_build.ptr(out), b, c, x.shape[-1], stream)
     cuda_build.check(err, "fma_chain")
@@ -70,28 +76,33 @@ def copy_add_plain(x):
     return x + 1.0
 
 
-def copy_add(x):
+def copy_add(x, out=None):
     """K7: x + 1 for a contiguous float32 tensor x, streamed through device
-    memory; returns a new tensor of x's shape."""
-    dev = cuda_build.validate("copy_add", {"x": (x, tuple(x.shape))})
+    memory; returns a new tensor of x's shape, or writes `out` (x's shape
+    and dtype, on its device, contiguous, 16-byte aligned on the card) and
+    returns it."""
+    operands = {"x": (x, tuple(x.shape))}
+    if out is not None:
+        operands["out"] = (out, tuple(x.shape))
+    dev = cuda_build.validate("copy_add", operands)
     if x.dtype != torch.float32:
         raise TypeError(f"copy_add: dtype {x.dtype} is not float32")
     if dev.type == "cpu":
-        return copy_add_plain(x)
-    if x.data_ptr() % 16:
-        raise ValueError("copy_add: x is not 16-byte aligned")
+        return copy_add_plain(x) if out is None else out.copy_(copy_add_plain(x))
+    for name, t in (("x", x), ("out", out)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"copy_add: {name} is not 16-byte aligned")
     with torch.cuda.device(dev):
         return launch_copy(cuda_build.load("roofline_probes"), x,
-                           stream=cuda_build.stream(dev))
+                           stream=cuda_build.stream(dev), out=out)
 
 
-def launch_copy(lib, x, *, stream):
-    """Allocate the output and launch lib's copy_add_f32; counts the
-    launch."""
-    fn = lib.copy_add_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
-    out = torch.empty_like(x)
+def launch_copy(lib, x, *, stream, out=None):
+    """Launch lib's copy_add_f32 into `out` (allocated here where None);
+    counts the launch."""
+    fn = cuda_build.bind(lib, "copy_add_f32", COPY_ARGTYPES)
+    if out is None:
+        out = torch.empty_like(x)
     err = fn(cuda_build.ptr(x), cuda_build.ptr(out), x.numel(), stream)
     cuda_build.check(err, "copy_add")
     copy_add.launches += 1

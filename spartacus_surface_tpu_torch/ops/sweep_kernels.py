@@ -33,6 +33,12 @@ import torch
 from . import cuda_build
 from .matrix import matvec, solve
 
+# the C signatures of the launchers (csrc/sw_sweeps.cu)
+UP_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+               + [ctypes.c_longlong, ctypes.c_void_p])
+DOWN_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong, ctypes.c_void_p])
+
 
 def sw_stack_rows(nd: int, ns: int, nreg: int) -> int:
     nd2 = (nreg + 1) * ns
@@ -166,10 +172,8 @@ def launch_up(lib, R, T, E, Sup, Sdn, uov, vov, ralb, ralbd, grd, hw, *, nd,
     """Allocate outputs and workspace and launch lib's sw_up_sweep_f32/f64;
     counts the launch."""
     L, _, B = R.shape
-    fn = lib.sw_up_sweep_f32 if R.dtype == torch.float32 else lib.sw_up_sweep_f64
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn = cuda_build.bind(lib, "sw_up_sweep_f32" if R.dtype == torch.float32
+                         else "sw_up_sweep_f64", UP_ARGTYPES)
     stacks = R.new_empty((L, sw_stack_rows(nd, ns, nreg), B))
     top = R.new_empty((nd * nd + nd * nreg, B))
     ws = R.new_empty(((5 * nd + 3 * nreg) * nd * B,))
@@ -345,11 +349,8 @@ def launch_down(lib, R, T, E, Sdn, idir, idif, idd, stacks, vov, aux, zcos, hw,
     """Allocate outputs and workspace and launch lib's sw_down_sweep_f32/f64;
     counts the launch."""
     L, _, B = R.shape
-    fn = (lib.sw_down_sweep_f32 if R.dtype == torch.float32
-          else lib.sw_down_sweep_f64)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn = cuda_build.bind(lib, "sw_down_sweep_f32" if R.dtype == torch.float32
+                         else "sw_down_sweep_f64", DOWN_ARGTYPES)
     n_out = sum(len(sw_out_rows(wd, do_urban, nreg, with_profiles))
                 for wd in MODES)
     outs = R.new_empty((L, n_out, B))

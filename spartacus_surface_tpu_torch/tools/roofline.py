@@ -7,7 +7,8 @@ columns/s fast?" with arithmetic:
      (ops/probe_kernels.py, csrc/roofline_probes.cu): the FMA rate outside
      the tensor cores in float32 and float64 (chained FMAs, the only
      arithmetic the port's kernels issue) and the device-memory stream
-     bandwidth (o = x + 1 over 512 MB).  CUDA events over back-to-back
+     bandwidth (o = x + 1 over 512 MB into a preallocated o, as
+     torch.add(x, 1.0, out=o) writes).  CUDA events over back-to-back
      launches after a warm-up, median of 3.
   2. MODEL the work of each kernel launch as written: ``kernel_work`` counts
      the FLOPs of the CUDA bodies of K1, K1d and K2-K5 loop for loop (every
@@ -101,11 +102,13 @@ def fma_flops(x) -> float:
 def event_ms(fn, launches=20, reps=3) -> float:
     """Median over `reps` windows of the device ms per call of `launches`
     back-to-back calls of fn, timed with CUDA events after one warm-up
-    window."""
+    window.  One untimed call goes before each window, so the window opens
+    with the card busy and the first call's host work is not inside it."""
     times = []
     for rep in range(reps + 1):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        fn()
         start.record()
         for _ in range(launches):
             fn()
@@ -124,10 +127,11 @@ def measure_fma_peak(dtype=torch.float32, device="cuda") -> float:
 
 
 def measure_hbm_bw(device="cuda") -> float:
-    """Bytes/s of K7 (o = x + 1 over 512 MB: 2 x 512 MB a launch) on the
-    card; raises without CUDA."""
+    """Bytes/s of K7 (o = x + 1 over 512 MB into a preallocated o: 2 x 512
+    MB a launch) on the card; raises without CUDA."""
     x = hbm_operand(device)
-    return 2.0 * x.nbytes / (1e-3 * event_ms(lambda: PK.copy_add(x)))
+    o = torch.empty_like(x)
+    return 2.0 * x.nbytes / (1e-3 * event_ms(lambda: PK.copy_add(x, out=o)))
 
 
 def card() -> str:
@@ -185,7 +189,10 @@ def _factory_fixed_flops(nd, ndir, int_direct=True):
     """Per element, everything of K1 or K1d but the doubling steps: the
     expm (K1: half-size Pade-7 and the F - I solve at 2 nd; K1d: the full
     N = 2 nd + ndir Pade-7), the thin-layer extraction and the Schur
-    integrals (layer_factory.cu)."""
+    integrals (layer_factory.cu).  K1's team body counts once per element,
+    whatever its team size: a product or solve split over the lanes does
+    the element's arithmetic once, and the scalars each lane repeats (a
+    pivot's reciprocal, the norm's max) are not counted again."""
     n2, nr, d2, N = nd * nd, nd * ndir, ndir * ndir, 2 * nd + ndir
     if LK.is_structured(nd, ndir):  # K1
         f = 8 * n2 + 4 * nr + 3 * d2 + 3 * nd + ndir + 1  # assembly, K, 2^-K

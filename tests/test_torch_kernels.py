@@ -41,6 +41,7 @@ from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
 from spartacus_surface_tpu_torch.utils.inputs import example_inputs, random_lw_fields
 
 ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))
+LARGE_CONFIGS = ((3, 8),)  # nd = 24: K1 at a team of 32 lanes on the card
 ONE_STREAM_CONFIGS = ((1, 1), (2, 1), (3, 1))  # K1d in SW; and in LW at nreg 1
 KERNELS = ("layer_factory", "sw_up_sweep", "sw_down_sweep_both",
            "lw_layer_factory", "lw_up_sweep", "lw_down_sweep_both")
@@ -159,7 +160,7 @@ def host_launch(host_lib, calls):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS)
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS + LARGE_CONFIGS)
 def test_host_built_kernels_match_plain(host_lib, monkeypatch, nreg, ns, dtype):
     calls = capture(monkeypatch, nreg, ns, dtype, "cpu")
     assert_matches_plain(host_launch(host_lib, calls), calls, dtype == np.float32)
@@ -180,6 +181,70 @@ def test_host_built_factory_float32_accuracy(host_lib, monkeypatch, nreg, ns):
         for n in truth:
             err = lambda x: (x[n].double() - truth[n]).abs().max().item()
             assert err(launched[name]) <= 2 * err(plain) + 1e-6, (name, n)
+
+
+class _Recorder:
+    """A library whose functions record each call's arguments and run the
+    host build's."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+        setattr(self, name, call)
+        return call
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 65536, 0])
+@pytest.mark.parametrize("mode", ["sw", "lw"])
+def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk):
+    """K1 launches once per call whatever `chunk` is, over every element,
+    with no workspace (a null pointer) and nothing allocated but its
+    outputs."""
+    calls = capture(monkeypatch, 2, 4, np.float64, "cpu")
+    cuda_build.bind(host_lib, "layer_factory_f64", LK.FACTORY_ARGTYPES)
+    cuda_build.bind(host_lib, "layer_factory_config_f64", LK.CONFIG_ARGTYPES)
+    lib = _Recorder(host_lib)
+    allocated = []
+    new_empty = torch.Tensor.new_empty
+    monkeypatch.setattr(torch.Tensor, "new_empty", lambda t, shape, **kw: (
+        allocated.append(tuple(shape)), new_empty(t, shape, **kw))[1])
+    n1, nlw = LK.layer_factory.launches, LK.lw_layer_factory.launches
+    a, k, ref = calls[f"{'' if mode == 'sw' else 'lw_'}layer_factory"]
+    got = LAUNCH[("" if mode == "sw" else "lw_") + "layer_factory"](
+        lib, *a, stream=None, **dict(k, chunk=chunk))
+    monkeypatch.undo()
+    launches = [args for name, args in lib.calls if name == "layer_factory_f64"]
+    assert len(launches) == 1
+    L, _, B = a[0].shape
+    assert launches[0][13] is None and launches[0][-2:-1] == (L * B,)  # ws, n
+    assert LK.layer_factory.launches == n1 + 1
+    assert LK.lw_layer_factory.launches == nlw + (mode == "lw")
+    rows = LK.out_rows(k["nd"], k.get("ndir", 1))
+    assert sorted(allocated) == sorted((L, rows[n], B) for n in LK.out_names(mode == "sw"))
+    assert all(field_err([ref[n]], [got[n]]) <= 1e-9 for n in ref)
+
+
+@pytest.mark.parametrize("nd,ndir", [(40, 1), (36, 3)])
+def test_host_built_factory_wider_than_a_warp(host_lib, nd, ndir):
+    """K1 at nd > 32 (on the card a team of 32 lanes with several rows a
+    lane, and products wider than a lane's registers) against the plain
+    version, in float64 at 1e-9 per field.  The point is the indexing:
+    these random operands are not diagonally dominant at this width, and in
+    float32 the pivot-free Schur solve loses up to 4e-4 on int_diff where
+    the plain version's pivoted one loses 3e-6."""
+    ops = _random_gammas(np.random.default_rng(nd), 2, 5, nd, ndir, np.float64)
+    got = LK.launch(host_lib, *ops, nd=nd, ndir=ndir, n_double=30, chunk=3,
+                    stream=None)
+    ref = LK.layer_factory_plain(*ops, nd=nd, ndir=ndir)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert field_err([ref[k]], [got[k]]) <= 1e-9, k
 
 
 def _soa(x, L, B):
@@ -346,7 +411,7 @@ def _counters(nreg, ns):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS)
+@pytest.mark.parametrize("nreg,ns", ENTRY_CONFIGS + ONE_STREAM_CONFIGS + LARGE_CONFIGS)
 def test_cuda_kernels_match_plain(cuda_device, monkeypatch, nreg, ns, dtype):
     counters = _counters(nreg, ns)
     before = [getattr(w, c) for w, c in counters]
@@ -408,3 +473,92 @@ def test_cuda_lw_wrappers_launch_or_raise(cuda_device):
         assert wrapper.launches > n
         with pytest.raises(ValueError):
             wrapper(a[0][:, :-1].contiguous(), *a[1:], **k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd,ndir,ts", [(2, 1, 2), (4, 2, 4), (8, 2, 8), (8, 1, 8),
+                                        (12, 3, 16), (16, 4, 16), (24, 3, 32)])
+def test_cuda_factory_config(cuda_device, nd, ndir, ts):
+    """K1's launch shape: a team of the power of two >= nd lanes, whole
+    warps of teams where the slabs fit, at least one block resident per SM,
+    every slab in shared memory (no scratch) at these widths."""
+    lib = cuda_build.load("layer_factory")
+    for dtype in (torch.float32, torch.float64):
+        c = LK.factory_config(lib, nd, ndir, 1000, dtype)
+        assert c["team_size"] == ts, c
+        assert c["threads_per_block"] == c["teams_per_block"] * ts, c
+        assert c["blocks_per_sm"] >= 1 and c["registers"] > 0, c
+        assert c["scratch_elements"] == 0, c
+        assert c["smem_per_block"] == c["teams_per_block"] * c["slab_bytes"], c
+
+
+@pytest.mark.cuda
+def test_cuda_factory_global_slab(cuda_device):
+    """Where one slab exceeds a block's shared memory (nd = 52 in float64)
+    K1 keeps its slabs in a scratch of one slab per resident team, still in
+    one launch, and matches the plain version (1e-9 per field)."""
+    nd, ndir = 52, 1
+    lib = cuda_build.load("layer_factory")
+    ops = [x.to(cuda_device) for x in
+           _random_gammas(np.random.default_rng(nd), 2, 301, nd, ndir, np.float64)]
+    assert LK.factory_config(lib, nd, ndir, 602, torch.float64)["scratch_elements"] > 0
+    n1 = LK.layer_factory.launches
+    got = LK.layer_factory(*ops, nd=nd, ndir=ndir)
+    torch.cuda.synchronize()
+    assert LK.layer_factory.launches == n1 + 1
+    ref = LK.layer_factory_plain(*ops, nd=nd, ndir=ndir)
+    for k in ref:
+        assert field_err([ref[k]], [got[k]]) <= 1e-9, k
+
+
+# K1 in SW and LW mode, float32 and float64, at a width its team size
+# divides (nd = 8, TS = 8) and one it does not (nd = 12, TS = 16)
+SANITIZED_FACTORY = """
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {tests!r})
+from test_torch_kernels import _random_gammas
+from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+dev = torch.device("cuda")
+for nd, ndir in ((8, 2), (8, 1), (12, 3), (12, 1)):
+    for dtype in (np.float32, np.float64):
+        g0, g1, g2, g3, dz = (x.to(dev) for x in _random_gammas(
+            np.random.default_rng(nd), 2, 37, nd, ndir, dtype))
+        if ndir == 1:
+            LK.lw_layer_factory(g1, g2, g3, dz, nd=nd)
+        else:
+            LK.layer_factory(g0, g1, g2, g3, dz, nd=nd, ndir=ndir)
+torch.cuda.synchronize()
+print("K1 launches", LK.layer_factory.launches)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool", ["racecheck", "synccheck"])
+def test_cuda_factory_sanitizer(cuda_device, tool):
+    """compute-sanitizer finds no shared-memory hazard (racecheck) and no
+    invalid __syncwarp (synccheck) in small K1 launches: SW and LW mode,
+    float32 and float64, nd = 8 and 12.  Skips where the tool is not
+    installed, or does not run on this machine."""
+    exe = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+    if not os.path.exists(exe):
+        pytest.skip("compute-sanitizer is not installed on this machine")
+    import sys
+
+    cuda_build.load("layer_factory")  # built here, not under the sanitizer
+    repo = Path(__file__).resolve().parents[1]
+    res = subprocess.run(
+        [exe, "--tool", tool, "--error-exitcode", "3", sys.executable, "-c",
+         SANITIZED_FACTORY.format(tests=str(repo / "tests"))],
+        capture_output=True, text=True, timeout=900, cwd=repo,
+        env=dict(os.environ, PYTHONPATH=str(repo)))
+    out = res.stdout + res.stderr
+    summary = [ln for ln in out.splitlines() if "SUMMARY" in ln]
+    refused = [ln for ln in out.splitlines() if "not supported" in ln]
+    if refused or not summary:
+        pytest.skip(f"compute-sanitizer {tool} does not run on this machine"
+                    f" (exit {res.returncode}): {(refused or [out[-400:]])[0]}")
+    print(summary[-1])
+    assert res.returncode == 0 and "K1 launches 8" in out, out[-3000:]
+    assert "SUMMARY: 0 hazards" in summary[-1] or "SUMMARY: 0 errors" in summary[-1], out[-3000:]

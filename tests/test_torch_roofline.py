@@ -35,7 +35,7 @@ from spartacus_surface_tpu_torch.tools import roofline as RL
 from test_torch_kernels import KERNELS, LAUNCH, build_host, capture
 
 REPO = Path(__file__).resolve().parents[1]
-COUNT_CONFIGS = ((1, 2), (2, 4), (3, 4), (1, 1), (2, 1))  # (nreg, ns)
+COUNT_CONFIGS = ((1, 2), (2, 4), (3, 4), (1, 1), (2, 1), (3, 8))  # (nreg, ns)
 
 
 def fma_tol(dtype):
@@ -93,6 +93,18 @@ def test_host_built_copy_add_matches_plain(host_lib):
     assert torch.equal(PK.launch_copy(host_lib, x, stream=None), PK.copy_add_plain(x))
 
 
+def test_host_built_copy_add_into_out(host_lib):
+    """K7 writes a preallocated output (out=, as torch.add(x, 1.0, out=o))
+    exactly, ragged tail included, and returns it."""
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(4247)
+                        .astype(np.float32))  # 1,061 float4 groups + a tail of 3
+    out = torch.full_like(x, float("nan"))
+    n7 = PK.copy_add.launches
+    got = PK.launch_copy(host_lib, x, stream=None, out=out)
+    assert got is out and torch.equal(out, PK.copy_add_plain(x))
+    assert PK.copy_add.launches == n7 + 1
+
+
 def test_probe_wrappers_on_cpu():
     """CPU tensors take the plain versions and build nothing; the wrappers
     check their operands."""
@@ -108,6 +120,15 @@ def test_probe_wrappers_on_cpu():
         PK.copy_add(x)
     with pytest.raises(ValueError, match="contiguous"):
         PK.copy_add(x.float().t())
+    y = x.float()
+    out = torch.empty_like(y)
+    assert PK.copy_add(y, out=out) is out and torch.equal(out, y + 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        PK.copy_add(y, out=out[:3])
+    with pytest.raises(ValueError, match="float64"):
+        PK.copy_add(y, out=out.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.copy_add(y, out=torch.empty(y.shape[::-1]).t())
 
 
 # ----------------------------------------------------------------------
