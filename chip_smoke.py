@@ -91,12 +91,17 @@ final line):
      the device intervals), the device idle share of the call, and each
      kernel's device ms.
 Phase 3 also prints K1's launch shape for each run (team size, teams and
-threads per block, slab and shared bytes per block, resident blocks per
-SM, registers; layer_kernel.factory_config).
+threads per block, slab and shared bytes per block, resident blocks and
+teams per SM, registers, waves; layer_kernel.factory_config), and a
+`sweeps` line: K2-K5 timed on that run's operands with their FLOPs, bytes,
+bound and share, and K2's and K4's launch shapes (sweep_kernels.up_config).
 Then the per-kernel summary line {"kernels": [...]} (K1-K5: launches
 counted over the headline float32 run of phase 3, ms / plain_ms timed with
 CUDA events on that run's operands, the K1 row also with K1's launch shape
-at the headline, SW and LW; K1d: launches over the cli_ns1 single
+at the headline, SW and LW; K2-K5 also ms, FLOPs, bytes, bound and share
+at the rami5 shape in float32 (*_rami5); K2 and K4 also their launch
+shapes at both shapes;
+K1d: launches over the cli_ns1 single
 run, timed on its largest SW call and its LW call; the LW calls as
 launches_lw / ms_lw / plain_ms_lw; K6 and K7: launches over the roofline
 tool's run, timed on its operands, K6's float64 as *_f64, K7 and its
@@ -158,6 +163,14 @@ PROBES = (("K6 fma_chain", "spartacus_surface_tpu_torch/csrc/roofline_probes.cu"
            "tools/roofline.py:83"))
 WRAPPERS = ("layer_factory", "lw_layer_factory", "sw_up_sweep",
             "sw_down_sweep_both", "lw_up_sweep", "lw_down_sweep_both")
+SWEEPS = WRAPPERS[2:]  # K2-K5
+UP_SWEEPS = {"sw_up_sweep": "sw_sweeps", "lw_up_sweep": "lw_sweeps"}  # K2, K4
+# a team kernel's launch shape as printed (cuda_build.team_config's fields)
+SHAPE_FIELDS = {"team_size": "team_size", "teams_per_block": "elements_per_block",
+                "threads_per_block": "threads_per_block", "slab_bytes": "slab_bytes",
+                "smem_per_block": "smem_per_block", "blocks_per_sm": "blocks_per_sm",
+                "resident_per_sm": "resident_per_sm", "registers": "registers",
+                "waves": "waves"}
 # the launch counters a run must raise: a 4-stream path, and a 1-stream one
 PATH_4 = ("K1", "K2", "K3", "K4", "K5", "K1 LW mode")
 PATH_1 = PATH_4 + ("K1d", "K1d LW mode")
@@ -296,6 +309,11 @@ def mean_doubling_steps(calls, kernel, RL):
     wrapper (tools.roofline.doubling_steps)."""
     steps = [RL.doubling_steps(kernel, *a, **k) for a, k, _ in calls]
     return sum(float(x.sum()) for x in steps) / sum(x.numel() for x in steps)
+
+
+def launch_shape(config, suffix=""):
+    """A team kernel's launch shape under SHAPE_FIELDS' names."""
+    return {f"{name}{suffix}": config[key] for key, name in SHAPE_FIELDS.items()}
 
 
 def time_ms(fn, reps=3):
@@ -566,7 +584,8 @@ def main(argv=None) -> int:
     # ---- 1. build, one nvcc per source, all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
-        factory_lib = list(pool.map(cuda_build.load, SOURCES))[0]
+        libs = dict(zip(SOURCES, pool.map(cuda_build.load, SOURCES)))
+    factory_lib = libs["layer_factory"]
     ptxas = {name: [line.split(":", 1)[-1].strip()
                     for line in log.splitlines()
                     if "entry function" in line or "Used" in line
@@ -617,6 +636,7 @@ def main(argv=None) -> int:
     runs = [(sname, dname, Config(do_lw=True, **cfg).consolidate(), rep, L, S)
             for sname, (rep, L, S, cfg) in slices.items() for dname in dtypes]
     mean_steps = {}  # {slice: [SW, LW] mean doubling steps per factory element}
+    sweep_runs = {}  # {(slice, dtype): {sweep wrapper: times, bound, shape}}
     for sname, dname, config, rep, L, S in runs:
         np_dt, dt = dtypes[dname]
         arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np_dt,
@@ -658,8 +678,8 @@ def main(argv=None) -> int:
         k1_shape = {}
         for n, mode in (("layer_factory", "sw"), ("lw_layer_factory", "lw")):
             a, k, _ = cap.calls[n][0]
-            k1_shape[mode] = LK.factory_config(
-                factory_lib, k["nd"], k.get("ndir", 1), a[1].shape[0] * a[1].shape[2], dt)
+            k1_shape[mode] = launch_shape(LK.factory_config(
+                factory_lib, k["nd"], k.get("ndir", 1), a[1].shape[0] * a[1].shape[2], dt))
         emission_scale = max(1.0, float(np.abs(arrays["ground_emission"]).max()))
         resid_sw, resid_lw = budgets(out_k, rep, f32, emission_scale, tag)
         del out_k, out_s, got
@@ -681,6 +701,21 @@ def main(argv=None) -> int:
              seconds_kernel_route=t_kernel, seconds_scan_route=t_scan,
              peak_gib_kernel_route=mem_kernel, peak_gib_scan_route=mem_scan,
              finite=finite, shapes_ok=shapes, k1_launch_shape=k1_shape)
+        # the sweeps on this run's operands: K2-K5 timed (CUDA events) with
+        # their bounds; K2 and K4 also their launch shapes
+        sweeps = {}
+        for n in SWEEPS:
+            a, k, _ = cap.calls[n][0]
+            wrapper = getattr(solver, n)
+            flops, nbytes = RL.kernel_work(n, *a, **k)
+            ms = time_ms(lambda: wrapper(*a, **k))
+            sweeps[n] = dict(ms=ms, flops=flops, bytes=nbytes,
+                             **RL.roofline(flops, nbytes, ms, dt))
+            if n in UP_SWEEPS:
+                sweeps[n].update(launch_shape(SK.up_config(
+                    libs[UP_SWEEPS[n]], n, k["nd"], k["ns"], k["nreg"], a[0].shape[2], dt)))
+        sweep_runs[sname, dname] = sweeps
+        emit(phase="sweeps", run=sname, dtype=dname, **sweeps)
         if f32:  # each factory element's doubling count, for the roofline
             mean_steps[sname] = [mean_doubling_steps(cap.calls[n], n, RL)
                                  for n in ("layer_factory", "lw_layer_factory")]
@@ -968,14 +1003,18 @@ def main(argv=None) -> int:
         row = {"name": kname, "route": "cuda", "source": src, "replaces": rep,
                "launches": n, "max_abs_err": err, "ms": t[names[0]][0],
                "plain_ms": t[names[0]][1], **bounds[kname][0], "library_ms": None}
+        if names[0] in SWEEPS:  # K2-K5 at the rami5 shape (float32)
+            r5 = sweep_runs["rami5_shape", "float32"][names[0]]
+            row.update({f"{key}_rami5": r5[key] for key in
+                        ("ms", "flops", "bytes", "bound_ms", "bound_by", "share")})
+        if names[0] in UP_SWEEPS:  # K2 / K4: launch shape
+            for sname, sfx in (("headline", ""), ("rami5_shape", "_rami5")):
+                r = sweep_runs[sname, "float32"][names[0]]
+                row.update({f"{key}{sfx}": r[key] for key in SHAPE_FIELDS.values()})
         if factory == "structured":  # K1's launch shape at the headline
             for mode, c in main_k1_shape.items():
                 sfx = "" if mode == "sw" else "_lw"
-                row.update({f"registers{sfx}": c["registers"],
-                            f"smem_per_block{sfx}": c["smem_per_block"],
-                            f"team_size{sfx}": c["team_size"],
-                            f"elements_per_block{sfx}": c["teams_per_block"],
-                            f"blocks_per_sm{sfx}": c["blocks_per_sm"]})
+                row.update({f"{key}{sfx}": v for key, v in c.items()})
         if len(names) > 1:  # the factory: its LW call
             lw = bounds[kname][1]
             row.update(launches_lw=n_lw, ms_lw=t[names[1]][0],

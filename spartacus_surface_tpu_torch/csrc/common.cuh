@@ -1,13 +1,15 @@
 // Shared helpers of the hand-written SPARTACUS kernels.
 //
-// The sweeps (K2-K5) and the dense factory (K1d) keep one batch element per
-// thread in a struct-of-arrays layout: a thread's matrix of n x m rows lives
-// at p[i * s] (row-major entry i, stride s = the number of threads of the
-// launch or the batch), so a warp's accesses to the same entry are
-// consecutive in memory.  The structured factory (K1) gives each element a
-// team of TS lanes of one warp and a contiguous slab of shared memory; the
-// team forms below (Team, Mat, tmm, tsolve) split a matrix's rows over the
-// lanes, and a team of one lane (TS = 1) runs them as plain loops.
+// Operands and results are struct-of-arrays: an element's matrix of n x m
+// rows lives at p[i * s] (row-major entry i, stride s = the batch), so
+// neighbouring elements' copies of one entry are neighbours in memory.  The
+// down-sweeps (K3, K5) and the dense factory (K1d) keep one batch element
+// per thread, with their workspaces in that layout.  The structured factory
+// (K1) and the up-sweeps (K2, K4) give each element a team of TS lanes of
+// one warp and a contiguous slab of shared memory; the team forms below
+// (Team, Mat, tmm, tsolve) split a matrix's rows over the lanes, and a team
+// of one lane (TS = 1) runs them as plain loops.  team_config / team_launch
+// (CUDA only) choose and launch the three team kernels' block shapes.
 //
 // The bodies are plain C++ on scalars.  Built with nvcc they are device
 // functions; built by a host C++ compiler (see host_check.cpp) the same
@@ -21,12 +23,15 @@
 #include <utility>
 
 #ifdef __CUDACC__
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #define SPX_DEV __device__ __forceinline__
+#define SPX_HD __host__ __device__ inline
 #define SPX_UNROLL _Pragma("unroll")
 #else
 #include <cmath>
 #define SPX_DEV inline
+#define SPX_HD inline
 #define SPX_UNROLL
 namespace spx {
 using std::ceil;
@@ -63,7 +68,19 @@ struct Sh {
   SPX_DEV Sh at(int k) const { return Sh{p + k}; }
 };
 
-// A row-major matrix on a view V (Col or Sh) with row stride ld.
+// A strided view of shared memory: an element's copy of its operands in
+// its warp's copy-ahead buffer (32-bit indexing).
+template <typename T>
+struct ShS {
+  using value_type = T;
+  using index_type = int;
+  T* p;
+  int s;
+  SPX_DEV T& operator[](int i) const { return p[i * s]; }
+  SPX_DEV ShS at(int k) const { return ShS{p + k * s, s}; }
+};
+
+// A row-major matrix on a view V (Col, Sh or ShS) with row stride ld.
 template <class V>
 struct Mat {
   using T = typename V::value_type;
@@ -98,9 +115,11 @@ struct Team {
 
 // Team product: out (n x m) (+)= a (n x p) @ b (p x m), each lane its own
 // rows; b is read whole by every lane (a broadcast).  Where p <= CAP a
-// lane keeps its row of a in registers.  Each entry sums in the order of
-// mm below.  `out` must not alias `a` or `b`.  Ends with a team sync.
-template <int TS, int CAP, class MO, class MA, class MB>
+// lane keeps its row of a in registers and, with JU > 1, computes JU
+// entries of its row at once (JU independent sums).  Each entry sums in the
+// order of mm below.  `out` must not alias `a` or `b`.  Ends with a team
+// sync.
+template <int TS, int CAP, int JU = 1, class MO, class MA, class MB>
 SPX_DEV void tmm(const Team<TS>& tm, MO out, MA a, MB b, int n, int p, int m,
                  bool accumulate = false) {
   using T = elem_t<MO>;
@@ -111,7 +130,20 @@ SPX_DEV void tmm(const Team<TS>& tm, MO out, MA a, MB b, int n, int p, int m,
       SPX_UNROLL
       for (int k = 0; k < C; ++k)
         if (k < p) ar[k] = a(i, k);
-      for (int j = 0; j < m; ++j) {
+      int j = 0;
+      for (; JU > 1 && j + JU <= m; j += JU) {
+        T acc[JU];
+        SPX_UNROLL
+        for (int u = 0; u < JU; ++u) acc[u] = accumulate ? out(i, j + u) : T(0);
+        SPX_UNROLL
+        for (int k = 0; k < C; ++k)
+          if (k < p)
+            SPX_UNROLL
+            for (int u = 0; u < JU; ++u) acc[u] += ar[k] * b(k, j + u);
+        SPX_UNROLL
+        for (int u = 0; u < JU; ++u) out(i, j + u) = acc[u];
+      }
+      for (; j < m; ++j) {
         T acc = accumulate ? out(i, j) : T(0);
         SPX_UNROLL
         for (int k = 0; k < C; ++k)
@@ -238,5 +270,303 @@ template <typename T>
 SPX_DEV void fill(Col<T> dst, int rows, T value) {
   for (int i = 0; i < rows; ++i) dst[i] = value;
 }
+
+// An up-sweep's slab (K2, K4), per element: the carry [AA | D] (nd x nd
+// and nd x nq: nq = nreg for K2's d_above, 1 for K4's source_above) and W1,
+// the solve's nd x nd matrix, which a_below and its second block (nd2 x
+// nd2, nd2 x nqb) overlay once the solve is done; then RHS (nd x (2 nd +
+// nq)), which the next carry (NA, ND) overlays once a_below is built.  Odd
+// row strides for the nd-, nd2- and RHS-wide rows, so a team's lanes
+// reading their own rows hit distinct banks.
+struct UpSlab {
+  int ldn, ld2, ldr, aa, da, w1, ab, db, rhs, na, nda, size;
+};
+
+SPX_HD UpSlab up_slab(int nd, int ns, int nreg, int nq, int nqb) {
+  UpSlab S{};
+  const int nd2 = (nreg + 1) * ns;
+  S.ldn = nd | 1;
+  S.ld2 = nd2 | 1;
+  S.ldr = (2 * nd + nq) | 1;
+  S.aa = 0;
+  S.da = nd * S.ldn;
+  S.w1 = S.da + nd * nq;
+  S.ab = 0;
+  S.db = nd2 * S.ld2;
+  const int end_a = S.w1 + nd * S.ldn, end_b = S.db + nd2 * nqb;
+  S.rhs = end_a > end_b ? end_a : end_b;
+  S.na = S.rhs;
+  S.nda = S.rhs + nd * S.ldn;
+  S.size = S.rhs + nd * S.ldr;
+  return S;
+}
+
+// The up-sweeps' overlap to just above an interface, (u (x) I_ns) a_below
+// (v (x) I_ns): u holds row t of the nreg x nregp matrix U; uv[q * 4 + r]
+// = u[q] V[r, f] for one column f of the nregp x nreg matrix V; an entry of
+// the next carry sums uv[q, r] a_below[(q, a), (r, v)] over q, then r
+// (radsurf_urban_sw.F90:646-653, radsurf_urban_lw.F90:620-627).  a_below's
+// first nd rows are R + T X (below_row).
+// (The loops run to 4 with guards, so that on the card u and uv are
+// registers.)
+template <typename T, class VU>
+SPX_DEV void overlap_weights(const VU& U, int t, int nregp, T* u) {
+  SPX_UNROLL
+  for (int q = 0; q < 4; ++q)
+    if (q < nregp) u[q] = U[t * nregp + q];
+}
+
+template <typename T, class VV>
+SPX_DEV void overlap_weights(const T* u, const VV& V, int f, int nreg, T* uv) {
+  SPX_UNROLL
+  for (int q = 0; q < 4; ++q)
+    SPX_UNROLL
+    for (int r = 0; r < 4; ++r)
+      if (q <= nreg && r <= nreg) uv[q * 4 + r] = u[q] * V[r * nreg + f];
+}
+
+// NA(i, f * ns + v) for every v: four entries at once.
+template <typename T, class M, class MN>
+SPX_DEV void overlap_row(const T* uv, const M& AB, const MN& NA, int i, int a,
+                         int f, int ns, int nregp) {
+  for (int v0 = 0; v0 < ns; v0 += 4) {
+    T acc[4] = {T(0), T(0), T(0), T(0)};
+    SPX_UNROLL
+    for (int q = 0; q < 4; ++q)
+      SPX_UNROLL
+      for (int r = 0; r < 4; ++r)
+        if (q < nregp && r < nregp)
+          SPX_UNROLL
+          for (int u = 0; u < 4; ++u)
+            if (v0 + u < ns) acc[u] += uv[q * 4 + r] * AB(q * ns + a, r * ns + v0 + u);
+    SPX_UNROLL
+    for (int u = 0; u < 4; ++u)
+      if (v0 + u < ns) NA(i, f * ns + v0 + u) = acc[u];
+  }
+}
+
+// Row i of R + T X over the first nd columns of X: four entries at once,
+// each summing R(i, j) then T(i, k) X(k, j) over k in order.
+template <class MR, class MT, class MX, class MO>
+SPX_DEV void below_row(const MR& R, const MT& Tl, const MX& X, const MO& out, int i,
+                       int nd) {
+  using T = elem_t<MO>;
+  for (int j0 = 0; j0 < nd; j0 += 4) {
+    T acc[4];
+    SPX_UNROLL
+    for (int u = 0; u < 4; ++u) acc[u] = j0 + u < nd ? R(i, j0 + u) : T(0);
+    for (int k = 0; k < nd; ++k) {
+      const T t = Tl(i, k);
+      SPX_UNROLL
+      for (int u = 0; u < 4; ++u)
+        if (j0 + u < nd) acc[u] += t * X(k, j0 + u);
+    }
+    SPX_UNROLL
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u < nd) out(i, j0 + u) = acc[u];
+  }
+}
+
+// The N per-layer operands of an up-sweep, each [L, rows, W]: W the batch
+// B (one copy per element) or, with per_col, the column count C (element b
+// reads column b / S).
+template <typename T, int N>
+struct LayerOperands {
+  const T* p[N];
+  int rows[N];
+  bool per_col[N];
+  SPX_HD int total() const {
+    int t = 0;
+    for (int s = 0; s < N; ++s) t += rows[s];
+    return t;
+  }
+};
+
+// Where a team of an up-sweep reads its element's layer operands: straight
+// from device memory (AHEAD false: views of stride B or C; the host build,
+// and the card's kernel whose slabs are global, see up_sweep_teams), or
+// from its warp's two copy-ahead buffers in shared memory (AHEAD),
+// each one layer's operands of the warp's ew consecutive elements
+// ([row][ew], views of stride ew).  With AHEAD the warp copies layer l + 1
+// (cp.async, each row of its elements' neighbouring entries by neighbouring
+// lanes) while it computes layer l; begin(l) waits for layer l, end() frees
+// its buffer.  Both are warp-wide: every lane of the warp calls them, in
+// step.  The element is clamped to the batch, so a team past its end reads
+// valid memory (and stores nothing).
+template <typename T, int N, bool AHEAD>
+struct OperandReader {
+  LayerOperands<T, N> ops;
+  long long B, C, b, b0;  // batch, columns, the element, the warp's first
+  int S, L, ew, e, total;  // bands, layers, elements a warp, e = b - b0, rows
+  T* buf;                  // AHEAD: the warp's two buffers
+  int off[N];
+
+  SPX_DEV OperandReader(const LayerOperands<T, N>& o, long long B_, int S_,
+                        int L_, long long b_, long long b0_, int ew_, T* buf_)
+      : ops(o), B(B_), C(B_ / S_), b(b_ < B_ ? b_ : B_ - 1), b0(b0_), S(S_),
+        L(L_), ew(ew_), e((int)(b_ - b0_)), total(0), buf(buf_) {
+    for (int s = 0; s < N; ++s) {
+      off[s] = total;
+      total += ops.rows[s];
+    }
+  }
+  // operand s of layer l for this element
+  SPX_DEV auto view(int s, int l) const {
+    if constexpr (AHEAD) {
+      return ShS<T>{buf + ((l & 1) * total + off[s]) * ew + e, ew};
+    } else {
+      const long long W = ops.per_col[s] ? C : B, x = ops.per_col[s] ? b / S : b;
+      return Col<T>{const_cast<T*>(ops.p[s]) + (long long)l * ops.rows[s] * W + x, W};
+    }
+  }
+#ifdef __CUDACC__
+  SPX_DEV void copy(int l) const {
+    T* dst = buf + (l & 1) * total * ew;
+    const int lane = threadIdx.x & 31;
+    for (int s = 0; s < N; ++s) {
+      const long long W = ops.per_col[s] ? C : B;
+      const T* src = ops.p[s] + (long long)l * ops.rows[s] * W;
+      for (int i = lane; i < ops.rows[s] * ew; i += 32) {
+        const int r = i / ew, k = i % ew;
+        long long x = b0 + k < B ? b0 + k : B - 1;
+        if (ops.per_col[s]) x /= S;
+        __pipeline_memcpy_async(dst + (off[s] + r) * ew + k, src + r * W + x, sizeof(T));
+      }
+    }
+    __pipeline_commit();
+  }
+#endif
+  SPX_DEV void start() const {
+#ifdef __CUDACC__
+    if constexpr (AHEAD) copy(0);
+#endif
+  }
+  SPX_DEV void begin(int l) const {
+#ifdef __CUDACC__
+    if constexpr (AHEAD) {
+      if (l + 1 < L)
+        copy(l + 1);
+      else
+        __pipeline_commit();  // an empty group keeps the count
+      __pipeline_wait_prior(1);
+      __syncwarp();
+    }
+#endif
+  }
+  SPX_DEV void end() const {
+#ifdef __CUDACC__
+    if constexpr (AHEAD) __syncwarp();
+#endif
+  }
+};
+
+// A team kernel's launch configuration (team_config writes it, the
+// wrappers keep it per kernel, dtype and shape, and set the grid per call;
+// team_launch reads it): team size, teams a block, threads a block, slab
+// bytes (one team's slab, its stride), shared bytes a block, resident
+// blocks an SM, registers a thread, SMs, global slab (0 / 1), grid.
+#define SPX_TEAM_INFO 10
+
+#ifdef __CUDACC__
+
+// The configuration of a team kernel at team size TS over n elements:
+// each team a slab of slab_elems entries in shared memory (stride rounded
+// up so the teams of a warp start TS banks apart) plus `extra` entries of
+// shared memory (an up-sweep's copy-ahead buffers); blocks of two or four
+// warps, whichever keeps more teams resident on an SM (the CUDA occupancy
+// calculator: shared memory, registers), or one warp where two do not fit
+// (blocks of one warp ran K1 at the rami5 shape in f32 1.8x slower than
+// blocks of two at the same resident teams, on the H100).  Where one
+// team's slab and extra exceed the shared memory a block may take, and
+// k_global is given, k_global runs instead: its slabs in a global scratch
+// of one slab a resident team (the grid no larger than the resident
+// blocks) and nothing in shared memory (an up-sweep's global kernel reads
+// its operands from device memory).  Both kernels may take up to the
+// card's shared memory per block.
+template <typename T, int TS, class K>
+static cudaError_t team_config(K* k_shared, K* k_global, int slab_elems,
+                               int extra, long long n, long long* info) {
+  int stride = slab_elems;
+  const int words = (int)(sizeof(T) / 4);
+  while ((stride * words) % 32 != TS % 32) ++stride;
+  int device = 0, optin = 0, sms = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long slab = (long long)stride * sizeof(T);
+  const long long own = slab + extra * (long long)sizeof(T);
+  const bool global = k_global != nullptr && own > optin;
+  K* k = global ? k_global : k_shared;
+  cudaError_t err = cudaFuncSetAttribute(
+      k_shared, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess && k_global != nullptr)
+    err = cudaFuncSetAttribute(k_global, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  const long long per_team = global ? 0 : own;
+  int per_block = 1, blocks_sm = 0;
+  for (const int warps : {2, 4, 1}) {
+    if (err != cudaSuccess || (warps == 1 && blocks_sm > 0)) break;
+    const int pb = warps * 32 / TS;
+    if (pb * per_team > optin) continue;
+    int b = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, pb * TS,
+                                                        (size_t)(pb * per_team));
+    if (b * pb > blocks_sm * per_block) per_block = pb, blocks_sm = b;
+  }
+  cudaFuncAttributes fa{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, k);
+  if (err == cudaSuccess && blocks_sm == 0) err = cudaErrorInvalidConfiguration;
+  long long grid = (n + per_block - 1) / per_block;
+  if (grid < 1) grid = 1;
+  if (global && grid > (long long)blocks_sm * sms) grid = (long long)blocks_sm * sms;
+  const long long vals[SPX_TEAM_INFO] = {
+      TS, per_block, per_block * TS, slab, per_block * per_team, blocks_sm,
+      fa.numRegs, sms, global, grid};
+  for (int i = 0; i < SPX_TEAM_INFO; ++i) info[i] = vals[i];
+  return err;
+}
+
+// The body of an up-sweep's team kernel (K2, K4): teams of TS lanes,
+// blockDim.x / TS of them a block, the ew = 32 / TS teams of a warp on
+// consecutive elements, each team looping over the elements j = its index,
+// + the grid's teams, ...; its slab in dynamic shared memory, after it each
+// warp's two copy-ahead buffers; or, GLOBAL (a slab and its buffers larger
+// than a block's shared memory; team_config), the slab in ws and the
+// operands read from device memory.  Every lane of a warp takes each round
+// (the copy-ahead is warp-wide): a team past the batch runs on the last
+// element and stores nothing.  body(tm, rd, valid, slab) runs one element.
+template <typename T, int TS, bool GLOBAL, int N, class F>
+__device__ void up_sweep_teams(const LayerOperands<T, N>& ops, long long B,
+                               int S, int L, T* ws, int stride, F body) {
+  constexpr bool AHEAD = !GLOBAL;
+  extern __shared__ __align__(16) unsigned char spx_team_smem[];
+  T* smem = reinterpret_cast<T*>(spx_team_smem);
+  const int per_block = blockDim.x / TS, team = threadIdx.x / TS, ew = 32 / TS;
+  const unsigned ones = (unsigned)((1ull << TS) - 1ull);
+  const Team<TS> tm{(int)(threadIdx.x % TS), ones << ((threadIdx.x % 32) / TS * TS)};
+  const long long first = (long long)blockIdx.x * per_block + team;
+  const long long step = (long long)gridDim.x * per_block;
+  T* slab = GLOBAL ? ws + first * stride : smem + team * stride;
+  T* buf = AHEAD ? smem + per_block * stride + (threadIdx.x / 32) * 2 * ops.total() * ew
+                 : nullptr;
+  for (long long j = first;; j += step) {
+    if (__ballot_sync(0xffffffffu, j < B) == 0) break;
+    const OperandReader<T, N, AHEAD> rd(ops, B, S, L, j, j - team % ew, ew, buf);
+    body(tm, rd, j < B, slab);
+  }
+}
+
+// Launch a team kernel as `info` (team_config's, grid set by the caller)
+// says: the global-slab kernel where info names a global slab.
+template <class K, class... Args>
+static int team_launch(K* k_shared, K* k_global, const long long* info,
+                       cudaStream_t stream, Args... args) {
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  K* k = info[8] ? k_global : k_shared;
+  if (k == nullptr || info[9] < 1) return (int)cudaErrorInvalidConfiguration;
+  k<<<(unsigned)info[9], (unsigned)info[2], (size_t)info[4], stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+#endif
 
 }  // namespace spx

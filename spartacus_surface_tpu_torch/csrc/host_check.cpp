@@ -2,10 +2,11 @@
 // (tests/test_torch_kernels.py; tests/test_torch_roofline.py for the probes
 // K6 and K7): each "launch" runs the thread function for
 // every thread index in turn, on host memory, with the same arguments as the
-// CUDA launchers.  K1's team body runs as a team of one lane (TS = 1) per
-// element on a host slab laid out as on the card, which is filled with NaN
-// before each element, so a read of a slot the body has not written shows
-// in the results.  Built with a host C++ compiler; nvcc never sees this file.
+// CUDA launchers (a launch configuration is taken and ignored).  The team
+// bodies (K1, K2, K4) run as a team of one lane (TS = 1) per element on a
+// host slab laid out as on the card, which is filled with NaN before each
+// element, so a read of a slot the body has not written shows in the
+// results.  Built with a host C++ compiler; nvcc never sees this file.
 
 #include <limits>
 #include <vector>
@@ -26,13 +27,12 @@ static void factory_host(SPX_FACTORY_PARAMS) {
   }
 }
 
-// K1's launch configuration on the host: a team of one lane per element,
-// one element a "block", the slab in host memory (no scratch).
-template <typename T>
-static int factory_config_host(int nd, int ndir, long long n, long long* info) {
-  const long long vals[SPX_K1_INFO] = {
-      1, 1, 1, (long long)(spx::slab_layout(nd, ndir).size * sizeof(T)), 0, 0, 0, n, 0};
-  for (int i = 0; i < SPX_K1_INFO; ++i) info[i] = vals[i];
+// A team kernel's launch configuration on the host (SPX_TEAM_INFO): a team
+// of one lane per element, one element a "block", the slab in host memory
+// (no scratch).
+static int team_config_host(long long slab_bytes, long long n, long long* info) {
+  const long long vals[SPX_TEAM_INFO] = {1, 1, 1, slab_bytes, 0, 1, 0, 1, 0, n};
+  for (int i = 0; i < SPX_TEAM_INFO; ++i) info[i] = vals[i];
   return 0;
 }
 
@@ -42,10 +42,19 @@ static void dense_factory_host(SPX_FACTORY_PARAMS) {
   for (long long t = 0; t < n; ++t) spx::layer_factory_dense_thread(A, t);
 }
 
+// K2 and K4: each element's team body as a team of one lane, reading its
+// operands from host memory, on a slab filled with NaN first.
 template <typename T>
 static void up_host(SPX_UP_PARAMS) {
   const auto A = spx::up_args<T>(SPX_UP_ARGS);
-  for (long long b = 0; b < B; ++b) spx::sw_up_thread(A, b);
+  const spx::UpSlab SL = spx::sw_up_slab(A);
+  std::vector<T> slab;
+  for (long long b = 0; b < B; ++b) {
+    slab.assign(SL.size, std::numeric_limits<T>::quiet_NaN());
+    const spx::OperandReader<T, spx::K2_NOPS, false> rd(spx::sw_up_operands(A), B, S, L,
+                                                 b, b, 1, nullptr);
+    spx::sw_up_team<1, 32>(A, SL, spx::Team<1>{0, 0u}, rd, true, slab.data());
+  }
 }
 
 template <typename T>
@@ -57,7 +66,14 @@ static void down_host(SPX_DOWN_PARAMS) {
 template <typename T>
 static void lw_up_host(SPX_LW_UP_PARAMS) {
   const auto A = spx::lw_up_args<T>(SPX_LW_UP_ARGS);
-  for (long long b = 0; b < B; ++b) spx::lw_up_thread(A, b);
+  const spx::UpSlab SL = spx::lw_up_slab(A);
+  std::vector<T> slab;
+  for (long long b = 0; b < B; ++b) {
+    slab.assign(SL.size, std::numeric_limits<T>::quiet_NaN());
+    const spx::OperandReader<T, spx::K4_NOPS, false> rd(spx::lw_up_operands(A), B, S, L,
+                                                 b, b, 1, nullptr);
+    spx::lw_up_team<1, 32>(A, SL, spx::Team<1>{0, 0u}, rd, true, slab.data());
+  }
 }
 
 template <typename T>
@@ -75,35 +91,43 @@ static void fma_host(SPX_FMA_PARAMS) {
 // Same C interface as the CUDA launchers; the stream is ignored and the
 // return value (cudaGetLastError there) is 0.
 extern "C" {
-int layer_factory_f32(SPX_FACTORY_PARAMS, void*) {
+int layer_factory_f32(SPX_FACTORY_PARAMS, const long long*, void*) {
   factory_host<float>(SPX_FACTORY_ARGS);
   return 0;
 }
-int layer_factory_f64(SPX_FACTORY_PARAMS, void*) {
+int layer_factory_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   factory_host<double>(SPX_FACTORY_ARGS);
   return 0;
 }
 int layer_factory_config_f32(int nd, int ndir, long long n, long long* info) {
-  return factory_config_host<float>(nd, ndir, n, info);
+  return team_config_host(spx::slab_layout(nd, ndir).size * sizeof(float), n, info);
 }
 int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
-  return factory_config_host<double>(nd, ndir, n, info);
+  return team_config_host(spx::slab_layout(nd, ndir).size * sizeof(double), n, info);
 }
-int layer_factory_dense_f32(SPX_FACTORY_PARAMS, void*) {
+int layer_factory_dense_f32(SPX_FACTORY_PARAMS, const long long*, void*) {
   dense_factory_host<float>(SPX_FACTORY_ARGS);
   return 0;
 }
-int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void*) {
+int layer_factory_dense_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   dense_factory_host<double>(SPX_FACTORY_ARGS);
   return 0;
 }
-int sw_up_sweep_f32(SPX_UP_PARAMS, void*) {
+int sw_up_sweep_f32(SPX_UP_PARAMS, const long long*, void*) {
   up_host<float>(SPX_UP_ARGS);
   return 0;
 }
-int sw_up_sweep_f64(SPX_UP_PARAMS, void*) {
+int sw_up_sweep_config_f32(int nd, int ns, int nreg, long long B, long long* info) {
+  return team_config_host(
+      spx::up_slab(nd, ns, nreg, nreg, nreg + 1).size * sizeof(float), B, info);
+}
+int sw_up_sweep_f64(SPX_UP_PARAMS, const long long*, void*) {
   up_host<double>(SPX_UP_ARGS);
   return 0;
+}
+int sw_up_sweep_config_f64(int nd, int ns, int nreg, long long B, long long* info) {
+  return team_config_host(
+      spx::up_slab(nd, ns, nreg, nreg, nreg + 1).size * sizeof(double), B, info);
 }
 int sw_down_sweep_f32(SPX_DOWN_PARAMS, void*) {
   down_host<float>(SPX_DOWN_ARGS);
@@ -113,13 +137,21 @@ int sw_down_sweep_f64(SPX_DOWN_PARAMS, void*) {
   down_host<double>(SPX_DOWN_ARGS);
   return 0;
 }
-int lw_up_sweep_f32(SPX_LW_UP_PARAMS, void*) {
+int lw_up_sweep_f32(SPX_LW_UP_PARAMS, const long long*, void*) {
   lw_up_host<float>(SPX_LW_UP_ARGS);
   return 0;
 }
-int lw_up_sweep_f64(SPX_LW_UP_PARAMS, void*) {
+int lw_up_sweep_config_f32(int nd, int ns, int nreg, long long B, long long* info) {
+  return team_config_host(
+      spx::up_slab(nd, ns, nreg, 1, 1).size * sizeof(float), B, info);
+}
+int lw_up_sweep_f64(SPX_LW_UP_PARAMS, const long long*, void*) {
   lw_up_host<double>(SPX_LW_UP_ARGS);
   return 0;
+}
+int lw_up_sweep_config_f64(int nd, int ns, int nreg, long long B, long long* info) {
+  return team_config_host(
+      spx::up_slab(nd, ns, nreg, 1, 1).size * sizeof(double), B, info);
 }
 int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, void*) {
   lw_down_host<float>(SPX_LW_DOWN_ARGS);

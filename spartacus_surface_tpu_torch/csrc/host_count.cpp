@@ -4,8 +4,9 @@
 // counter for every add, subtract, multiply and divide it performs (an fma
 // counts two); negation, fabs, fmax, fmin, ceil, log2, ldexp and sqrt count
 // nothing.  Each "launch" runs the thread function for every thread index in
-// turn (K1: its team body as a team of one lane per element, so an element's
-// work counts once, not once per lane) and records that thread's count.
+// turn (K1, K2, K4: their team bodies as a team of one lane per element, so
+// an element's work counts once, not once per lane) and records that
+// thread's count.
 // Counted<double> has the size and
 // layout of a double, so the buffers are float64 tensors and the exported
 // functions have the C interface of the float64 CUDA launchers.  Built with
@@ -62,6 +63,14 @@ using CT = spx::Counted<double>;
 
 static std::vector<long long> thread_flops;  // one entry per thread run
 
+// a team kernel's configuration (SPX_TEAM_INFO): a team of one lane per
+// element
+static int config_host(long long n, long long* info) {
+  const long long vals[SPX_TEAM_INFO] = {1, 1, 1, 0, 0, 1, 0, 1, 0, n};
+  for (int i = 0; i < SPX_TEAM_INFO; ++i) info[i] = vals[i];
+  return 0;
+}
+
 template <typename F>
 static void each_thread(long long n, F body) {
   for (long long t = 0; t < n; ++t) {
@@ -79,7 +88,7 @@ void count_per_thread(long long* out) {
   for (size_t i = 0; i < thread_flops.size(); ++i) out[i] = thread_flops[i];
 }
 
-int layer_factory_f64(SPX_FACTORY_PARAMS, void*) {
+int layer_factory_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   const auto A = spx::factory_args<CT>(SPX_FACTORY_ARGS);
   const spx::Slab S = spx::slab_layout(nd, ndir);
   std::vector<CT> slab(S.size);
@@ -89,29 +98,45 @@ int layer_factory_f64(SPX_FACTORY_PARAMS, void*) {
   return 0;
 }
 int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
-  const long long vals[SPX_K1_INFO] = {1, 1, 1, 0, 0, 0, 0, n, 0};
-  for (int i = 0; i < SPX_K1_INFO; ++i) info[i] = vals[i];
-  return 0;
+  return config_host(n, info);
 }
-int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void*) {
+int layer_factory_dense_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   const auto A = spx::factory_args<CT>(SPX_FACTORY_ARGS);
   each_thread(n, [&](long long t) { spx::layer_factory_dense_thread(A, t); });
   return 0;
 }
-int sw_up_sweep_f64(SPX_UP_PARAMS, void*) {
+int sw_up_sweep_f64(SPX_UP_PARAMS, const long long*, void*) {
   const auto A = spx::up_args<CT>(SPX_UP_ARGS);
-  each_thread(B, [&](long long b) { spx::sw_up_thread(A, b); });
+  std::vector<CT> slab(spx::sw_up_slab(A).size);
+  each_thread(B, [&](long long b) {
+    const spx::OperandReader<CT, spx::K2_NOPS, false> rd(spx::sw_up_operands(A), B, S, L,
+                                                  b, b, 1, nullptr);
+    spx::sw_up_team<1, 32>(A, spx::sw_up_slab(A), spx::Team<1>{0, 0u}, rd, true,
+                           slab.data());
+  });
   return 0;
+}
+int sw_up_sweep_config_f64(int, int, int, long long B, long long* info) {
+  return config_host(B, info);
 }
 int sw_down_sweep_f64(SPX_DOWN_PARAMS, void*) {
   const auto A = spx::down_args<CT>(SPX_DOWN_ARGS);
   each_thread(B, [&](long long b) { spx::sw_down_thread(A, b); });
   return 0;
 }
-int lw_up_sweep_f64(SPX_LW_UP_PARAMS, void*) {
+int lw_up_sweep_f64(SPX_LW_UP_PARAMS, const long long*, void*) {
   const auto A = spx::lw_up_args<CT>(SPX_LW_UP_ARGS);
-  each_thread(B, [&](long long b) { spx::lw_up_thread(A, b); });
+  std::vector<CT> slab(spx::lw_up_slab(A).size);
+  each_thread(B, [&](long long b) {
+    const spx::OperandReader<CT, spx::K4_NOPS, false> rd(spx::lw_up_operands(A), B, S, L,
+                                                  b, b, 1, nullptr);
+    spx::lw_up_team<1, 32>(A, spx::lw_up_slab(A), spx::Team<1>{0, 0u}, rd, true,
+                           slab.data());
+  });
   return 0;
+}
+int lw_up_sweep_config_f64(int, int, int, long long B, long long* info) {
+  return config_host(B, info);
 }
 int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, void*) {
   const auto A = spx::lw_down_args<CT>(SPX_LW_DOWN_ARGS);

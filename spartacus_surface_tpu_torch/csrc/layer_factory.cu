@@ -676,10 +676,6 @@ FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
 #define SPX_FACTORY_ARGS                                                      \
   g0, g1, g2, g3, dz, R, Tm, E, Sup, Sdn, idiff, idir, idd, ws, nd, ndir,    \
       n_double, int_direct, theta, B, j0, n
-// K1's launch configuration, as layer_factory_config_f32/f64 report it
-#define SPX_K1_INFO 9  // ts, teams/block, threads/block, slab bytes,
-                       // shared bytes/block, blocks/SM, registers, grid,
-                       // global scratch elements (0: the slabs are shared)
 
 #ifdef __CUDACC__
 // The source compiles in parts, one nvcc each, started together
@@ -715,85 +711,27 @@ __global__ void layer_factory_kernel(spx::FactoryArgs<T> A, spx::Slab S,
   }
 }
 
-// K1's launch configuration for nd, ndir and n elements at team size TS,
-// written to info (SPX_K1_INFO): the slab stride (the teams of a warp TS
-// banks apart); the teams per block, two or four warps' worth, whichever
-// keeps more teams resident on an SM (the CUDA occupancy calculator:
-// shared memory, registers), or one warp's where two do not fit (blocks of
-// one warp ran K1 at the rami5 shape in f32 1.8x slower than blocks of two
-// at the same resident teams, on the H100); a global slab where one slab
-// exceeds the shared memory a block may take (only at TS = 32: nd > ~45 in
-// float64); the grid.
+// K1 at team size TS: with `configure`, its configuration for A.nd, A.ndir
+// and A.n (spx::team_config: the slab of slab_layout, the global-slab
+// kernel at TS = 32 only) written to info; else the launch that info
+// describes.
 template <typename T, int TS>
-static cudaError_t k1_config(int nd, int ndir, long long n, spx::Slab* S,
-                             long long* info) {
-  *S = spx::slab_layout(nd, ndir);
-  int stride = S->size;
-  const int words = (int)(sizeof(T) / 4);
-  while ((stride * words) % 32 != TS % 32) ++stride;
-  int device = 0, optin = 0, sms = 1;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long slab = (long long)stride * sizeof(T);
-  const bool global = TS == 32 && slab > optin;
-  auto* k = global ? layer_factory_kernel<T, TS, TS == 32>
-                   : layer_factory_kernel<T, TS, false>;
-  int per_block = 1, blocks_sm = 0;
-  cudaError_t err = cudaSuccess;
-  for (const int warps : {2, 4, 1}) {
-    if (err != cudaSuccess || (warps == 1 && blocks_sm > 0)) break;
-    const int pb = warps * 32 / TS;
-    const int smem = global ? 0 : (int)(pb * slab);
-    if (smem > optin) continue;
-    int b = 0;
-    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, pb * TS, smem);
-    if (b * pb > blocks_sm * per_block) per_block = pb, blocks_sm = b;
-  }
-  const int smem = global ? 0 : (int)(per_block * slab);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncAttributes fa{};
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, k);
-  if (err == cudaSuccess && blocks_sm == 0) err = cudaErrorInvalidConfiguration;
-  long long grid = (n + per_block - 1) / per_block;
-  if (grid < 1) grid = 1;
-  if (global && grid > (long long)blocks_sm * sms) grid = (long long)blocks_sm * sms;
-  const long long vals[SPX_K1_INFO] = {
-      TS, per_block, per_block * TS, slab, smem, blocks_sm, fa.numRegs, grid,
-      global ? grid * per_block * stride : 0};
-  for (int i = 0; i < SPX_K1_INFO; ++i) info[i] = vals[i];
-  return err;
-}
-
-// K1 at team size TS: with info, only its configuration (written there);
-// else the launch.
-template <typename T, int TS>
-static int launch_k1(const spx::FactoryArgs<T>& A, cudaStream_t stream,
-                     long long* info) {
-  spx::Slab S;
-  long long local[SPX_K1_INFO];
-  long long* cfg = info ? info : local;
-  cudaError_t err = k1_config<T, TS>(A.nd, A.ndir, A.n, &S, cfg);
-  if (err != cudaSuccess || info) return (int)err;
-  const int stride = (int)(cfg[3] / sizeof(T));
-  if (cfg[8] > 0) {  // the slabs in the wrapper's scratch
-    if (A.ws == nullptr) return (int)cudaErrorInvalidValue;
-    layer_factory_kernel<T, TS, TS == 32>
-        <<<(unsigned)cfg[7], (unsigned)cfg[2], 0, stream>>>(A, S, stride);
-  } else {
-    layer_factory_kernel<T, TS, false>
-        <<<(unsigned)cfg[7], (unsigned)cfg[2], (size_t)cfg[4], stream>>>(A, S, stride);
-  }
-  return (int)cudaGetLastError();
+static int run_k1(const spx::FactoryArgs<T>& A, cudaStream_t stream,
+                  long long* info, int configure) {
+  auto* ks = &layer_factory_kernel<T, TS, false>;
+  decltype(ks) kg = TS == 32 ? &layer_factory_kernel<T, TS, TS == 32> : nullptr;
+  const spx::Slab S = spx::slab_layout(A.nd, A.ndir);
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  if (configure) return (int)spx::team_config<T, TS>(ks, kg, S.size, 0, A.n, info);
+  if (info[8] && A.ws == nullptr) return (int)cudaErrorInvalidValue;
+  return spx::team_launch(ks, kg, info, stream, A, S, (int)(info[3] / sizeof(T)));
 }
 
 #define SPX_K1_ENTRY(name, T, TS)                                             \
-  extern "C" int name(const void* A, void* stream, long long* info) {        \
-    return launch_k1<T, TS>(*(const spx::FactoryArgs<T>*)A,                   \
-                            (cudaStream_t)stream, info);                      \
+  extern "C" int name(const void* A, void* stream, long long* info,          \
+                      int configure) {                                        \
+    return run_k1<T, TS>(*(const spx::FactoryArgs<T>*)A,                      \
+                         (cudaStream_t)stream, info, configure);              \
   }
 #if defined(SPX_PART_TS16)
 SPX_K1_ENTRY(spx_k1_ts16_f32, float, 16)
@@ -805,10 +743,10 @@ SPX_K1_ENTRY(spx_k1_ts32_f64, double, 32)
 #endif
 
 #ifndef SPX_PART_SIDE
-extern "C" int spx_k1_ts16_f32(const void*, void*, long long*);
-extern "C" int spx_k1_ts16_f64(const void*, void*, long long*);
-extern "C" int spx_k1_ts32_f32(const void*, void*, long long*);
-extern "C" int spx_k1_ts32_f64(const void*, void*, long long*);
+extern "C" int spx_k1_ts16_f32(const void*, void*, long long*, int);
+extern "C" int spx_k1_ts16_f64(const void*, void*, long long*, int);
+extern "C" int spx_k1_ts32_f32(const void*, void*, long long*, int);
+extern "C" int spx_k1_ts32_f64(const void*, void*, long long*, int);
 
 template <typename T>
 __global__ void layer_factory_dense_kernel(spx::FactoryArgs<T> A) {
@@ -816,25 +754,26 @@ __global__ void layer_factory_dense_kernel(spx::FactoryArgs<T> A) {
   if (t < A.n) spx::layer_factory_dense_thread(A, t);
 }
 
-// K1 by team size (the power of two >= nd, at most 32); with info, only
-// the configuration is computed and written there.
+// K1 by team size (the power of two >= nd, at most 32): its configuration
+// (configure) or its launch as info says.
 template <typename T>
-static int launch_structured(const spx::FactoryArgs<T>& A, void* stream,
-                             long long* info) {
+static int run_structured(const spx::FactoryArgs<T>& A, void* stream,
+                          long long* info, int configure) {
   const cudaStream_t s = (cudaStream_t)stream;
   const bool f32 = sizeof(T) == 4;
-  if (A.nd <= 2) return launch_k1<T, 2>(A, s, info);
-  if (A.nd <= 4) return launch_k1<T, 4>(A, s, info);
-  if (A.nd <= 8) return launch_k1<T, 8>(A, s, info);
+  if (A.nd <= 2) return run_k1<T, 2>(A, s, info, configure);
+  if (A.nd <= 4) return run_k1<T, 4>(A, s, info, configure);
+  if (A.nd <= 8) return run_k1<T, 8>(A, s, info, configure);
   if (A.nd <= 16)
-    return (f32 ? spx_k1_ts16_f32 : spx_k1_ts16_f64)(&A, stream, info);
-  return (f32 ? spx_k1_ts32_f32 : spx_k1_ts32_f64)(&A, stream, info);
+    return (f32 ? spx_k1_ts16_f32 : spx_k1_ts16_f64)(&A, stream, info, configure);
+  return (f32 ? spx_k1_ts32_f32 : spx_k1_ts32_f64)(&A, stream, info, configure);
 }
 
+// K1 (as cfg, its configuration with the grid of this launch) or K1d.
 template <typename T, bool dense>
-static int launch_factory(SPX_FACTORY_PARAMS, void* stream) {
+static int launch_factory(SPX_FACTORY_PARAMS, const long long* cfg, void* stream) {
   const auto A = spx::factory_args<T>(SPX_FACTORY_ARGS);
-  if (!dense) return launch_structured<T>(A, stream, nullptr);
+  if (!dense) return run_structured<T>(A, stream, const_cast<long long*>(cfg), 0);
   const int threads = 128;
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   layer_factory_dense_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(A);
@@ -845,20 +784,21 @@ template <typename T>
 static int factory_config(int nd, int ndir, long long n, long long* info) {
   spx::FactoryArgs<T> A{};
   A.nd = nd, A.ndir = ndir, A.n = n;
-  return launch_structured<T>(A, nullptr, info);
+  return run_structured<T>(A, nullptr, info, 1);
 }
 
-extern "C" int layer_factory_f32(SPX_FACTORY_PARAMS, void* stream) {
-  return launch_factory<float, false>(SPX_FACTORY_ARGS, stream);
+#define SPX_CFG const long long *cfg
+extern "C" int layer_factory_f32(SPX_FACTORY_PARAMS, SPX_CFG, void* stream) {
+  return launch_factory<float, false>(SPX_FACTORY_ARGS, cfg, stream);
 }
-extern "C" int layer_factory_f64(SPX_FACTORY_PARAMS, void* stream) {
-  return launch_factory<double, false>(SPX_FACTORY_ARGS, stream);
+extern "C" int layer_factory_f64(SPX_FACTORY_PARAMS, SPX_CFG, void* stream) {
+  return launch_factory<double, false>(SPX_FACTORY_ARGS, cfg, stream);
 }
-extern "C" int layer_factory_dense_f32(SPX_FACTORY_PARAMS, void* stream) {
-  return launch_factory<float, true>(SPX_FACTORY_ARGS, stream);
+extern "C" int layer_factory_dense_f32(SPX_FACTORY_PARAMS, SPX_CFG, void* stream) {
+  return launch_factory<float, true>(SPX_FACTORY_ARGS, cfg, stream);
 }
-extern "C" int layer_factory_dense_f64(SPX_FACTORY_PARAMS, void* stream) {
-  return launch_factory<double, true>(SPX_FACTORY_ARGS, stream);
+extern "C" int layer_factory_dense_f64(SPX_FACTORY_PARAMS, SPX_CFG, void* stream) {
+  return launch_factory<double, true>(SPX_FACTORY_ARGS, cfg, stream);
 }
 extern "C" int layer_factory_config_f32(int nd, int ndir, long long n, long long* info) {
   return factory_config<float>(nd, ndir, n, info);

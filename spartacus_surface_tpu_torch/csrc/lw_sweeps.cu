@@ -7,21 +7,22 @@
 // (internal, incoming)).  Plain versions: ops/lw_sweep_kernels.py
 // lw_up_sweep_plain and lw_down_sweep_plain.
 //
-// One thread per batch element (column x band, b = c S + s); the thread
-// walks the layers itself (K4 bottom to top, K5 top to bottom) with its
-// carry in a struct-of-arrays global workspace, as K2 and K3 do: GPU blocks
-// share nothing from one launch step to the next, where the TPU kernels
-// keep the carry in VMEM across a sequential (tile, layer) grid.  Per-layer
-// operands are [L, rows, B]; per-column overlap matrices [L, rows, C] are
-// read at column b / S.  The ground operators depend only on the element, so
-// K4 builds them in the thread instead of reading them.
+// K4 has K2's design on the H100 (sw_sweeps.cu): a team of TS lanes per
+// batch element (b = c S + s) through all L layers, its carry and solve
+// workspace in a shared-memory slab (up_slab with a one-column source;
+// 1,312 B at the headline, 2,496 B at the rami5 shape in float32), the
+// next layer's operands copied ahead into shared memory by each warp, the
+// stack rows stored from the lanes' registers.  Its step is one solve with
+// 2 nd + 1 right-hand sides and the products around it; what bounds it is
+// each lane's chain of dependent shared-memory loads and FMAs, not bytes.
+// The ground operators depend only on the element, so K4 builds them
+// instead of reading them.
 //
-// Bound on the H100: device-memory bytes.  K4 reads ~2 nd^2 + nd rows of
-// layer operators and writes the 2 nd^2 + nd + nd2^2 + nd2 row stack per
-// layer against the O(nd^3) FMAs of one solve with 2 nd + 1 right-hand
-// sides; K5 reads the stack and ~3 nd^2 + 2 nd rows of operators for the
-// O(nd2^2) FMAs of its matvecs.  K5 runs both source modes in one layer step
-// so each layer's operands and stack are read once.
+// K5: one thread per element walks the layers top to bottom with its carry
+// in a struct-of-arrays global workspace, as K3 does; it reads the stack
+// and ~3 nd^2 + 2 nd rows of operators per layer for the O(nd2^2) FMAs of
+// its matvecs (bound by bytes), and runs both source modes in one layer
+// step so each layer's operands and stack are read once.
 
 #include "common.cuh"
 
@@ -45,104 +46,148 @@ struct LwStackLayout {
 template <typename T>
 struct LwUpArgs {
   const T *R, *Tm, *p, *uov, *vov, *reps, *remit, *exposed, *grd, *hw;
-  T *stacks, *top, *ws;
+  T *stacks, *top;
+  T* ws;  // null, or one slab a resident team where a slab exceeds a block
   int nd, ns, nreg, L, S;
   long long B;
 };
 
-// K4: LW adding from the ground up (radsurf_urban_lw.F90:551-637).
+// K4's layer operands, in the order of its copy-ahead buffer
+enum { K4_R, K4_T, K4_P, K4_U, K4_V, K4_REPS, K4_REMIT, K4_EXPOSED, K4_NOPS };
+
 template <typename T>
-SPX_DEV void lw_up_thread(const LwUpArgs<T>& A, long long b) {
+SPX_HD LayerOperands<T, K4_NOPS> lw_up_operands(const LwUpArgs<T>& A) {
+  const int nd = A.nd, nreg = A.nreg, nregp = nreg + 1;
+  return LayerOperands<T, K4_NOPS>{
+      {A.R, A.Tm, A.p, A.uov, A.vov, A.reps, A.remit, A.exposed},
+      {nd * nd, nd * nd, nd, nreg * nregp, nregp * nreg, 1, 1, 1},
+      {false, false, false, true, true, false, false, false}};
+}
+
+template <typename T>
+SPX_HD UpSlab lw_up_slab(const LwUpArgs<T>& A) {
+  return up_slab(A.nd, A.ns, A.nreg, 1, 1);
+}
+
+// K4: LW adding from the ground up (radsurf_urban_lw.F90:551-637), one
+// element (rd.b; a team of TS lanes, TS = 1 on the host) with its slab.
+// Stores nothing where !valid (a team past the batch's end).
+template <int TS, int CAP, typename T, class Reader>
+SPX_DEV void lw_up_team(const LwUpArgs<T>& A, const UpSlab& S, const Team<TS>& tm,
+                        const Reader& rd, bool valid, T* slab) {
   const int nd = A.nd, ns = A.ns, nreg = A.nreg, nregp = nreg + 1;
-  const int nd2 = nregp * ns, n2 = nd * nd, mtot = 2 * nd + 1;
-  const long long B = A.B, C = B / A.S, c = b / A.S;
+  const int nd2 = nregp * ns, mtot = 2 * nd + 1;
+  const long long B = A.B, b = rd.b;
   const LwStackLayout sl(nd, ns, nreg);
-  auto lay = [&](const T* ptr, int rows, int l) {
-    return Col<T>{const_cast<T*>(ptr) + (long long)l * rows * B + b, B};
-  };
-  auto col = [&](const T* ptr, int rows, int l) {
-    return Col<T>{const_cast<T*>(ptr) + (long long)l * rows * C + c, C};
-  };
-  // workspace: AA | SRC | W1 | RHS | TMP | TMPS
-  const Col<T> AA{A.ws + b, B};
-  const Col<T> SRC = AA.at(n2), W1 = SRC.at(nd), RHS = W1.at(n2),
-               TMP = RHS.at(nd * mtot), TMPS = TMP.at(n2);
+  const Sh<T> sm{slab};
+  auto at = [&](int off, int ld) { return mat(sm.at(off), ld); };
+  const auto AA = at(S.aa, S.ldn), SRC = at(S.da, 1), W1 = at(S.w1, S.ldn),
+             RHS = at(S.rhs, S.ldr), AB = at(S.ab, S.ld2), SB = at(S.db, 1),
+             NA = at(S.na, S.ldn), NS = at(S.nda, 1);
   const T geps = A.grd[b], gemit = A.grd[B + b];
   const T* hw = A.hw;
 
   // ground operators (radsurf_urban_lw.F90:551-565):
   // a_ground[(r,n),(r2,m)] = (1 - emissivity) hw[n] delta(r, r2),
   // source_ground[(r,n)] = emission frac0[r] hw[n]
-  for (int i = 0; i < nd; ++i) {
+  for (int i = tm.lane; i < nd; i += TS) {
     for (int j = 0; j < nd; ++j)
-      AA[i * nd + j] = (i / ns == j / ns) ? (T(1) - geps) * hw[i % ns] : T(0);
-    SRC[i] = gemit * A.grd[(2 + i / ns) * B + b] * hw[i % ns];
+      AA(i, j) = (i / ns == j / ns) ? (T(1) - geps) * hw[i % ns] : T(0);
+    SRC(i, 0) = gemit * A.grd[(2 + i / ns) * B + b] * hw[i % ns];
   }
+  tm.sync();
+  rd.start();
 
   for (int l = 0; l < A.L; ++l) {
-    const Col<T> R = lay(A.R, n2, l), Tl = lay(A.Tm, n2, l),
-                 P = lay(A.p, nd, l), st = lay(A.stacks, sl.rows, l);
-    // (I - a_above R) X = [a_above T | source_above + a_above p | I]
-    mmc(W1, AA, R, nd, nd, nd);
-    for (int i = 0; i < n2; ++i) W1[i] = T(i / nd == i % nd) - W1[i];
-    mm(RHS, mtot, AA, nd, Tl, nd, nd, nd, nd);
-    for (int i = 0; i < nd; ++i) {
-      T acc = SRC[i];
-      for (int k = 0; k < nd; ++k) acc += AA[i * nd + k] * P[k];
-      RHS[i * mtot + nd] = acc;
-      for (int j = 0; j < nd; ++j) RHS[i * mtot + nd + 1 + j] = T(i == j);
-    }
-    solve_inplace(W1, nd, RHS, mtot, nd, mtot);
-
-    // stack: entry carry, inv(denom), a_below / source_below with the
-    // exposed-roof rows (Eq. 34, radsurf_urban_lw.F90:567-605)
-    copy(st.at(sl.aa), AA, n2);
-    copy(st.at(sl.sa), SRC, nd);
-    for (int i = 0; i < nd; ++i)
-      for (int j = 0; j < nd; ++j)
-        st[sl.inv + i * nd + j] = RHS[i * mtot + nd + 1 + j];
-    fill(st.at(sl.ab), nd2 * nd2, T(0));
-    for (int i = 0; i < nd; ++i) {
-      for (int j = 0; j < nd; ++j) {
-        T acc = R[i * nd + j];
-        for (int k = 0; k < nd; ++k) acc += Tl[i * nd + k] * RHS[k * mtot + j];
-        st[sl.ab + i * nd2 + j] = acc;
+    rd.begin(l);
+    const auto R = mat(rd.view(K4_R, l), nd), Tl = mat(rd.view(K4_T, l), nd),
+               P = mat(rd.view(K4_P, l), 1);
+    const auto U = rd.view(K4_U, l), V = rd.view(K4_V, l);
+    const T roof_refl = T(1) - rd.view(K4_REPS, l)[0],
+            roof_src = rd.view(K4_REMIT, l)[0] * rd.view(K4_EXPOSED, l)[0];
+    auto st = [&](int off, int ld) {
+      return mat(Col<T>{A.stacks + ((long long)l * sl.rows + off) * B + b, B}, ld);
+    };
+    const auto sAA = st(sl.aa, nd), sSA = st(sl.sa, 1), sINV = st(sl.inv, nd),
+               sAB = st(sl.ab, nd2), sSB = st(sl.sb, 1);
+    // the entry carry to the stack; the source column of the RHS
+    for (int i = tm.lane; i < nd; i += TS) {
+      if (valid) {
+        for (int j = 0; j < nd; ++j) sAA(i, j) = AA(i, j);
+        sSA(i, 0) = SRC(i, 0);
       }
-      T acc = P[i];
-      for (int k = 0; k < nd; ++k) acc += Tl[i * nd + k] * RHS[k * mtot + nd];
-      st[sl.sb + i] = acc;
+      RHS(i, nd) = SRC(i, 0);
     }
-    const long long lb = (long long)l * B + b;
-    const T roof_refl = T(1) - A.reps[lb], roof_src = A.remit[lb] * A.exposed[lb];
-    for (int u = 0; u < ns; ++u) {
-      for (int v = 0; v < ns; ++v) st[sl.ab + (nd + u) * nd2 + nd + v] = roof_refl * hw[u];
-      st[sl.sb + nd + u] = roof_src * hw[u];
+    // (I - a_above R) X = [a_above T | source_above + a_above p | I]
+    tmm<TS, CAP, 4>(tm, W1, AA, R, nd, nd, nd);
+    tmm<TS, CAP, 4>(tm, RHS, AA, Tl, nd, nd, nd);
+    tmm<TS, CAP, 4>(tm, RHS.sub(0, nd), AA, P, nd, nd, 1, true);
+    for (int i = tm.lane; i < nd; i += TS)
+      for (int j = 0; j < nd; ++j) {
+        W1(i, j) = T(i == j) - W1(i, j);
+        RHS(i, nd + 1 + j) = T(i == j);
+      }
+    tm.sync();
+    tsolve(tm, W1, RHS, nd, mtot);
+
+    // stack: inv(denom), a_below / source_below with the exposed-roof rows
+    // (Eq. 34, radsurf_urban_lw.F90:567-605), a_below over the dead carry
+    // and W1
+    for (int i = tm.lane; i < nd2; i += TS) {
+      if (i < nd) {
+        if (valid)
+          for (int j = 0; j < nd; ++j) sINV(i, j) = RHS(i, nd + 1 + j);
+        below_row(R, Tl, RHS, AB, i, nd);
+        for (int j = nd; j < nd2; ++j) AB(i, j) = T(0);
+        T acc = P(i, 0);
+        for (int k = 0; k < nd; ++k) acc += Tl(i, k) * RHS(k, nd);
+        SB(i, 0) = acc;
+      } else {
+        const int u = i - nd;
+        for (int j = 0; j < nd; ++j) AB(i, j) = T(0);
+        for (int v = 0; v < ns; ++v) AB(i, nd + v) = roof_refl * hw[u];
+        SB(i, 0) = roof_src * hw[u];
+      }
+      if (valid) {
+        for (int j = 0; j < nd2; ++j) sAB(i, j) = AB(i, j);
+        sSB(i, 0) = SB(i, 0);
+      }
     }
+    tm.sync();
 
     // overlap to just above the interface (radsurf_urban_lw.F90:620-627):
-    // (u (x) I_ns) a_below (v (x) I_ns) and (u (x) I_ns) source_below
-    const Col<T> U = col(A.uov, nreg * nregp, l), V = col(A.vov, nregp * nreg, l);
-    for (int t = 0; t < nreg; ++t)
-      for (int a = 0; a < ns; ++a) {
-        for (int f = 0; f < nreg; ++f)
-          for (int v = 0; v < ns; ++v) {
-            T acc = T(0);
-            for (int q = 0; q < nregp; ++q)
-              for (int r = 0; r < nregp; ++r)
-                acc += U[t * nregp + q] * V[r * nreg + f] *
-                       st[sl.ab + (q * ns + a) * nd2 + r * ns + v];
-            TMP[(t * ns + a) * nd + f * ns + v] = acc;
-          }
-        T acc = T(0);
-        for (int q = 0; q < nregp; ++q) acc += U[t * nregp + q] * st[sl.sb + q * ns + a];
-        TMPS[t * ns + a] = acc;
+    // (u (x) I_ns) a_below (v (x) I_ns) and (u (x) I_ns) source_below, the
+    // next carry over the dead RHS
+    for (int i = tm.lane; i < nd; i += TS) {
+      const int t = i / ns, a = i % ns;
+      T u[4], uv[16];  // nreg + 1 <= 4
+      overlap_weights(U, t, nregp, u);
+      for (int f = 0; f < nreg; ++f) {
+        overlap_weights(u, V, f, nreg, uv);
+        overlap_row(uv, AB, NA, i, a, f, ns, nregp);
       }
-    copy(AA, TMP, n2);
-    copy(SRC, TMPS, nd);
+      T acc = T(0);
+      SPX_UNROLL
+      for (int q = 0; q < 4; ++q)
+        if (q < nregp) acc += u[q] * SB(q * ns + a, 0);
+      NS(i, 0) = acc;
+    }
+    tm.sync();
+    rd.end();
+    for (int i = tm.lane; i < nd; i += TS) {
+      for (int j = 0; j < nd; ++j) AA(i, j) = NA(i, j);
+      SRC(i, 0) = NS(i, 0);
+    }
+    tm.sync();
   }
-  const Col<T> top{A.top + b, B};
-  copy(top, AA, n2);
-  copy(top.at(n2), SRC, nd);
+  if (valid) {
+    const auto top = mat(Col<T>{A.top + b, B}, nd);
+    const auto tops = mat(Col<T>{A.top + (long long)nd * nd * B + b, B}, 1);
+    for (int i = tm.lane; i < nd; i += TS) {
+      for (int j = 0; j < nd; ++j) top(i, j) = AA(i, j);
+      tops(i, 0) = SRC(i, 0);
+    }
+  }
 }
 
 template <typename T>
@@ -318,10 +363,14 @@ LwDownArgs<T> lw_down_args(void* R, void* Tm, void* p, void* idif, void* isrc,
       ns, nreg, L, S, do_urban, with_profiles, B
 
 #ifdef __CUDACC__
-template <typename T>
-__global__ void lw_up_kernel(spx::LwUpArgs<T> A) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b < A.B) spx::lw_up_thread(A, b);
+// K4: teams of TS lanes (spx::up_sweep_teams), as K2's kernel.
+template <typename T, int TS, bool GLOBAL>
+__global__ void lw_up_kernel(spx::LwUpArgs<T> A, spx::UpSlab S, int stride) {
+  spx::up_sweep_teams<T, TS, GLOBAL>(
+      spx::lw_up_operands(A), A.B, A.S, A.L, A.ws, stride,
+      [&](const spx::Team<TS>& tm, const auto& rd, bool valid, T* slab) {
+        spx::lw_up_team<TS, TS>(A, S, tm, rd, valid, slab);
+      });
 }
 
 template <typename T>
@@ -334,11 +383,38 @@ static unsigned n_blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// K4 at team size TS: with `configure`, its configuration (as K2's,
+// sw_sweeps.cu run_k2) written to info; else the launch info describes.
+template <typename T, int TS>
+static int run_k4(const spx::LwUpArgs<T>& A, cudaStream_t stream, long long* info,
+                  int configure) {
+  auto* ks = &lw_up_kernel<T, TS, false>;
+  decltype(ks) kg = TS == 32 ? &lw_up_kernel<T, TS, TS == 32> : nullptr;
+  const spx::UpSlab S = spx::lw_up_slab(A);
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  if (configure)
+    return (int)spx::team_config<T, TS>(ks, kg, S.size,
+                                        2 * spx::lw_up_operands(A).total(), A.B, info);
+  if (info[8] && A.ws == nullptr) return (int)cudaErrorInvalidValue;
+  return spx::team_launch(ks, kg, info, stream, A, S, (int)(info[3] / sizeof(T)));
+}
+
+// K4 by team size (the power of two >= nd, 2 to 32)
 template <typename T>
-static int launch_lw_up(SPX_LW_UP_PARAMS, void* stream) {
-  lw_up_kernel<T><<<n_blocks(B, 128), 128, 0, (cudaStream_t)stream>>>(
-      spx::lw_up_args<T>(SPX_LW_UP_ARGS));
-  return (int)cudaGetLastError();
+static int run_lw_up(const spx::LwUpArgs<T>& A, cudaStream_t s, long long* info,
+                     int configure) {
+  if (A.nd <= 2) return run_k4<T, 2>(A, s, info, configure);
+  if (A.nd <= 4) return run_k4<T, 4>(A, s, info, configure);
+  if (A.nd <= 8) return run_k4<T, 8>(A, s, info, configure);
+  if (A.nd <= 16) return run_k4<T, 16>(A, s, info, configure);
+  return run_k4<T, 32>(A, s, info, configure);
+}
+
+template <typename T>
+static int lw_up_config(int nd, int ns, int nreg, long long B, long long* info) {
+  spx::LwUpArgs<T> A{};
+  A.nd = nd, A.ns = ns, A.nreg = nreg, A.B = B;
+  return run_lw_up<T>(A, nullptr, info, 1);
 }
 
 template <typename T>
@@ -348,11 +424,21 @@ static int launch_lw_down(SPX_LW_DOWN_PARAMS, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int lw_up_sweep_f32(SPX_LW_UP_PARAMS, void* stream) {
-  return launch_lw_up<float>(SPX_LW_UP_ARGS, stream);
+extern "C" int lw_up_sweep_f32(SPX_LW_UP_PARAMS, const long long* cfg, void* stream) {
+  return run_lw_up<float>(spx::lw_up_args<float>(SPX_LW_UP_ARGS), (cudaStream_t)stream,
+                          const_cast<long long*>(cfg), 0);
 }
-extern "C" int lw_up_sweep_f64(SPX_LW_UP_PARAMS, void* stream) {
-  return launch_lw_up<double>(SPX_LW_UP_ARGS, stream);
+extern "C" int lw_up_sweep_f64(SPX_LW_UP_PARAMS, const long long* cfg, void* stream) {
+  return run_lw_up<double>(spx::lw_up_args<double>(SPX_LW_UP_ARGS), (cudaStream_t)stream,
+                           const_cast<long long*>(cfg), 0);
+}
+extern "C" int lw_up_sweep_config_f32(int nd, int ns, int nreg, long long B,
+                                      long long* info) {
+  return lw_up_config<float>(nd, ns, nreg, B, info);
+}
+extern "C" int lw_up_sweep_config_f64(int nd, int ns, int nreg, long long B,
+                                      long long* info) {
+  return lw_up_config<double>(nd, ns, nreg, B, info);
 }
 extern "C" int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, void* stream) {
   return launch_lw_down<float>(SPX_LW_DOWN_ARGS, stream);

@@ -7,18 +7,35 @@
 // (direct, diffuse)).  Plain versions: ops/sweep_kernels.py
 // sw_up_sweep_plain and sw_down_sweep_plain.
 //
-// One thread per batch element (column x band); the thread walks the layers
-// itself (K2 bottom to top, K3 top to bottom) with its carry in a
-// struct-of-arrays global workspace, because GPU blocks share nothing from
-// one launch step to the next (the TPU kernels keep the carry in VMEM across
-// a sequential (tile, layer) grid).  Per-layer operands are [L, rows, B];
-// per-column overlap matrices [L, rows, C] are read at column b / S.
+// The TPU kernels carry the recurrence in VMEM across a sequential (tile,
+// layer) grid; here a loop over the layers inside the kernel takes that
+// grid's place.  Per-layer operands are [L, rows, B]; per-column overlap
+// matrices [L, rows, C] are read at column b / S.
 //
-// Bound on the H100: device-memory bytes.  K2 reads ~2 nd^2 + 3 nd nreg rows
-// and writes the ~2 nd^2 + nd2^2 row stack per layer against O(nd^3) FMAs of
-// one solve; K3 reads the stack and ~3 nd^2 rows of operators for O(nd2^2)
-// FMAs of matvecs.  K3 runs both normalizations in one layer step so each
-// layer's operands are read once.
+// K2 on the H100.  One team of TS lanes of a warp per batch element (TS the
+// power of two >= nd, 2 to 32, a template parameter: 8 at the headline, 16
+// at the rami5 shape, 32 at nd = 24); the team holds its element through
+// all L layers and splits the rows of each step's products (tmm, four
+// entries of a row at once), of its pivot-free solve with 2 nd + nreg
+// right-hand sides (tsolve), of a_below / d_below and of the overlap, with
+// __syncwarp(team mask), never a block barrier.  The carry and the solve's
+// workspace live in a shared-memory slab per element sized by the live set
+// (up_slab: a_below over the dead carry and W1, the next carry over the
+// dead RHS; 1,440 B at the headline, 2,752 B at the rami5 shape in
+// float32).  Each warp's elements are consecutive, and the warp copies the
+// next layer's operands of its elements into shared memory (cp.async,
+// OperandReader) while it computes the current one.  The stack rows go out
+// from each lane's registers.  Nothing else touches device memory.  What
+// bounds it: not bytes (the stack and operands are under 10 % of HBM's
+// rate), but each lane's chain of dependent shared-memory loads and FMAs
+// through the layer step, with few elements (14,336 at the rami5 shape) and
+// 128-250 registers a lane limiting the warps an SM holds.
+//
+// K3: one thread per batch element walks the layers top to bottom with its
+// carry in a struct-of-arrays global workspace.  It reads the stack and
+// ~3 nd^2 rows of operators per layer for O(nd2^2) FMAs of matvecs (bound
+// by bytes), and runs both normalizations in one layer step so each layer's
+// operands are read once.
 
 #include "common.cuh"
 
@@ -42,111 +59,160 @@ struct StackLayout {
 template <typename T>
 struct UpArgs {
   const T *R, *Tm, *E, *Sup, *Sdn, *uov, *vov, *ralb, *ralbd, *grd, *hw;
-  T *stacks, *top, *ws;
+  T *stacks, *top;
+  T* ws;  // null, or one slab a resident team where a slab exceeds a block
   int nd, ns, nreg, L, S;
   long long B;
 };
 
-// K2: SW adding from the ground up (radsurf_urban_sw.F90:590-674).
+// K2's layer operands, in the order of its copy-ahead buffer
+enum { K2_R, K2_T, K2_E, K2_SUP, K2_SDN, K2_U, K2_V, K2_RALB, K2_RALBD, K2_NOPS };
+
 template <typename T>
-SPX_DEV void sw_up_thread(const UpArgs<T>& A, long long b) {
+SPX_HD LayerOperands<T, K2_NOPS> sw_up_operands(const UpArgs<T>& A) {
+  const int nd = A.nd, nreg = A.nreg, nregp = nreg + 1;
+  return LayerOperands<T, K2_NOPS>{
+      {A.R, A.Tm, A.E, A.Sup, A.Sdn, A.uov, A.vov, A.ralb, A.ralbd},
+      {nd * nd, nd * nd, nreg * nreg, nd * nreg, nd * nreg, nreg * nregp,
+       nregp * nreg, 1, 1},
+      {false, false, false, false, false, true, true, false, false}};
+}
+
+template <typename T>
+SPX_HD UpSlab sw_up_slab(const UpArgs<T>& A) {
+  return up_slab(A.nd, A.ns, A.nreg, A.nreg, A.nreg + 1);
+}
+
+// K2: SW adding from the ground up (radsurf_urban_sw.F90:590-674), one
+// element (rd.b; a team of TS lanes, TS = 1 on the host) with its slab.
+// Stores nothing where !valid (a team past the batch's end).
+template <int TS, int CAP, typename T, class Reader>
+SPX_DEV void sw_up_team(const UpArgs<T>& A, const UpSlab& S, const Team<TS>& tm,
+                        const Reader& rd, bool valid, T* slab) {
   const int nd = A.nd, ns = A.ns, nreg = A.nreg, nregp = nreg + 1;
-  const int nd2 = nregp * ns, n2 = nd * nd, mtot = 2 * nd + nreg;
-  const long long B = A.B, C = B / A.S, c = b / A.S;
+  const int nd2 = nregp * ns, mtot = 2 * nd + nreg;
+  const long long B = A.B, b = rd.b;
   const StackLayout sl(nd, ns, nreg);
-  auto lay = [&](const T* p, int rows, int l) {
-    return Col<T>{const_cast<T*>(p) + (long long)l * rows * B + b, B};
-  };
-  auto col = [&](const T* p, int rows, int l) {
-    return Col<T>{const_cast<T*>(p) + (long long)l * rows * C + c, C};
-  };
-  const Col<T> AA{A.ws + b, B};
-  const Col<T> DA = AA.at(n2), W1 = DA.at(nd * nreg), RHS = W1.at(n2),
-               TMP = RHS.at(nd * mtot), TMPD = TMP.at(n2);
+  const Sh<T> sm{slab};
+  auto at = [&](int off, int ld) { return mat(sm.at(off), ld); };
+  const auto AA = at(S.aa, S.ldn), DA = at(S.da, nreg), W1 = at(S.w1, S.ldn),
+             RHS = at(S.rhs, S.ldr), AB = at(S.ab, S.ld2), DB = at(S.db, nregp),
+             NA = at(S.na, S.ldn), ND = at(S.nda, nreg);
   const T galb = A.grd[b], galbd = A.grd[B + b], zc = A.grd[2 * B + b];
   const T* hw = A.hw;
 
   // ground operators (radsurf_urban_sw.F90:593-602)
-  for (int i = 0; i < nd; ++i) {
+  for (int i = tm.lane; i < nd; i += TS) {
     for (int j = 0; j < nd; ++j)
-      AA[i * nd + j] = (i / ns == j / ns) ? galb * hw[i % ns] : T(0);
+      AA(i, j) = (i / ns == j / ns) ? galb * hw[i % ns] : T(0);
     for (int r = 0; r < nreg; ++r)
-      DA[i * nreg + r] = (i / ns == r) ? zc * galbd * hw[i % ns] : T(0);
+      DA(i, r) = (i / ns == r) ? zc * galbd * hw[i % ns] : T(0);
   }
+  tm.sync();
+  rd.start();
 
   for (int l = 0; l < A.L; ++l) {
-    const Col<T> R = lay(A.R, n2, l), Tl = lay(A.Tm, n2, l),
-                 E = lay(A.E, nreg * nreg, l), Sup = lay(A.Sup, nd * nreg, l),
-                 Sdn = lay(A.Sdn, nd * nreg, l), st = lay(A.stacks, sl.rows, l);
+    rd.begin(l);
+    const auto R = mat(rd.view(K2_R, l), nd), Tl = mat(rd.view(K2_T, l), nd),
+               E = mat(rd.view(K2_E, l), nreg), Sup = mat(rd.view(K2_SUP, l), nreg),
+               Sdn = mat(rd.view(K2_SDN, l), nreg);
+    const auto U = rd.view(K2_U, l), V = rd.view(K2_V, l);
+    const T ralb = rd.view(K2_RALB, l)[0], ralbd = rd.view(K2_RALBD, l)[0];
+    auto st = [&](int off, int ld) {
+      return mat(Col<T>{A.stacks + ((long long)l * sl.rows + off) * B + b, B}, ld);
+    };
+    const auto sAA = st(sl.aa, nd), sDA = st(sl.da, nreg), sINV = st(sl.inv, nd),
+               sAB = st(sl.ab, nd2), sDB = st(sl.db, nregp);
+    // the entry carry to the stack
+    if (valid)
+      for (int i = tm.lane; i < nd; i += TS) {
+        for (int j = 0; j < nd; ++j) sAA(i, j) = AA(i, j);
+        for (int r = 0; r < nreg; ++r) sDA(i, r) = DA(i, r);
+      }
     // (I - a_above R) X = [a_above T | d_above E + a_above Sdn | I]
-    mmc(W1, AA, R, nd, nd, nd);
-    for (int i = 0; i < n2; ++i) W1[i] = T(i / nd == i % nd) - W1[i];
-    mm(RHS, mtot, AA, nd, Tl, nd, nd, nd, nd);
-    mm(RHS.at(nd), mtot, DA, nreg, E, nreg, nd, nreg, nreg);
-    mm(RHS.at(nd), mtot, AA, nd, Sdn, nreg, nd, nd, nreg, true);
-    for (int i = 0; i < nd; ++i)
-      for (int j = 0; j < nd; ++j) RHS[i * mtot + nd + nreg + j] = T(i == j);
-    solve_inplace(W1, nd, RHS, mtot, nd, mtot);
-
-    // stack: entry carry, inv(denom), a_below / d_below with exposed-roof
-    // rows (radsurf_urban_sw.F90:607-643)
-    copy(st.at(sl.aa), AA, n2);
-    copy(st.at(sl.da), DA, nd * nreg);
-    for (int i = 0; i < nd; ++i)
-      for (int j = 0; j < nd; ++j)
-        st[sl.inv + i * nd + j] = RHS[i * mtot + nd + nreg + j];
-    fill(st.at(sl.ab), nd2 * nd2, T(0));
-    fill(st.at(sl.db), nd2 * nregp, T(0));
-    for (int i = 0; i < nd; ++i) {
+    tmm<TS, CAP, 4>(tm, W1, AA, R, nd, nd, nd);
+    tmm<TS, CAP, 4>(tm, RHS, AA, Tl, nd, nd, nd);
+    tmm<TS, CAP, 4>(tm, RHS.sub(0, nd), DA, E, nd, nreg, nreg);
+    tmm<TS, CAP, 4>(tm, RHS.sub(0, nd), AA, Sdn, nd, nd, nreg, true);
+    for (int i = tm.lane; i < nd; i += TS)
       for (int j = 0; j < nd; ++j) {
-        T acc = R[i * nd + j];
-        for (int k = 0; k < nd; ++k) acc += Tl[i * nd + k] * RHS[k * mtot + j];
-        st[sl.ab + i * nd2 + j] = acc;
+        W1(i, j) = T(i == j) - W1(i, j);
+        RHS(i, nd + nreg + j) = T(i == j);
       }
-      for (int r = 0; r < nreg; ++r) {
-        T acc = Sup[i * nreg + r];
-        for (int k = 0; k < nd; ++k) acc += Tl[i * nd + k] * RHS[k * mtot + nd + r];
-        st[sl.db + i * nregp + r] = acc;
+    tm.sync();
+    tsolve(tm, W1, RHS, nd, mtot);
+
+    // stack: inv(denom), a_below / d_below with the exposed-roof rows
+    // (radsurf_urban_sw.F90:607-643), a_below over the dead carry and W1
+    for (int i = tm.lane; i < nd2; i += TS) {
+      if (i < nd) {
+        if (valid)
+          for (int j = 0; j < nd; ++j) sINV(i, j) = RHS(i, nd + nreg + j);
+        below_row(R, Tl, RHS, AB, i, nd);
+        for (int j = nd; j < nd2; ++j) AB(i, j) = T(0);
+        for (int r = 0; r < nreg; ++r) {
+          T acc = Sup(i, r);
+          for (int k = 0; k < nd; ++k) acc += Tl(i, k) * RHS(k, nd + r);
+          DB(i, r) = acc;
+        }
+        DB(i, nreg) = T(0);
+      } else {
+        const int u = i - nd;
+        for (int j = 0; j < nd; ++j) AB(i, j) = T(0);
+        for (int v = 0; v < ns; ++v) AB(i, nd + v) = ralb * hw[u];
+        for (int r = 0; r < nreg; ++r) DB(i, r) = T(0);
+        DB(i, nreg) = zc * ralbd * hw[u];
+      }
+      if (valid) {
+        for (int j = 0; j < nd2; ++j) sAB(i, j) = AB(i, j);
+        for (int r = 0; r < nregp; ++r) sDB(i, r) = DB(i, r);
       }
     }
-    const T ralb = A.ralb[(long long)l * B + b], ralbd = A.ralbd[(long long)l * B + b];
-    for (int u = 0; u < ns; ++u) {
-      for (int v = 0; v < ns; ++v) st[sl.ab + (nd + u) * nd2 + nd + v] = ralb * hw[u];
-      st[sl.db + (nd + u) * nregp + nreg] = zc * ralbd * hw[u];
-    }
+    tm.sync();
 
     // overlap to just above the interface (radsurf_urban_sw.F90:646-653):
-    // (u (x) I_ns) a_below (v (x) I_ns) and (u (x) I_ns) d_below v
-    const Col<T> U = col(A.uov, nreg * nregp, l), V = col(A.vov, nregp * nreg, l);
-    for (int t = 0; t < nreg; ++t)
-      for (int a = 0; a < ns; ++a) {
-        for (int f = 0; f < nreg; ++f)
-          for (int v = 0; v < ns; ++v) {
-            T acc = T(0);
-            for (int q = 0; q < nregp; ++q)
-              for (int r = 0; r < nregp; ++r)
-                acc += U[t * nregp + q] * V[r * nreg + f] *
-                       st[sl.ab + (q * ns + a) * nd2 + r * ns + v];
-            TMP[(t * ns + a) * nd + f * ns + v] = acc;
-          }
-        T dacc[4];  // nreg + 1 <= 4
-        for (int r = 0; r < nregp; ++r) {
-          dacc[r] = T(0);
-          for (int q = 0; q < nregp; ++q)
-            dacc[r] += U[t * nregp + q] * st[sl.db + (q * ns + a) * nregp + r];
-        }
-        for (int f = 0; f < nreg; ++f) {
-          T acc = T(0);
-          for (int r = 0; r < nregp; ++r) acc += dacc[r] * V[r * nreg + f];
-          TMPD[(t * ns + a) * nreg + f] = acc;
-        }
+    // (u (x) I_ns) a_below (v (x) I_ns) and (u (x) I_ns) d_below v, the next
+    // carry over the dead RHS
+    for (int i = tm.lane; i < nd; i += TS) {
+      const int t = i / ns, a = i % ns;
+      T u[4], uv[16];  // nreg + 1 <= 4
+      overlap_weights(U, t, nregp, u);
+      for (int f = 0; f < nreg; ++f) {
+        overlap_weights(u, V, f, nreg, uv);
+        overlap_row(uv, AB, NA, i, a, f, ns, nregp);
       }
-    copy(AA, TMP, n2);
-    copy(DA, TMPD, nd * nreg);
+      T dacc[4];
+      SPX_UNROLL
+      for (int r = 0; r < 4; ++r) {
+        dacc[r] = T(0);
+        SPX_UNROLL
+        for (int q = 0; q < 4; ++q)
+          if (q < nregp && r < nregp) dacc[r] += u[q] * DB(q * ns + a, r);
+      }
+      for (int f = 0; f < nreg; ++f) {
+        T acc = T(0);
+        SPX_UNROLL
+        for (int r = 0; r < 4; ++r)
+          if (r < nregp) acc += dacc[r] * V[r * nreg + f];
+        ND(i, f) = acc;
+      }
+    }
+    tm.sync();
+    rd.end();
+    for (int i = tm.lane; i < nd; i += TS) {
+      for (int j = 0; j < nd; ++j) AA(i, j) = NA(i, j);
+      for (int r = 0; r < nreg; ++r) DA(i, r) = ND(i, r);
+    }
+    tm.sync();
   }
-  const Col<T> top{A.top + b, B};
-  copy(top, AA, n2);
-  copy(top.at(n2), DA, nd * nreg);
+  if (valid) {
+    const auto top = mat(Col<T>{A.top + b, B}, nd);
+    const auto topd = mat(Col<T>{A.top + (long long)nd * nd * B + b, B}, nreg);
+    for (int i = tm.lane; i < nd; i += TS) {
+      for (int j = 0; j < nd; ++j) top(i, j) = AA(i, j);
+      for (int r = 0; r < nreg; ++r) topd(i, r) = DA(i, r);
+    }
+  }
 }
 
 template <typename T>
@@ -333,7 +399,8 @@ UpArgs<T> up_args(void* R, void* Tm, void* E, void* Sup, void* Sdn, void* uov,
                    (const T*)Sup,  (const T*)Sdn,  (const T*)uov,
                    (const T*)vov,  (const T*)ralb, (const T*)ralbd,
                    (const T*)grd,  (const T*)hw,   (T*)stacks,
-                   (T*)top,        (T*)ws,         nd, ns, nreg, L, S, B};
+                   (T*)top,        (T*)ws,         nd, ns, nreg, L, S,
+                   B};
 }
 
 template <typename T>
@@ -370,10 +437,16 @@ DownArgs<T> down_args(void* R, void* Tm, void* E, void* Sdn, void* idir,
       outs, fin, ws, nd, ns, nreg, L, S, do_urban, with_profiles, B
 
 #ifdef __CUDACC__
-template <typename T>
-__global__ void sw_up_kernel(spx::UpArgs<T> A) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b < A.B) spx::sw_up_thread(A, b);
+// K2: teams of TS lanes (spx::up_sweep_teams), the slab and the copy-ahead
+// in shared memory or (GLOBAL, at TS = 32 only) the slab in the wrapper's
+// scratch at A.ws and the operands read from device memory.
+template <typename T, int TS, bool GLOBAL>
+__global__ void sw_up_kernel(spx::UpArgs<T> A, spx::UpSlab S, int stride) {
+  spx::up_sweep_teams<T, TS, GLOBAL>(
+      spx::sw_up_operands(A), A.B, A.S, A.L, A.ws, stride,
+      [&](const spx::Team<TS>& tm, const auto& rd, bool valid, T* slab) {
+        spx::sw_up_team<TS, TS>(A, S, tm, rd, valid, slab);
+      });
 }
 
 template <typename T>
@@ -386,11 +459,39 @@ static unsigned n_blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// K2 at team size TS: with `configure`, its configuration for A's shape
+// and A.B elements (spx::team_config: the slab of up_slab and two buffers
+// of one layer's operands a team, or the global-slab kernel, at TS = 32
+// only) written to info; else the launch that info describes.
+template <typename T, int TS>
+static int run_k2(const spx::UpArgs<T>& A, cudaStream_t stream, long long* info,
+                  int configure) {
+  auto* ks = &sw_up_kernel<T, TS, false>;
+  decltype(ks) kg = TS == 32 ? &sw_up_kernel<T, TS, TS == 32> : nullptr;
+  const spx::UpSlab S = spx::sw_up_slab(A);
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  if (configure)
+    return (int)spx::team_config<T, TS>(ks, kg, S.size,
+                                        2 * spx::sw_up_operands(A).total(), A.B, info);
+  if (info[8] && A.ws == nullptr) return (int)cudaErrorInvalidValue;
+  return spx::team_launch(ks, kg, info, stream, A, S, (int)(info[3] / sizeof(T)));
+}
+
+// K2 by team size (the power of two >= nd, 2 to 32)
 template <typename T>
-static int launch_up(SPX_UP_PARAMS, void* stream) {
-  sw_up_kernel<T><<<n_blocks(B, 128), 128, 0, (cudaStream_t)stream>>>(
-      spx::up_args<T>(SPX_UP_ARGS));
-  return (int)cudaGetLastError();
+static int run_up(const spx::UpArgs<T>& A, cudaStream_t s, long long* info, int configure) {
+  if (A.nd <= 2) return run_k2<T, 2>(A, s, info, configure);
+  if (A.nd <= 4) return run_k2<T, 4>(A, s, info, configure);
+  if (A.nd <= 8) return run_k2<T, 8>(A, s, info, configure);
+  if (A.nd <= 16) return run_k2<T, 16>(A, s, info, configure);
+  return run_k2<T, 32>(A, s, info, configure);
+}
+
+template <typename T>
+static int up_config(int nd, int ns, int nreg, long long B, long long* info) {
+  spx::UpArgs<T> A{};
+  A.nd = nd, A.ns = ns, A.nreg = nreg, A.B = B;
+  return run_up<T>(A, nullptr, info, 1);
 }
 
 template <typename T>
@@ -400,11 +501,21 @@ static int launch_down(SPX_DOWN_PARAMS, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int sw_up_sweep_f32(SPX_UP_PARAMS, void* stream) {
-  return launch_up<float>(SPX_UP_ARGS, stream);
+extern "C" int sw_up_sweep_f32(SPX_UP_PARAMS, const long long* cfg, void* stream) {
+  return run_up<float>(spx::up_args<float>(SPX_UP_ARGS), (cudaStream_t)stream,
+                       const_cast<long long*>(cfg), 0);
 }
-extern "C" int sw_up_sweep_f64(SPX_UP_PARAMS, void* stream) {
-  return launch_up<double>(SPX_UP_ARGS, stream);
+extern "C" int sw_up_sweep_f64(SPX_UP_PARAMS, const long long* cfg, void* stream) {
+  return run_up<double>(spx::up_args<double>(SPX_UP_ARGS), (cudaStream_t)stream,
+                        const_cast<long long*>(cfg), 0);
+}
+extern "C" int sw_up_sweep_config_f32(int nd, int ns, int nreg, long long B,
+                                      long long* info) {
+  return up_config<float>(nd, ns, nreg, B, info);
+}
+extern "C" int sw_up_sweep_config_f64(int nd, int ns, int nreg, long long B,
+                                      long long* info) {
+  return up_config<double>(nd, ns, nreg, B, info);
 }
 extern "C" int sw_down_sweep_f32(SPX_DOWN_PARAMS, void* stream) {
   return launch_down<float>(SPX_DOWN_ARGS, stream);

@@ -119,6 +119,48 @@ def bind(lib, name: str, argtypes, restype=ctypes.c_int):
     return fn
 
 
+# a team kernel's launch configuration as the C config functions write it
+# (csrc/common.cuh SPX_TEAM_INFO; K1, K2, K4)
+TEAM_FIELDS = ("team_size", "teams_per_block", "threads_per_block",
+               "slab_bytes", "smem_per_block", "blocks_per_sm", "registers",
+               "sms", "global_slab", "grid")
+_team_configs: dict = {}
+
+
+def team_config(lib, symbol: str, shape: tuple, n: int, itemsize: int) -> dict:
+    """The launch configuration of a team kernel (K1, K2, K4) over n
+    elements: lib's config function `symbol` (int arguments `shape`, then n)
+    runs once per (lib, symbol, shape), on the card the CUDA occupancy
+    calculator; each call sets only the grid (ceil(n / teams_per_block), no
+    more than the resident blocks where the slabs are global) and the derived
+    fields: scratch_elements (the global slabs' scratch, else 0),
+    resident_per_sm (teams resident on an SM) and waves (grid over the
+    resident blocks of the card).  team_info(config) is the array the
+    launchers take."""
+    key = (id(lib), symbol, shape)
+    if key not in _team_configs:
+        fn = bind(lib, symbol, [ctypes.c_int] * len(shape)
+                  + [ctypes.c_longlong, ctypes.c_void_p])
+        info = (ctypes.c_longlong * len(TEAM_FIELDS))()
+        check(fn(*shape, n, info), symbol)
+        _team_configs[key] = dict(zip(TEAM_FIELDS, info))
+    c = dict(_team_configs[key])
+    pb, resident = c["teams_per_block"], c["blocks_per_sm"] * c["sms"]
+    grid = max(1, -(-n // pb))
+    if c["global_slab"]:
+        grid = min(grid, resident)
+    c.update(grid=grid, resident_per_sm=c["blocks_per_sm"] * pb,
+             waves=grid / max(resident, 1),
+             scratch_elements=(grid * pb * c["slab_bytes"] // itemsize
+                               if c["global_slab"] else 0))
+    return c
+
+
+def team_info(config: dict):
+    """The launch configuration of team_config as the launchers take it."""
+    return (ctypes.c_longlong * len(TEAM_FIELDS))(*(config[f] for f in TEAM_FIELDS))
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

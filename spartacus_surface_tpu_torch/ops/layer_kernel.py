@@ -32,11 +32,13 @@ H100: shared memory, whose slabs set how many elements an SM runs at once
 of shared-memory loads and FMAs; and the doubling counts, which differ
 between the teams of a warp (the warp runs its largest).
 ``factory_config`` reports the launch shape (team size, teams per block,
-shared memory, resident blocks per SM, registers).  K1d stays one thread
-per element with a struct-of-arrays global workspace, launched in chunks of
-``chunk`` elements.  Each element loops exactly its own K doubling steps,
-which is the TPU kernel's masked commit (pallas_layer.py:400) without the
-masking.
+shared memory, resident blocks per SM, registers), computed once per
+shape and dtype (cuda_build.team_config, shared with K2 and K4); the
+launch takes it, so the occupancy calculator runs once per shape, not
+twice per call.  K1d stays one thread per element with a struct-of-arrays
+global workspace, launched in chunks of ``chunk`` elements.  Each element
+loops exactly its own K doubling steps, which is the TPU kernel's masked
+commit (pallas_layer.py:400) without the masking.
 """
 
 from __future__ import annotations
@@ -115,26 +117,21 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
                       int_direct=int_direct, stream=cuda_build.stream(dev))
 
 
-# the C signatures of the launchers (csrc/layer_factory.cu)
+# the C signatures of the launchers (csrc/layer_factory.cu): the operands,
+# then K1's launch configuration (cuda_build.team_config; K1d ignores it)
 FACTORY_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
                     + [ctypes.c_double] + [ctypes.c_longlong] * 3
-                    + [ctypes.c_void_p])
-CONFIG_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-# what layer_factory_config_f32/f64 report (SPX_K1_INFO)
-CONFIG_FIELDS = ("team_size", "teams_per_block", "threads_per_block",
-                 "slab_bytes", "smem_per_block", "blocks_per_sm",
-                 "registers", "grid", "scratch_elements")
+                    + [ctypes.c_void_p] * 2)
 
 
 def factory_config(lib, nd, ndir, n, dtype) -> dict:
-    """K1's launch configuration for n elements at (nd, ndir) in dtype, as
-    lib computes it (CONFIG_FIELDS; on the card, the kernel's registers and
-    its resident blocks per SM from the CUDA occupancy calculator)."""
+    """K1's launch configuration for n elements at (nd, ndir) in dtype
+    (cuda_build.TEAM_FIELDS and the derived fields of team_config; on the
+    card, the kernel's registers and its resident blocks per SM from the
+    CUDA occupancy calculator, computed once per (nd, ndir, dtype))."""
     bits = "f32" if dtype == torch.float32 else "f64"
-    fn = cuda_build.bind(lib, f"layer_factory_config_{bits}", CONFIG_ARGTYPES)
-    info = (ctypes.c_longlong * len(CONFIG_FIELDS))()
-    cuda_build.check(fn(nd, ndir, n, info), "layer_factory_config")
-    return dict(zip(CONFIG_FIELDS, info))
+    return cuda_build.team_config(lib, f"layer_factory_config_{bits}",
+                                  (nd, ndir), n, 4 if bits == "f32" else 8)
 
 
 def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
@@ -153,8 +150,10 @@ def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
     rows = out_rows(nd, ndir)
     outs = {k: g1.new_empty((L, rows[k], B)) for k in out_names(int_direct)}
     total = L * B
+    cfg = None
     if structured:
-        scratch = factory_config(lib, nd, ndir, total, g1.dtype)["scratch_elements"]
+        cfg = factory_config(lib, nd, ndir, total, g1.dtype)
+        scratch = cfg["scratch_elements"]
         spans = [(0, total, g1.new_empty((scratch,)) if scratch else None)]
     else:
         step = max(1, min(chunk or total, total))
@@ -168,7 +167,7 @@ def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
                    for k in OUT_NAMES),
                  None if ws is None else cuda_build.ptr(ws), nd, ndir,
                  n_double, int(int_direct), pade7_theta(g1.dtype), B, j0, n,
-                 stream)
+                 cfg and cuda_build.team_info(cfg), stream)
         cuda_build.check(err, f"layer_factory{kind}")
         for w in wrappers:
             setattr(w, counter, getattr(w, counter) + 1)

@@ -11,11 +11,14 @@ Layout as for K2/K3 (ops/sweep_kernels.py): per-layer operands [L, rows, B]
 (B = columns x bands, b = c*S + s), per-column overlap matrices [L, rows, C].
 The up-sweep writes, per layer, the stack [a_above | source_above |
 inv(I - a_above R) | a_below | source_below] (rows per ``lw_stack_rows``),
-so the down-sweep needs matvecs only.  Both sweeps are bound by
-device-memory bytes on the H100 (see the source's note); one thread owns
-one element and walks the layers with its carry in a struct-of-arrays
-global workspace allocated here, and K5 runs both source modes in the same
-layer step.
+so the down-sweep needs matvecs only.  K4 has K2's design on the H100 (see
+ops/sweep_kernels.py): a team of TS lanes per element, its carry and solve
+workspace in a shared-memory slab, the next layer's operands copied ahead
+(read from device memory only where the slabs must be global); what bounds it
+is the latency of each layer's chain of small products and one solve with
+2 nd + 1 right-hand sides.  K5 stays
+one thread per element with a struct-of-arrays global workspace allocated
+here, and runs both source modes in the same layer step.
 """
 
 from __future__ import annotations
@@ -26,11 +29,12 @@ import torch
 
 from . import cuda_build
 from .matrix import matvec, solve
-from .sweep_kernels import _check_sizes, _cols, _ground_blocks, _mats
+from .sweep_kernels import _check_sizes, _cols, _ground_blocks, _mats, up_config
 
-# the C signatures of the launchers (csrc/lw_sweeps.cu)
+# the C signatures of the launchers (csrc/lw_sweeps.cu); K4 takes its
+# launch configuration (cuda_build.team_config) before the stream
 UP_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
-               + [ctypes.c_longlong, ctypes.c_void_p])
+               + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
 DOWN_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong, ctypes.c_void_p])
 
@@ -127,17 +131,21 @@ def lw_up_sweep(R, T, p, uov, vov, reps, remit, exposed, grd, hw, *, nd, ns,
 
 def launch_up(lib, R, T, p, uov, vov, reps, remit, exposed, grd, hw, *, nd,
               ns, nreg, stream):
-    """Allocate outputs and workspace and launch lib's lw_up_sweep_f32/f64;
-    counts the launch."""
+    """Allocate the outputs (and, only where a slab and its copy-ahead
+    buffers exceed a block's shared memory, the scratch of the global
+    slabs) and launch lib's lw_up_sweep_f32/f64 as up_config says; counts the launch."""
     L, _, B = R.shape
     fn = cuda_build.bind(lib, "lw_up_sweep_f32" if R.dtype == torch.float32
                          else "lw_up_sweep_f64", UP_ARGTYPES)
+    cfg = up_config(lib, "lw_up_sweep", nd, ns, nreg, B, R.dtype)
     stacks = R.new_empty((L, lw_stack_rows(nd, ns, nreg), B))
     top = R.new_empty((nd * nd + nd, B))
-    ws = R.new_empty(((5 * nd + 3) * nd * B,))
+    ws = R.new_empty((cfg["scratch_elements"],)) if cfg["scratch_elements"] else None
     err = fn(*map(cuda_build.ptr, (R, T, p, uov, vov, reps, remit, exposed,
-                                   grd, hw, stacks, top, ws)),
-             nd, ns, nreg, L, B // uov.shape[-1], B, stream)
+                                   grd, hw, stacks, top)),
+             ws if ws is None else cuda_build.ptr(ws),
+             nd, ns, nreg, L, B // uov.shape[-1], B,
+             cuda_build.team_info(cfg), stream)
     cuda_build.check(err, "lw_up_sweep")
     lw_up_sweep.launches += 1
     return stacks, top

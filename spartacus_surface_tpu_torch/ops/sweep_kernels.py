@@ -9,19 +9,28 @@ and ``sw_down_sweep_plain`` on the same operands.
 
 Layout: per-layer operands [L, rows, B] as the factory writes them (B =
 columns x bands, b = c*S + s); per-column overlap matrices [L, rows, C],
-read by thread b at column b // S.  The up-sweep writes, per layer, the stack
-[a_above | d_above | inv(I - a_above R) | a_below | d_below] (rows per
+read by element b at column b // S.  The up-sweep writes, per layer, the
+stack [a_above | d_above | inv(I - a_above R) | a_below | d_below] (rows per
 ``sw_stack_rows``), so the down-sweep needs matvecs only, no solves.
 
-On the H100 both sweeps are bound by device-memory bytes: per layer a thread
-reads its layer operators and writes (K2) or reads (K3) a stack of
-~nd2^2 + 2 nd^2 rows, against O(nd^3) FMAs for K2's one solve and O(nd2^2)
-for K3's matvecs.  The TPU kernels carry the recurrence in VMEM across a
-sequential (tile, layer) grid; GPU blocks share nothing, so here one thread
-owns one batch element and loops over the layers itself, with its carry in
-a struct-of-arrays global workspace allocated here (coalesced, L1-resident
-between layers).  K3 runs both normalizations in the same layer step, so each
-layer's operators and stack are read once.
+The TPU kernels carry the recurrence in VMEM across a sequential (tile,
+layer) grid; on the H100 a loop over the layers inside the kernel takes
+that grid's place.  K2 gives each element a team of TS lanes of one warp
+(TS the power of two >= nd, 2 to 32), its carry and solve workspace in a
+shared-memory slab (csrc/common.cuh ``up_slab``), and allocates nothing but
+its outputs.  What bounds it: the latency of each layer's chain of small
+products and one pivot-free solve, with few elements (14,336 at the rami5
+shape) to hide it; the team splits the rows, so the card runs 16x more
+lanes than elements.  Each warp copies the next layer's operands of its
+elements into shared memory (cp.async) while it computes the current one
+(1.5-2.6x faster than reading them from device memory, PERF.md).  Only
+where a slab and its copy-ahead buffers exceed a block's shared memory (nd
+above ~57 in float64) does the kernel keep its slabs in a scratch of one
+slab per resident team, allocated here, and read its operands from device
+memory.  ``up_config`` reports the launch shape, computed once per shape
+(cuda_build.team_config).  K3 stays one thread per element with a
+struct-of-arrays global workspace, and runs both normalizations in the
+same layer step, so each layer's operators and stack are read once.
 """
 
 from __future__ import annotations
@@ -33,9 +42,10 @@ import torch
 from . import cuda_build
 from .matrix import matvec, solve
 
-# the C signatures of the launchers (csrc/sw_sweeps.cu)
+# the C signatures of the launchers (csrc/sw_sweeps.cu); K2 takes its
+# launch configuration (cuda_build.team_config) before the stream
 UP_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
-               + [ctypes.c_longlong, ctypes.c_void_p])
+               + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
 DOWN_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong, ctypes.c_void_p])
 
@@ -167,19 +177,32 @@ def sw_up_sweep(R, T, E, Sup, Sdn, uov, vov, ralb, ralbd, grd, hw, *, nd, ns,
                          stream=cuda_build.stream(dev))
 
 
+def up_config(lib, kernel, nd, ns, nreg, B, dtype) -> dict:
+    """The launch configuration of K2 (kernel "sw_up_sweep") or K4
+    ("lw_up_sweep") over B elements (cuda_build.team_config's fields)."""
+    bits = "f32" if dtype == torch.float32 else "f64"
+    return cuda_build.team_config(lib, f"{kernel}_config_{bits}",
+                                  (nd, ns, nreg), B,
+                                  4 if bits == "f32" else 8)
+
+
 def launch_up(lib, R, T, E, Sup, Sdn, uov, vov, ralb, ralbd, grd, hw, *, nd,
               ns, nreg, stream):
-    """Allocate outputs and workspace and launch lib's sw_up_sweep_f32/f64;
-    counts the launch."""
+    """Allocate the outputs (and, only where a slab and its copy-ahead
+    buffers exceed a block's shared memory, the scratch of the global
+    slabs) and launch lib's sw_up_sweep_f32/f64 as up_config says; counts the launch."""
     L, _, B = R.shape
     fn = cuda_build.bind(lib, "sw_up_sweep_f32" if R.dtype == torch.float32
                          else "sw_up_sweep_f64", UP_ARGTYPES)
+    cfg = up_config(lib, "sw_up_sweep", nd, ns, nreg, B, R.dtype)
     stacks = R.new_empty((L, sw_stack_rows(nd, ns, nreg), B))
     top = R.new_empty((nd * nd + nd * nreg, B))
-    ws = R.new_empty(((5 * nd + 3 * nreg) * nd * B,))
+    ws = R.new_empty((cfg["scratch_elements"],)) if cfg["scratch_elements"] else None
     err = fn(*map(cuda_build.ptr, (R, T, E, Sup, Sdn, uov, vov, ralb, ralbd,
-                                   grd, hw, stacks, top, ws)),
-             nd, ns, nreg, L, B // uov.shape[-1], B, stream)
+                                   grd, hw, stacks, top)),
+             ws if ws is None else cuda_build.ptr(ws),
+             nd, ns, nreg, L, B // uov.shape[-1], B,
+             cuda_build.team_info(cfg), stream)
     cuda_build.check(err, "sw_up_sweep")
     sw_up_sweep.launches += 1
     return stacks, top

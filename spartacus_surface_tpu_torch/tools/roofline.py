@@ -218,7 +218,8 @@ def _sw_up_flops(nd, ns, nreg, L):
     layer = (3 * _mm(nd, nd, nd) + nd * nd + _mm(nd, nreg, nreg)
              + 2 * _mm(nd, nd, nreg) + _solve(nd, 2 * nd + nreg)
              + ns * ns + 2 * ns
-             + 3 * nd * nd * nregp * nregp + 2 * nd * nregp * (nregp + nreg))
+             + (2 * nd + nreg) * nd * nregp * nregp
+             + 2 * nd * nregp * (nregp + nreg))
     return nd * ns + 2 * nd + L * layer
 
 
@@ -239,7 +240,8 @@ def _lw_up_flops(nd, ns, nreg, L):
     """K4, one thread over L layers (lw_sweeps.cu)."""
     nregp = nreg + 1
     layer = (3 * _mm(nd, nd, nd) + 5 * nd * nd + _solve(nd, 2 * nd + 1)
-             + 2 + ns * ns + ns + 3 * nd * nd * nregp * nregp + 2 * nd * nregp)
+             + 2 + ns * ns + ns + (2 * nd + nreg) * nd * nregp * nregp
+             + 2 * nd * nregp)
     return 2 * nd * ns + 2 * nd + L * layer
 
 

@@ -9,7 +9,9 @@ configurations and the three 1-stream ones (where the factory is K1d).
   with the host C++ compiler and runs them thread by thread on the CPU, so
   the kernels' indexing and algebra are checked here without a GPU; the
   K1d body is also held against the JAX package's layer_matrices;
-* cuda (marked, skipped without a GPU): the nvcc-built kernels on the card.
+* cuda (marked, skipped without a GPU): the nvcc-built kernels on the card;
+* the up-sweeps K2 / K4 (plain and host-built) against the JAX package's
+  Pallas kernels in interpret mode.
 
 Tolerances: float64 per-field max|diff| / max(1, max|plain|) <= 1e-9 for
 all; float32 K1 elementwise rtol 2e-4 / atol 2e-5
@@ -208,7 +210,8 @@ def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk):
     outputs."""
     calls = capture(monkeypatch, 2, 4, np.float64, "cpu")
     cuda_build.bind(host_lib, "layer_factory_f64", LK.FACTORY_ARGTYPES)
-    cuda_build.bind(host_lib, "layer_factory_config_f64", LK.CONFIG_ARGTYPES)
+    cuda_build.bind(host_lib, "layer_factory_config_f64",
+                    [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
     lib = _Recorder(host_lib)
     allocated = []
     new_empty = torch.Tensor.new_empty
@@ -222,12 +225,102 @@ def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk):
     launches = [args for name, args in lib.calls if name == "layer_factory_f64"]
     assert len(launches) == 1
     L, _, B = a[0].shape
-    assert launches[0][13] is None and launches[0][-2:-1] == (L * B,)  # ws, n
+    assert launches[0][13] is None and launches[0][-3:-2] == (L * B,)  # ws, n
     assert LK.layer_factory.launches == n1 + 1
     assert LK.lw_layer_factory.launches == nlw + (mode == "lw")
     rows = LK.out_rows(k["nd"], k.get("ndir", 1))
     assert sorted(allocated) == sorted((L, rows[n], B) for n in LK.out_names(mode == "sw"))
     assert all(field_err([ref[n]], [got[n]]) <= 1e-9 for n in ref)
+
+
+@pytest.mark.parametrize("mode", ["sw", "lw"])
+def test_sweep_launch_has_no_workspace(host_lib, monkeypatch, mode):
+    """K2 / K4 launch once per call with no workspace (a null pointer),
+    their launch configuration passed in, and nothing allocated but their
+    stacks and top; the results match the plain version (1e-9)."""
+    calls = capture(monkeypatch, 2, 4, np.float64, "cpu")
+    name, mod = ("sw_up_sweep", SK) if mode == "sw" else ("lw_up_sweep", LSK)
+    cuda_build.bind(host_lib, f"{name}_f64", mod.UP_ARGTYPES)
+    cuda_build.bind(host_lib, f"{name}_config_f64",
+                    [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+    lib = _Recorder(host_lib)
+    allocated = []
+    new_empty = torch.Tensor.new_empty
+    monkeypatch.setattr(torch.Tensor, "new_empty", lambda t, shape, **kw: (
+        allocated.append(tuple(shape)), new_empty(t, shape, **kw))[1])
+    n0 = getattr(solver, name).launches
+    a, k, ref = calls[name]
+    got = LAUNCH[name](lib, *a, stream=None, **k)
+    monkeypatch.undo()
+    launches = [args for n, args in lib.calls if n == f"{name}_f64"]
+    assert len(launches) == 1 and launches[0][13 if mode == "sw" else 12] is None
+    assert launches[0][-2] is not None  # the launch configuration
+    assert getattr(solver, name).launches == n0 + 1
+    L, _, B = a[0].shape
+    nd, ns, nreg = k["nd"], k["ns"], k["nreg"]
+    rows = (SK.sw_stack_rows(nd, ns, nreg), nd * nd + nd * nreg) if mode == "sw" \
+        else (LSK.lw_stack_rows(nd, ns, nreg), nd * nd + nd)
+    assert sorted(allocated) == sorted([(L, rows[0], B), (rows[1], B)])
+    assert field_err(ref, got) <= 1e-9
+
+
+def _pallas_up_operands(mode, nreg, ns, L, C, S, seed):
+    """Seeded float64 operands of one up-sweep call in the JAX Pallas
+    kernel's layout ([B, L, rows], uov / vov per element, grd [B, rows])
+    and in the port's ([L, rows, B], uov / vov per column, grd [rows, B])."""
+    rng = np.random.default_rng(seed)
+    nd, nregp, B = nreg * ns, nreg + 1, C * S
+    u = lambda *shape, lo=0.0, hi=1.0: rng.uniform(lo, hi, shape)
+    lay = {"R": u(B, L, nd * nd, hi=0.5 / nd), "T": u(B, L, nd * nd, hi=0.5 / nd)}
+    if mode == "sw":
+        lay.update(E=u(B, L, nreg * nreg), Sup=u(B, L, nd * nreg, hi=0.2),
+                   Sdn=u(B, L, nd * nreg, hi=0.2))
+    else:
+        lay.update(p=u(B, L, nd, hi=50.0))
+    cols = {"uov": u(C, L, nreg * nregp, hi=1.0 / nregp),
+            "vov": u(C, L, nregp * nreg, hi=1.0 / nregp)}
+    if mode == "sw":
+        per_layer = {"ralb": u(B, L, 1), "ralbd": u(B, L, 1)}
+        grd = np.stack([u(B), u(B), u(B, lo=0.2)], axis=1)
+    else:
+        per_layer = {"reps": u(B, L, 1, lo=0.5), "remit": u(B, L, 1, hi=400.0),
+                     "exposed": u(B, L, 1)}
+        grd = np.concatenate([u(B, 1, lo=0.5), u(B, 1, hi=400.0), u(B, nreg)], axis=1)
+    jax_args = ([*lay.values()] + [np.repeat(c, S, axis=0) for c in cols.values()]
+                + [*per_layer.values()] + [grd])
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x))
+    port_args = ([t(x.transpose(1, 2, 0)) for x in lay.values()]
+                 + [t(c.transpose(1, 2, 0)) for c in cols.values()]
+                 + [t(x[..., 0].T) for x in per_layer.values()] + [t(grd.T)])
+    return jax_args, port_args
+
+
+@pytest.mark.parametrize("mode", ["sw", "lw"])
+def test_up_sweeps_match_pallas_kernels(host_lib, mode):
+    """The port's plain K2 / K4 and their host-built team bodies (a team of
+    one lane) against the JAX package's Pallas kernels themselves
+    (pallas_sweep.sw_up_sweep / lw_up_sweep, interpret mode), float64,
+    B = 1024 (the kernels' tile), L = 2, (nreg, ns) = (2, 4): every stack
+    row and the top within 1e-12 per field after the relayout."""
+    import importlib
+
+    PS = importlib.import_module("spartacus_surface_tpu.ops.pallas_sweep")
+    nreg, ns, L, C, S = 2, 4, 2, 512, 2
+    nd = nreg * ns
+    jax_args, port_args = _pallas_up_operands(mode, nreg, ns, L, C, S, seed=nreg * ns)
+    hw = LegendreGauss(ns).hweight
+    kw = dict(nd=nd, ns=ns, nreg=nreg)
+    fn = PS.sw_up_sweep if mode == "sw" else PS.lw_up_sweep
+    stacks, top = fn(*jax_args, hw=tuple(float(h) for h in hw), interpret=True, **kw)
+    ref = (torch.as_tensor(np.asarray(stacks).transpose(1, 2, 0).copy()),
+           torch.as_tensor(np.asarray(top).T.copy()))
+    args = (*port_args, torch.as_tensor(hw))
+    name = f"{mode}_up_sweep"
+    plain = PLAIN[name](*args, **kw)
+    team = LAUNCH[name](host_lib, *args, stream=None, **kw)
+    for got in (plain, team):
+        assert got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
+        assert field_err(ref, got) <= 1e-12
 
 
 @pytest.mark.parametrize("nd,ndir", [(40, 1), (36, 3)])
@@ -457,6 +550,60 @@ def test_cuda_dense_factory_launches(cuda_device, nd, ndir, dtype):
             torch.testing.assert_close(got[k], ref[k], rtol=2e-4, atol=2e-5)
         else:
             assert field_err([ref[k]], [got[k]]) <= 1e-9, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nreg,ns,ts", [(1, 1, 2), (2, 4, 8), (3, 4, 16), (3, 8, 32)])
+def test_cuda_up_sweeps_ragged_batch(cuda_device, monkeypatch, nreg, ns, ts, dtype):
+    """K2 and K4 as team kernels on a batch of 37 columns x 3 bands (111
+    elements: not a multiple of the teams of a block or of a warp), at team
+    sizes 2 to 32: against their plain versions (float32 3e-5 per field,
+    float64 1e-9); the launch shape: a team of the power of two >= nd (at
+    least 2) lanes, whole warps of teams, shared memory of the slabs and
+    of two layers' operands a team (the copy-ahead), no scratch."""
+    calls = capture(monkeypatch, nreg, ns, dtype, cuda_device, C=37, L=3, S=3)
+    for name, mod in (("sw_up_sweep", SK), ("lw_up_sweep", LSK)):
+        a, k, _ = calls[name]
+        n = getattr(solver, name).launches
+        got = getattr(mod, name)(*a, **k)
+        torch.cuda.synchronize()
+        assert getattr(solver, name).launches == n + 1
+        err = field_err(PLAIN[name](*a, **k), got)
+        assert err <= (3e-5 if dtype == np.float32 else 1e-9), (name, err)
+        lib = cuda_build.load("sw_sweeps" if name == "sw_up_sweep" else "lw_sweeps")
+        c = SK.up_config(lib, name, k["nd"], k["ns"], k["nreg"], a[0].shape[2],
+                         a[0].dtype)
+        assert c["team_size"] == ts and c["threads_per_block"] % 32 == 0, c
+        assert c["blocks_per_sm"] >= 1 and c["registers"] > 0, c
+        assert c["scratch_elements"] == 0 and not c["global_slab"], c
+        assert c["grid"] == -(-111 // c["teams_per_block"]), c
+        assert c["smem_per_block"] > c["teams_per_block"] * c["slab_bytes"], c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sw", "lw"])
+def test_cuda_up_sweeps_global_slab(cuda_device, mode):
+    """Where a slab and its copy-ahead buffers exceed a block's shared
+    memory ((nreg, ns) = (3, 24), nd = 72, in float64), K2 / K4 keep their
+    slabs in a scratch of one slab per resident team and read their
+    operands from device memory, still in one launch, and match the plain
+    version (1e-9 per field) on 13 columns x 3 bands."""
+    nreg, ns, L, C, S = 3, 24, 2, 13, 3
+    _, args = _pallas_up_operands(mode, nreg, ns, L, C, S, seed=ns)
+    args = [x.to(cuda_device) for x in args]
+    args.append(torch.as_tensor(LegendreGauss(ns).hweight, device=cuda_device))
+    name = f"{mode}_up_sweep"
+    mod, kw = (SK if mode == "sw" else LSK), dict(nd=nreg * ns, ns=ns, nreg=nreg)
+    lib = cuda_build.load("sw_sweeps" if mode == "sw" else "lw_sweeps")
+    c = SK.up_config(lib, name, kw["nd"], ns, nreg, C * S, torch.float64)
+    assert c["global_slab"] and c["scratch_elements"] > 0, c
+    assert c["team_size"] == 32 and c["smem_per_block"] == 0, c
+    n = getattr(solver, name).launches
+    got = getattr(mod, name)(*args, **kw)
+    torch.cuda.synchronize()
+    assert getattr(solver, name).launches == n + 1
+    assert field_err(PLAIN[name](*args, **kw), got) <= 1e-9
 
 
 @pytest.mark.cuda
