@@ -94,13 +94,14 @@ Phase 3 also prints K1's launch shape for each run (team size, teams and
 threads per block, slab and shared bytes per block, resident blocks and
 teams per SM, registers, waves; layer_kernel.factory_config), and a
 `sweeps` line: K2-K5 timed on that run's operands with their FLOPs, bytes,
-bound and share, and K2's and K4's launch shapes (sweep_kernels.up_config).
+bound and share, and their launch shapes (sweep_kernels.up_config for K2
+and K4, down_config for K3 and K5).
 Then the per-kernel summary line {"kernels": [...]} (K1-K5: launches
 counted over the headline float32 run of phase 3, ms / plain_ms timed with
 CUDA events on that run's operands, the K1 row also with K1's launch shape
 at the headline, SW and LW; K2-K5 also ms, FLOPs, bytes, bound and share
-at the rami5 shape in float32 (*_rami5); K2 and K4 also their launch
-shapes at both shapes;
+at the rami5 shape in float32 (*_rami5), and their launch shapes at both
+shapes;
 K1d: launches over the cli_ns1 single
 run, timed on its largest SW call and its LW call; the LW calls as
 launches_lw / ms_lw / plain_ms_lw; K6 and K7: launches over the roofline
@@ -165,6 +166,7 @@ WRAPPERS = ("layer_factory", "lw_layer_factory", "sw_up_sweep",
             "sw_down_sweep_both", "lw_up_sweep", "lw_down_sweep_both")
 SWEEPS = WRAPPERS[2:]  # K2-K5
 UP_SWEEPS = {"sw_up_sweep": "sw_sweeps", "lw_up_sweep": "lw_sweeps"}  # K2, K4
+DOWN_SWEEPS = {"sw_down_sweep_both": "sw_sweeps", "lw_down_sweep_both": "lw_sweeps"}  # K3, K5
 # a team kernel's launch shape as printed (cuda_build.team_config's fields)
 SHAPE_FIELDS = {"team_size": "team_size", "teams_per_block": "elements_per_block",
                 "threads_per_block": "threads_per_block", "slab_bytes": "slab_bytes",
@@ -702,7 +704,7 @@ def main(argv=None) -> int:
              peak_gib_kernel_route=mem_kernel, peak_gib_scan_route=mem_scan,
              finite=finite, shapes_ok=shapes, k1_launch_shape=k1_shape)
         # the sweeps on this run's operands: K2-K5 timed (CUDA events) with
-        # their bounds; K2 and K4 also their launch shapes
+        # their bounds and their launch shapes
         sweeps = {}
         for n in SWEEPS:
             a, k, _ = cap.calls[n][0]
@@ -714,6 +716,10 @@ def main(argv=None) -> int:
             if n in UP_SWEEPS:
                 sweeps[n].update(launch_shape(SK.up_config(
                     libs[UP_SWEEPS[n]], n, k["nd"], k["ns"], k["nreg"], a[0].shape[2], dt)))
+            else:
+                sweeps[n].update(launch_shape(SK.down_config(
+                    libs[DOWN_SWEEPS[n]], n.replace("_both", ""), k["nd"], k["ns"],
+                    k["nreg"], k["do_urban"], k["with_profiles"], a[0].shape[2], dt)))
         sweep_runs[sname, dname] = sweeps
         emit(phase="sweeps", run=sname, dtype=dname, **sweeps)
         if f32:  # each factory element's doubling count, for the roofline
@@ -1007,7 +1013,7 @@ def main(argv=None) -> int:
             r5 = sweep_runs["rami5_shape", "float32"][names[0]]
             row.update({f"{key}_rami5": r5[key] for key in
                         ("ms", "flops", "bytes", "bound_ms", "bound_by", "share")})
-        if names[0] in UP_SWEEPS:  # K2 / K4: launch shape
+        if names[0] in SWEEPS:  # K2-K5: launch shape
             for sname, sfx in (("headline", ""), ("rami5_shape", "_rami5")):
                 r = sweep_runs[sname, "float32"][names[0]]
                 row.update({f"{key}{sfx}": r[key] for key in SHAPE_FIELDS.values()})

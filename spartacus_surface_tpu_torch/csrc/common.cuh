@@ -3,13 +3,15 @@
 // Operands and results are struct-of-arrays: an element's matrix of n x m
 // rows lives at p[i * s] (row-major entry i, stride s = the batch), so
 // neighbouring elements' copies of one entry are neighbours in memory.  The
-// down-sweeps (K3, K5) and the dense factory (K1d) keep one batch element
-// per thread, with their workspaces in that layout.  The structured factory
-// (K1) and the up-sweeps (K2, K4) give each element a team of TS lanes of
-// one warp and a contiguous slab of shared memory; the team forms below
-// (Team, Mat, tmm, tsolve) split a matrix's rows over the lanes, and a team
-// of one lane (TS = 1) runs them as plain loops.  team_config / team_launch
-// (CUDA only) choose and launch the three team kernels' block shapes.
+// dense factory (K1d) keeps one batch element per thread, with its
+// workspace in that layout.  The structured factory (K1) and the sweeps
+// (K2-K5) give each element a team of TS lanes of one warp and a
+// contiguous slab of shared memory; the team forms below (Team, Mat, tmm,
+// tsolve, dot_row) split a matrix's rows over the lanes, and a team of one
+// lane (TS = 1) runs them as plain loops.  The up-sweeps' warps
+// (OperandReader) and the down-sweeps' blocks (BlockSweep) copy each
+// layer's operands ahead into shared memory.  team_config / team_launch
+// (CUDA only) choose and launch the five team kernels' block shapes.
 //
 // The bodies are plain C++ on scalars.  Built with nvcc they are device
 // functions; built by a host C++ compiler (see host_check.cpp) the same
@@ -28,11 +30,13 @@
 #define SPX_DEV __device__ __forceinline__
 #define SPX_HD __host__ __device__ inline
 #define SPX_UNROLL _Pragma("unroll")
+#define SPX_UNROLL4 _Pragma("unroll 4")
 #else
 #include <cmath>
 #define SPX_DEV inline
 #define SPX_HD inline
 #define SPX_UNROLL
+#define SPX_UNROLL4
 namespace spx {
 using std::ceil;
 using std::fabs;
@@ -161,6 +165,41 @@ SPX_DEV void tmm(const Team<TS>& tm, MO out, MA a, MB b, int n, int p, int m,
   tm.sync();
 }
 
+// acc + sum_k a(i, k) x[k], k = 0, ..., p - 1 in order (four terms' loads
+// at once, so a lane waits once for four shared-memory loads)
+template <typename T, class MA, class VX>
+SPX_DEV T dot_row(const MA& a, int i, const VX& x, int p, T acc) {
+  int k = 0;
+  for (; k + 4 <= p; k += 4) {
+    T av[4], xv[4];
+    SPX_UNROLL
+    for (int u = 0; u < 4; ++u) av[u] = a(i, k + u), xv[u] = x[k + u];
+    SPX_UNROLL
+    for (int u = 0; u < 4; ++u) acc += av[u] * xv[u];
+  }
+  for (; k < p; ++k) acc += a(i, k) * x[k];
+  return acc;
+}
+
+// dot_row on two vectors at once: acc0 + a(i, :) x0 and acc1 + a(i, :) x1,
+// each in order, each entry of a loaded once
+template <typename T, class MA, class VX>
+SPX_DEV void dot_row2(const MA& a, int i, const VX& x0, const VX& x1, int p, T& acc0,
+                      T& acc1) {
+  int k = 0;
+  for (; k + 4 <= p; k += 4) {
+    T av[4], y0[4], y1[4];
+    SPX_UNROLL
+    for (int u = 0; u < 4; ++u) av[u] = a(i, k + u), y0[u] = x0[k + u], y1[u] = x1[k + u];
+    SPX_UNROLL
+    for (int u = 0; u < 4; ++u) acc0 += av[u] * y0[u], acc1 += av[u] * y1[u];
+  }
+  for (; k < p; ++k) {
+    const T av = a(i, k);
+    acc0 += av * x0[k], acc1 += av * x1[k];
+  }
+}
+
 // Team pivot-free solve a X = rhs (a n x n, destroyed; rhs n x m,
 // overwritten by X), the arithmetic of solve_inplace below: the
 // elimination splits the rows over the lanes, one broadcast pivot row per
@@ -226,17 +265,6 @@ SPX_DEV void mmc(Col<T> out, Col<T> a, Col<T> b, int n, int p, int m,
   mm(out, m, a, p, b, m, n, p, m, accumulate);
 }
 
-// out[i] (+)= sum_k a[i*p + k] * x[k]  (matrix-vector, contiguous rows).
-template <typename T>
-SPX_DEV void mv(Col<T> out, Col<T> a, Col<T> x, int n, int p,
-                bool accumulate = false) {
-  for (int i = 0; i < n; ++i) {
-    T acc = accumulate ? out[i] : T(0);
-    for (int k = 0; k < p; ++k) acc += a[i * p + k] * x[k];
-    out[i] = acc;
-  }
-}
-
 // Pivot-free in-place solve a X = rhs: a is (n x n) with row stride as and
 // is destroyed; rhs is (n x m) with row stride rs and is overwritten by X.
 // The SPARTACUS matrices are diagonally dominant by construction, as in the
@@ -259,16 +287,6 @@ SPX_DEV void solve_inplace(Col<T> a, int as, Col<T> rhs, int rs, int n, int m) {
       rhs[i * rs + j] = acc * rd;
     }
   }
-}
-
-template <typename T>
-SPX_DEV void copy(Col<T> dst, Col<T> src, int rows) {
-  for (int i = 0; i < rows; ++i) dst[i] = src[i];
-}
-
-template <typename T>
-SPX_DEV void fill(Col<T> dst, int rows, T value) {
-  for (int i = 0; i < rows; ++i) dst[i] = value;
 }
 
 // An up-sweep's slab (K2, K4), per element: the carry [AA | D] (nd x nd
@@ -367,20 +385,46 @@ SPX_DEV void below_row(const MR& R, const MT& Tl, const MX& X, const MO& out, in
   }
 }
 
-// The N per-layer operands of an up-sweep, each [L, rows, W]: W the batch
-// B (one copy per element) or, with per_col, the column count C (element b
-// reads column b / S).
+// The N per-layer operands of a sweep, each [L, rows, W]: W the batch B
+// (one copy per element) or, with per_col, the column count C (element b
+// reads column b / S).  The down-sweeps also give each operand's columns
+// (a row-major matrix of rows / cols x cols; 0: one) and its layer pitch in
+// rows (0: rows; a part of the stack has the stack's).
 template <typename T, int N>
 struct LayerOperands {
   const T* p[N];
   int rows[N];
   bool per_col[N];
+  int cols[N];
+  int pitch[N];
   SPX_HD int total() const {
     int t = 0;
     for (int s = 0; s < N; ++s) t += rows[s];
     return t;
   }
+  SPX_HD int ncols(int s) const { return cols[s] > 0 ? cols[s] : 1; }
+  // the row stride of operand s in a down-sweep's copy-ahead buffer: odd,
+  // so a team's lanes reading their own rows hit distinct banks
+  SPX_HD int ld(int s) const { return ncols(s) == 1 ? 1 : (ncols(s) | 1); }
+  SPX_HD int padded(int s) const { return rows[s] / ncols(s) * ld(s); }
 };
+
+// n rounded up so that teams of TS lanes whose regions are n entries of
+// `words` 4-byte words apart start TS banks apart (a team of one: n).
+SPX_HD int bank_stride(int n, int TS, int words) {
+  if (TS < 2) return n;
+  while ((n * words) % 32 != TS % 32) ++n;
+  return n;
+}
+
+// A down-sweep's copy-ahead slot per element (K3, K5): its operands'
+// padded entries, rounded by bank_stride.
+template <typename T, int N>
+SPX_HD int slot_stride(const LayerOperands<T, N>& ops, int TS, int words) {
+  int n = 0;
+  for (int s = 0; s < N; ++s) n += ops.padded(s);
+  return bank_stride(n, TS, words);
+}
 
 // Where a team of an up-sweep reads its element's layer operands: straight
 // from device memory (AHEAD false: views of stride B or C; the host build,
@@ -460,59 +504,181 @@ struct OperandReader {
   }
 };
 
+// A down-sweep's block (K3, K5): its E teams on the E consecutive elements
+// b0, ..., b0 + E - 1 walk the layers from the top down, together.  Where
+// a team reads its element's layer operands: with AHEAD, from the block's
+// two copy-ahead slots in shared memory, each one layer's operands of the
+// block's elements (per element es entries: each matrix at its odd row
+// stride ld, so a team's lanes reading their own rows hit distinct banks;
+// elements es apart, so the teams of a warp start TS banks apart).  While
+// the block computes layer l, layer l - 1 is in flight: every thread of the
+// block copies (cp.async), neighbouring threads taking neighbouring elements
+// of one row, so each row of E elements is E x sizeof(T) contiguous bytes of
+// device memory (whole 32-byte sectors from 8 f32 / 4 f64 elements on).
+// begin(l) waits for layer l (a block barrier) and starts the copy of l - 1
+// into the slot of l + 1, which store(l + 1)'s barrier freed.  Without AHEAD
+// (the host build, and the card's kernel whose slots exceed a block's shared
+// memory) a team reads its operands straight from device memory.  Each team
+// stages its output rows of layer l in its slab (out(l); two layers' rows,
+// by parity), and store(l) (a block barrier) writes the block's rows to
+// `outs`, again neighbouring threads on neighbouring elements.  Every thread
+// of the block calls start, begin and store, in step; a team past the
+// batch's end runs on the last element and stores nothing.
+template <typename T, int N, bool AHEAD>
+struct BlockSweep {
+  LayerOperands<T, N> ops;
+  long long B, C, b, b0;
+  int S, L, E, e, es, stride, out_off, n_out;
+  T *smem, *outs;  // the block's slabs (E of `stride` entries), then its slots
+  int off[N];      // each operand's offset in an element's slot
+
+  SPX_DEV BlockSweep(const LayerOperands<T, N>& o, long long B_, int S_, int L_,
+                     long long b0_, int E_, int e_, int es_, T* smem_, int stride_,
+                     int out_off_, int n_out_, T* outs_)
+      : ops(o), B(B_), C(B_ / S_), b(b0_ + e_ < B_ ? b0_ + e_ : B_ - 1), b0(b0_),
+        S(S_), L(L_), E(E_), e(e_), es(es_), stride(stride_), out_off(out_off_),
+        n_out(n_out_), smem(smem_), outs(outs_) {
+    int run = 0;
+    for (int s = 0; s < N; ++s) {
+      off[s] = run;
+      run += ops.padded(s);
+    }
+  }
+  // operand s of layer l for this element, a matrix of its columns
+  SPX_DEV auto mat(int s, int l) const {
+    if constexpr (AHEAD) {
+      T* slots = smem + E * stride;
+      return Mat<Sh<T>>{Sh<T>{slots + ((l & 1) * E + e) * es + off[s]}, ops.ld(s)};
+    } else {
+      const long long W = ops.per_col[s] ? C : B, x = ops.per_col[s] ? b / S : b;
+      const int pitch = ops.pitch[s] > 0 ? ops.pitch[s] : ops.rows[s];
+      return Mat<Col<T>>{
+          Col<T>{const_cast<T*>(ops.p[s]) + (long long)l * pitch * W + x, W},
+          ops.ncols(s)};
+    }
+  }
+  // this team's output rows of layer l
+  SPX_DEV Sh<T> out(int l) const {
+    return Sh<T>{smem + e * stride + out_off + (l & 1) * n_out};
+  }
+  SPX_DEV void store(int l) const {
+#ifdef __CUDACC__
+    __syncthreads();
+    const int t0 = threadIdx.x, nt = blockDim.x;
+#else
+    const int t0 = 0, nt = 1;
+#endif
+    for (int i = t0; i < n_out * E; i += nt) {
+      const int r = i / E, k = i - r * E;
+      if (b0 + k < B)
+        outs[((long long)l * n_out + r) * B + b0 + k] =
+            smem[k * stride + out_off + (l & 1) * n_out + r];
+    }
+  }
+#ifdef __CUDACC__
+  // Layer l into slot l & 1: thread t copies entries t / E, + blockDim.x /
+  // E, ... of each operand's rows for element t % E.
+  SPX_DEV void copy(int l) const {
+    T* dst0 = smem + E * stride + (l & 1) * E * es;
+    const int el = threadIdx.x % E, j0 = threadIdx.x / E, q = blockDim.x / E;
+    const long long xb = b0 + el < B ? b0 + el : B - 1;
+    SPX_UNROLL
+    for (int s = 0; s < N; ++s) {
+      const long long W = ops.per_col[s] ? C : B;
+      const int pitch = ops.pitch[s] > 0 ? ops.pitch[s] : ops.rows[s];
+      const T* src = ops.p[s] + (long long)l * pitch * W + (ops.per_col[s] ? xb / S : xb);
+      const int m = ops.ncols(s), ld = ops.ld(s), qi = q / m, qc = q - qi * m;
+      T* dst = dst0 + el * es + off[s];
+      int i = j0 / m, c = j0 - i * m;
+      src += (long long)j0 * W;
+      for (int idx = j0; idx < ops.rows[s]; idx += q, src += q * W) {
+        __pipeline_memcpy_async(dst + i * ld + c, src, sizeof(T));
+        i += qi, c += qc;
+        if (c >= m) c -= m, ++i;
+      }
+    }
+    __pipeline_commit();
+  }
+#endif
+  SPX_DEV void start() const {
+#ifdef __CUDACC__
+    if constexpr (AHEAD) copy(L - 1);
+#endif
+  }
+  SPX_DEV void begin(int l) const {
+#ifdef __CUDACC__
+    if constexpr (AHEAD) {
+      if (l > 0)
+        copy(l - 1);
+      else
+        __pipeline_commit();  // an empty group keeps the count
+      __pipeline_wait_prior(1);
+      __syncthreads();
+    }
+#endif
+  }
+};
+
 // A team kernel's launch configuration (team_config writes it, the
 // wrappers keep it per kernel, dtype and shape, and set the grid per call;
 // team_launch reads it): team size, teams a block, threads a block, slab
 // bytes (one team's slab, its stride), shared bytes a block, resident
-// blocks an SM, registers a thread, SMs, global slab (0 / 1), grid.
-#define SPX_TEAM_INFO 10
+// blocks an SM, registers a thread, SMs, global slab (0 / 1), grid,
+// fallback (0 / 1: the kernel for what a block's shared memory cannot hold).
+#define SPX_TEAM_INFO 11
 
 #ifdef __CUDACC__
 
 // The configuration of a team kernel at team size TS over n elements:
 // each team a slab of slab_elems entries in shared memory (stride rounded
 // up so the teams of a warp start TS banks apart) plus `extra` entries of
-// shared memory (an up-sweep's copy-ahead buffers); blocks of two or four
-// warps, whichever keeps more teams resident on an SM (the CUDA occupancy
-// calculator: shared memory, registers), or one warp where two do not fit
-// (blocks of one warp ran K1 at the rami5 shape in f32 1.8x slower than
-// blocks of two at the same resident teams, on the H100).  Where one
-// team's slab and extra exceed the shared memory a block may take, and
-// k_global is given, k_global runs instead: its slabs in a global scratch
-// of one slab a resident team (the grid no larger than the resident
-// blocks) and nothing in shared memory (an up-sweep's global kernel reads
-// its operands from device memory).  Both kernels may take up to the
-// card's shared memory per block.
+// shared memory (a sweep's copy-ahead buffers); blocks of at least
+// min_per_block teams (a down-sweep's whole sectors; fewer only where no
+// such block fits) and of two or four warps, whichever keeps more teams
+// resident on an SM (the CUDA occupancy calculator: shared memory,
+// registers), or one or else eight warps where none of those fits (blocks
+// of one warp ran K1 at the rami5 shape in f32 1.8x slower than blocks of
+// two at the same resident teams, on the H100).
+// Where one team's slab and extra exceed the shared memory a block may
+// take, and k_fallback is given, k_fallback runs instead, with nothing of
+// extra: its slabs in shared memory where fallback_shared_slab (a
+// down-sweep's direct-read kernel), else in a global scratch of one slab a
+// resident team (the grid no larger than the resident blocks) and nothing
+// in shared memory (an up-sweep's global kernel reads its operands from
+// device memory).  Both kernels may take up to the card's shared memory per
+// block.
 template <typename T, int TS, class K>
-static cudaError_t team_config(K* k_shared, K* k_global, int slab_elems,
-                               int extra, long long n, long long* info) {
-  int stride = slab_elems;
-  const int words = (int)(sizeof(T) / 4);
-  while ((stride * words) % 32 != TS % 32) ++stride;
+static cudaError_t team_config(K* k_shared, K* k_fallback, int slab_elems,
+                               int extra, long long n, long long* info,
+                               int min_per_block = 1, bool fallback_shared_slab = false) {
+  const int stride = bank_stride(slab_elems, TS, (int)(sizeof(T) / 4));
   int device = 0, optin = 0, sms = 1;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const long long slab = (long long)stride * sizeof(T);
   const long long own = slab + extra * (long long)sizeof(T);
-  const bool global = k_global != nullptr && own > optin;
-  K* k = global ? k_global : k_shared;
+  const bool fallback = k_fallback != nullptr && own > optin;
+  const bool global = fallback && !fallback_shared_slab;
+  K* k = fallback ? k_fallback : k_shared;
   cudaError_t err = cudaFuncSetAttribute(
       k_shared, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess && k_global != nullptr)
-    err = cudaFuncSetAttribute(k_global, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (err == cudaSuccess && k_fallback != nullptr)
+    err = cudaFuncSetAttribute(k_fallback, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
-  const long long per_team = global ? 0 : own;
+  const long long per_team = global ? 0 : fallback ? slab : own;
   int per_block = 1, blocks_sm = 0;
-  for (const int warps : {2, 4, 1}) {
-    if (err != cudaSuccess || (warps == 1 && blocks_sm > 0)) break;
-    const int pb = warps * 32 / TS;
-    if (pb * per_team > optin) continue;
-    int b = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, pb * TS,
-                                                        (size_t)(pb * per_team));
-    if (b * pb > blocks_sm * per_block) per_block = pb, blocks_sm = b;
-  }
+  for (int least = min_per_block; err == cudaSuccess && blocks_sm == 0 && least > 0;
+       least = least > 1 ? 1 : 0)  // then blocks of fewer teams, where none fits
+    for (const int warps : {2, 4, 1, 8}) {
+      if (err != cudaSuccess || ((warps == 1 || warps == 8) && blocks_sm > 0)) break;
+      const int pb = warps * 32 / TS;
+      if (pb < least || pb * per_team > optin) continue;
+      int b = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, pb * TS,
+                                                          (size_t)(pb * per_team));
+      if (b * pb > blocks_sm * per_block) per_block = pb, blocks_sm = b;
+    }
   cudaFuncAttributes fa{};
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, k);
   if (err == cudaSuccess && blocks_sm == 0) err = cudaErrorInvalidConfiguration;
@@ -521,7 +687,7 @@ static cudaError_t team_config(K* k_shared, K* k_global, int slab_elems,
   if (global && grid > (long long)blocks_sm * sms) grid = (long long)blocks_sm * sms;
   const long long vals[SPX_TEAM_INFO] = {
       TS, per_block, per_block * TS, slab, per_block * per_team, blocks_sm,
-      fa.numRegs, sms, global, grid};
+      fa.numRegs, sms, global, grid, fallback};
   for (int i = 0; i < SPX_TEAM_INFO; ++i) info[i] = vals[i];
   return err;
 }
@@ -556,13 +722,35 @@ __device__ void up_sweep_teams(const LayerOperands<T, N>& ops, long long B,
   }
 }
 
+// The body of a down-sweep's team kernel (K3, K5): teams of TS lanes,
+// E = blockDim.x / TS of them a block on E consecutive elements, the block
+// taking the elements b0 = its index x E, + the grid's elements, ...; each
+// team's slab (stride entries) in dynamic shared memory, after the slabs
+// (AHEAD) the block's two copy-ahead slots of es entries an element
+// (BlockSweep).  body(tm, bs, valid, slab) runs one element.
+template <typename T, int TS, bool AHEAD, int N, class F>
+__device__ void down_sweep_teams(const LayerOperands<T, N>& ops, long long B, int S, int L,
+                                 int stride, int es, int out_off, int n_out, T* outs,
+                                 F body) {
+  extern __shared__ __align__(16) unsigned char spx_team_smem[];
+  T* smem = reinterpret_cast<T*>(spx_team_smem);
+  const int E = blockDim.x / TS, team = threadIdx.x / TS;
+  const unsigned ones = (unsigned)((1ull << TS) - 1ull);
+  const Team<TS> tm{(int)(threadIdx.x % TS), ones << ((threadIdx.x % 32) / TS * TS)};
+  for (long long b0 = (long long)blockIdx.x * E; b0 < B; b0 += (long long)gridDim.x * E) {
+    const BlockSweep<T, N, AHEAD> bs(ops, B, S, L, b0, E, team, es, smem, stride, out_off,
+                                     n_out, outs);
+    body(tm, bs, b0 + team < B, smem + team * stride);
+  }
+}
+
 // Launch a team kernel as `info` (team_config's, grid set by the caller)
-// says: the global-slab kernel where info names a global slab.
+// says: the fallback kernel where info names it.
 template <class K, class... Args>
 static int team_launch(K* k_shared, K* k_global, const long long* info,
                        cudaStream_t stream, Args... args) {
   if (info == nullptr) return (int)cudaErrorInvalidValue;
-  K* k = info[8] ? k_global : k_shared;
+  K* k = info[10] ? k_global : k_shared;
   if (k == nullptr || info[9] < 1) return (int)cudaErrorInvalidConfiguration;
   k<<<(unsigned)info[9], (unsigned)info[2], (size_t)info[4], stream>>>(args...);
   return (int)cudaGetLastError();

@@ -3,7 +3,7 @@
 // K6 and K7): each "launch" runs the thread function for
 // every thread index in turn, on host memory, with the same arguments as the
 // CUDA launchers (a launch configuration is taken and ignored).  The team
-// bodies (K1, K2, K4) run as a team of one lane (TS = 1) per element on a
+// bodies (K1-K5) run as a team of one lane (TS = 1) per element on a
 // host slab laid out as on the card, which is filled with NaN before each
 // element, so a read of a slot the body has not written shows in the
 // results.  Built with a host C++ compiler; nvcc never sees this file.
@@ -31,7 +31,7 @@ static void factory_host(SPX_FACTORY_PARAMS) {
 // of one lane per element, one element a "block", the slab in host memory
 // (no scratch).
 static int team_config_host(long long slab_bytes, long long n, long long* info) {
-  const long long vals[SPX_TEAM_INFO] = {1, 1, 1, slab_bytes, 0, 1, 0, 1, 0, n};
+  const long long vals[SPX_TEAM_INFO] = {1, 1, 1, slab_bytes, 0, 1, 0, 1, 0, n, 0};
   for (int i = 0; i < SPX_TEAM_INFO; ++i) info[i] = vals[i];
   return 0;
 }
@@ -57,10 +57,21 @@ static void up_host(SPX_UP_PARAMS) {
   }
 }
 
+// K3 and K5: each element's team body as a team of one lane, reading its
+// operands from host memory, on a slab filled with NaN first, its output
+// rows staged there and stored as on the card.
 template <typename T>
 static void down_host(SPX_DOWN_PARAMS) {
   const auto A = spx::down_args<T>(SPX_DOWN_ARGS);
-  for (long long b = 0; b < B; ++b) spx::sw_down_thread(A, b);
+  const spx::SwDownSlab D = spx::sw_down_slab(A);
+  std::vector<T> slab;
+  for (long long b = 0; b < B; ++b) {
+    slab.assign(D.size, std::numeric_limits<T>::quiet_NaN());
+    const spx::BlockSweep<T, spx::K3_NOPS, false> bs(
+        spx::sw_down_operands(A), B, S, L, b, 1, 0, 0, slab.data(), D.size, D.out,
+        D.n_out, A.outs);
+    spx::sw_down_team<1>(A, D, spx::Team<1>{0, 0u}, bs, true, slab.data());
+  }
 }
 
 template <typename T>
@@ -79,7 +90,15 @@ static void lw_up_host(SPX_LW_UP_PARAMS) {
 template <typename T>
 static void lw_down_host(SPX_LW_DOWN_PARAMS) {
   const auto A = spx::lw_down_args<T>(SPX_LW_DOWN_ARGS);
-  for (long long b = 0; b < B; ++b) spx::lw_down_thread(A, b);
+  const spx::LwDownSlab D = spx::lw_down_slab(A);
+  std::vector<T> slab;
+  for (long long b = 0; b < B; ++b) {
+    slab.assign(D.size, std::numeric_limits<T>::quiet_NaN());
+    const spx::BlockSweep<T, spx::K5_NOPS, false> bs(
+        spx::lw_down_operands(A), B, S, L, b, 1, 0, 0, slab.data(), D.size, D.out,
+        D.n_out, A.outs);
+    spx::lw_down_team<1>(A, D, spx::Team<1>{0, 0u}, bs, true, slab.data());
+  }
 }
 
 template <typename T>
@@ -129,13 +148,23 @@ int sw_up_sweep_config_f64(int nd, int ns, int nreg, long long B, long long* inf
   return team_config_host(
       spx::up_slab(nd, ns, nreg, nreg, nreg + 1).size * sizeof(double), B, info);
 }
-int sw_down_sweep_f32(SPX_DOWN_PARAMS, void*) {
+int sw_down_sweep_f32(SPX_DOWN_PARAMS, const long long*, void*) {
   down_host<float>(SPX_DOWN_ARGS);
   return 0;
 }
-int sw_down_sweep_f64(SPX_DOWN_PARAMS, void*) {
+int sw_down_sweep_f64(SPX_DOWN_PARAMS, const long long*, void*) {
   down_host<double>(SPX_DOWN_ARGS);
   return 0;
+}
+int sw_down_sweep_config_f32(int nd, int ns, int nreg, int do_urban, int with_profiles,
+                             long long B, long long* info) {
+  return team_config_host(
+      spx::sw_down_slab(nd, ns, nreg, do_urban, with_profiles).size * sizeof(float), B, info);
+}
+int sw_down_sweep_config_f64(int nd, int ns, int nreg, int do_urban, int with_profiles,
+                             long long B, long long* info) {
+  return team_config_host(
+      spx::sw_down_slab(nd, ns, nreg, do_urban, with_profiles).size * sizeof(double), B, info);
 }
 int lw_up_sweep_f32(SPX_LW_UP_PARAMS, const long long*, void*) {
   lw_up_host<float>(SPX_LW_UP_ARGS);
@@ -153,13 +182,23 @@ int lw_up_sweep_config_f64(int nd, int ns, int nreg, long long B, long long* inf
   return team_config_host(
       spx::up_slab(nd, ns, nreg, 1, 1).size * sizeof(double), B, info);
 }
-int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, void*) {
+int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, const long long*, void*) {
   lw_down_host<float>(SPX_LW_DOWN_ARGS);
   return 0;
 }
-int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, void*) {
+int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, const long long*, void*) {
   lw_down_host<double>(SPX_LW_DOWN_ARGS);
   return 0;
+}
+int lw_down_sweep_config_f32(int nd, int ns, int nreg, int do_urban, int with_profiles,
+                             long long B, long long* info) {
+  return team_config_host(
+      spx::lw_down_slab(nd, ns, nreg, do_urban, with_profiles).size * sizeof(float), B, info);
+}
+int lw_down_sweep_config_f64(int nd, int ns, int nreg, int do_urban, int with_profiles,
+                             long long B, long long* info) {
+  return team_config_host(
+      spx::lw_down_slab(nd, ns, nreg, do_urban, with_profiles).size * sizeof(double), B, info);
 }
 int fma_chain_f32(SPX_FMA_PARAMS, void*) {
   fma_host<float>(SPX_FMA_ARGS);

@@ -4,7 +4,7 @@
 // counter for every add, subtract, multiply and divide it performs (an fma
 // counts two); negation, fabs, fmax, fmin, ceil, log2, ldexp and sqrt count
 // nothing.  Each "launch" runs the thread function for every thread index in
-// turn (K1, K2, K4: their team bodies as a team of one lane per element, so
+// turn (K1-K5: their team bodies as a team of one lane per element, so
 // an element's work counts once, not once per lane) and records that
 // thread's count.
 // Counted<double> has the size and
@@ -66,7 +66,7 @@ static std::vector<long long> thread_flops;  // one entry per thread run
 // a team kernel's configuration (SPX_TEAM_INFO): a team of one lane per
 // element
 static int config_host(long long n, long long* info) {
-  const long long vals[SPX_TEAM_INFO] = {1, 1, 1, 0, 0, 1, 0, 1, 0, n};
+  const long long vals[SPX_TEAM_INFO] = {1, 1, 1, 0, 0, 1, 0, 1, 0, n, 0};
   for (int i = 0; i < SPX_TEAM_INFO; ++i) info[i] = vals[i];
   return 0;
 }
@@ -119,10 +119,20 @@ int sw_up_sweep_f64(SPX_UP_PARAMS, const long long*, void*) {
 int sw_up_sweep_config_f64(int, int, int, long long B, long long* info) {
   return config_host(B, info);
 }
-int sw_down_sweep_f64(SPX_DOWN_PARAMS, void*) {
+int sw_down_sweep_f64(SPX_DOWN_PARAMS, const long long*, void*) {
   const auto A = spx::down_args<CT>(SPX_DOWN_ARGS);
-  each_thread(B, [&](long long b) { spx::sw_down_thread(A, b); });
+  const spx::SwDownSlab D = spx::sw_down_slab(A);
+  std::vector<CT> slab(D.size);
+  each_thread(B, [&](long long b) {
+    const spx::BlockSweep<CT, spx::K3_NOPS, false> bs(
+        spx::sw_down_operands(A), B, S, L, b, 1, 0, 0, slab.data(), D.size, D.out,
+        D.n_out, A.outs);
+    spx::sw_down_team<1>(A, D, spx::Team<1>{0, 0u}, bs, true, slab.data());
+  });
   return 0;
+}
+int sw_down_sweep_config_f64(int, int, int, int, int, long long B, long long* info) {
+  return config_host(B, info);
 }
 int lw_up_sweep_f64(SPX_LW_UP_PARAMS, const long long*, void*) {
   const auto A = spx::lw_up_args<CT>(SPX_LW_UP_ARGS);
@@ -138,9 +148,19 @@ int lw_up_sweep_f64(SPX_LW_UP_PARAMS, const long long*, void*) {
 int lw_up_sweep_config_f64(int, int, int, long long B, long long* info) {
   return config_host(B, info);
 }
-int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, void*) {
+int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, const long long*, void*) {
   const auto A = spx::lw_down_args<CT>(SPX_LW_DOWN_ARGS);
-  each_thread(B, [&](long long b) { spx::lw_down_thread(A, b); });
+  const spx::LwDownSlab D = spx::lw_down_slab(A);
+  std::vector<CT> slab(D.size);
+  each_thread(B, [&](long long b) {
+    const spx::BlockSweep<CT, spx::K5_NOPS, false> bs(
+        spx::lw_down_operands(A), B, S, L, b, 1, 0, 0, slab.data(), D.size, D.out,
+        D.n_out, A.outs);
+    spx::lw_down_team<1>(A, D, spx::Team<1>{0, 0u}, bs, true, slab.data());
+  });
   return 0;
+}
+int lw_down_sweep_config_f64(int, int, int, int, int, long long B, long long* info) {
+  return config_host(B, info);
 }
 }

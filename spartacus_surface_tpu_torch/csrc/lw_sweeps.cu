@@ -18,11 +18,13 @@
 // The ground operators depend only on the element, so K4 builds them
 // instead of reading them.
 //
-// K5: one thread per element walks the layers top to bottom with its carry
-// in a struct-of-arrays global workspace, as K3 does; it reads the stack
-// and ~3 nd^2 + 2 nd rows of operators per layer for the O(nd2^2) FMAs of
-// its matvecs (bound by bytes), and runs both source modes in one layer
-// step so each layer's operands and stack are read once.
+// K5 has K3's design on the H100 (sw_sweeps.cu): teams of TS lanes, a
+// block's E elements walking the layers from the top down, the carry (both
+// modes' down fluxes) and each layer step's vectors in a shared-memory slab
+// (lw_down_slab), both source modes side by side in each step, the next
+// layer's operands (the stack and ~5 nd^2 + 3 nd rows of operators, 1,052
+// rows at the rami5 shape) copied ahead block-wide in whole sectors, the
+// output rows staged and stored block-wide.
 
 #include "common.cuh"
 
@@ -32,7 +34,7 @@ namespace spx {
 // a_below | source_below] (ops/lw_sweep_kernels.py lw_stack_rows).
 struct LwStackLayout {
   int aa, sa, inv, ab, sb, rows;
-  SPX_DEV LwStackLayout(int nd, int ns, int nreg) {
+  SPX_HD LwStackLayout(int nd, int ns, int nreg) {
     const int nd2 = (nreg + 1) * ns;
     aa = 0;
     sa = nd * nd;
@@ -193,129 +195,247 @@ SPX_DEV void lw_up_team(const LwUpArgs<T>& A, const UpSlab& S, const Team<TS>& t
 template <typename T>
 struct LwDownArgs {
   const T *R, *Tm, *p, *idif, *isrc, *stacks, *vov, *aux, *hw, *rmu, *rtan;
-  T *outs, *fin, *ws;
+  T *outs, *fin;
   int nd, ns, nreg, L, S, do_urban, with_profiles;
   long long B;
 };
 
 // Output rows of one mode, in the order of lw_out_rows.
-SPX_DEV int lw_out_count(int nreg, int do_urban, int with_profiles) {
+SPX_HD int lw_out_count(int nreg, int do_urban, int with_profiles) {
   return 3 + (nreg > 1 ? 2 : 0) + (do_urban ? 2 : 0) + (with_profiles ? 4 : 0);
 }
 
-// K5: LW fluxes from the canopy top down, internal-emission and incoming
-// modes (radsurf_urban_lw.F90:639-805).
+// K5's layer operands, in the order of its copy-ahead slot (and of their
+// first reads in a layer step)
+enum { K5_V, K5_AB, K5_SB, K5_T, K5_SA, K5_R, K5_P, K5_INV, K5_AA, K5_IDIF, K5_ISRC, K5_X, K5_NOPS };
+
 template <typename T>
-SPX_DEV void lw_down_thread(const LwDownArgs<T>& A, long long b) {
+SPX_HD LayerOperands<T, K5_NOPS> lw_down_operands(const LwDownArgs<T>& A) {
+  const int nd = A.nd, nreg = A.nreg, nregp = nreg + 1, nd2 = nregp * A.ns;
+  const int n_aux = nreg + (nreg > 1 ? nreg - 1 : 1) + 7;
+  const LwStackLayout sl(nd, A.ns, nreg);
+  const long long B = A.B;
+  const T* st = A.stacks;
+  const int n2 = nd * nd, sr = sl.rows;
+  return LayerOperands<T, K5_NOPS>{
+      {A.vov, st + sl.ab * B, st + sl.sb * B, A.Tm, st + sl.sa * B, A.R, A.p,
+       st + sl.inv * B, st + sl.aa * B, A.idif, A.isrc, A.aux},
+      {nregp * nreg, nd2 * nd2, nd2, n2, nd, n2, nd, n2, n2, n2, nd, n_aux},
+      {true, false, false, false, false, false, false, false, false, false, false, false},
+      {nreg, nd2, 1, nd, 1, nd, 1, nd, nd, nd, 1, 1},
+      {0, sr, sr, 0, sr, 0, 0, sr, sr, 0, 0, 0}};
+}
+
+// K5's slab, per element: the carry (each mode's dn, nd: the rows of fin
+// in order), each mode's vectors of a layer step (from `mode`, `mstride`
+// apart), source_above (read again later in the step), the step's sums
+// (lw_down_sums) and two layers' output rows.
+struct LwDownSlab {
+  int mode, mstride, dbf, upb, wrk, dnn, upa, ifl, sav, sums, out, n_out, size;
+};
+
+// The sums of a K5 layer step: per mode (from mode x per) roof_in, roof_up,
+// the four profile sums, if_mu (nreg) and if_tan (nreg).
+SPX_HD int lw_down_sums(int nreg, int* per) {
+  *per = 6 + 2 * nreg;
+  return 2 * *per;
+}
+
+SPX_HD LwDownSlab lw_down_slab(int nd, int ns, int nreg, int do_urban, int with_profiles) {
+  LwDownSlab D{};
+  const int nd2 = (nreg + 1) * ns;
+  D.mode = 2 * nd;
+  D.dbf = 0;
+  D.upb = nd2;
+  D.wrk = 2 * nd2;
+  D.dnn = D.wrk + nd;
+  D.upa = D.dnn + nd;
+  D.ifl = D.upa + nd;
+  D.mstride = D.ifl + nd;
+  D.sav = D.mode + 2 * D.mstride;
+  D.sums = D.sav + nd;
+  int per;
+  D.out = D.sums + lw_down_sums(nreg, &per);
+  D.n_out = 2 * lw_out_count(nreg, do_urban, with_profiles);
+  D.size = D.out + 2 * D.n_out;
+  return D;
+}
+
+template <typename T>
+SPX_HD LwDownSlab lw_down_slab(const LwDownArgs<T>& A) {
+  return lw_down_slab(A.nd, A.ns, A.nreg, A.do_urban, A.with_profiles);
+}
+
+// K5: LW fluxes from the canopy top down, internal-emission and incoming
+// modes (radsurf_urban_lw.F90:639-805), one element (bs.b; a team of TS
+// lanes, TS = 1 on the host) with its slab, as K3's (sw_sweeps.cu
+// sw_down_team): both modes side by side, the step's sums split over the
+// lanes.  Stores nothing where !valid.
+template <int TS, typename T, class Sweep>
+SPX_DEV void lw_down_team(const LwDownArgs<T>& A, const LwDownSlab& D, const Team<TS>& tm,
+                          const Sweep& bs, bool valid, T* slab) {
   const int nd = A.nd, ns = A.ns, nreg = A.nreg, nregp = nreg + 1;
-  const int nd2 = nregp * ns, n2 = nd * nd, nod = nreg > 1 ? nreg - 1 : 1;
+  const int nd2 = nregp * ns, nod = nreg > 1 ? nreg - 1 : 1;
   // aux rows: [f_wall (nreg) | od (nod) | ab | vb | weps | sub_air |
   // sub_vegair | sub_veg | sub_wall]
-  const int a_ab = nreg + nod, n_aux = nreg + nod + 7;
-  const int n_rows = lw_out_count(nreg, A.do_urban, A.with_profiles);
-  const long long B = A.B, C = B / A.S, c = b / A.S;
-  const LwStackLayout sl(nd, ns, nreg);
-  auto lay = [&](const T* ptr, int rows, int l) {
-    return Col<T>{const_cast<T*>(ptr) + (long long)l * rows * B + b, B};
-  };
-  // workspace: DN (2 modes x nd) | DBF | UPB | WRK | DNN | UPA | IFL
-  const Col<T> DN{A.ws + b, B};
-  const Col<T> DBF = DN.at(2 * nd), UPB = DBF.at(nd2), WRK = UPB.at(nd2),
-               DNN = WRK.at(nd), UPA = DNN.at(nd), IFL = UPA.at(nd);
+  const int a_ab = nreg + nod;
+  const long long B = A.B, b = bs.b;
+  const Sh<T> sm{slab};
   const T *hw = A.hw, *rmu = A.rmu, *rtan = A.rtan;
+  // the carry; each mode's vectors (0 internal emission, 1 incoming)
+  const auto dn0 = sm.at(0), dn1 = sm.at(nd), SAV = sm.at(D.sav);
+  auto vec = [&](int mode, int off) { return sm.at(D.mode + mode * D.mstride + off); };
+  const auto DBF0 = vec(0, D.dbf), DBF1 = vec(1, D.dbf), UPB0 = vec(0, D.upb),
+             UPB1 = vec(1, D.upb), WRK0 = vec(0, D.wrk), WRK1 = vec(1, D.wrk),
+             DNN0 = vec(0, D.dnn), DNN1 = vec(1, D.dnn), UPA0 = vec(0, D.upa),
+             UPA1 = vec(1, D.upa), IFL0 = vec(0, D.ifl), IFL1 = vec(1, D.ifl);
 
   // TOC conditions (radsurf_urban_lw.F90:639-651): mode 0 (internal
   // emission) starts from zero, mode 1 (incoming) from dn = hw in region 0
-  fill(DN, 2 * nd, T(0));
-  for (int a = 0; a < ns; ++a) DN[nd + a] = hw[a];
+  for (int i = tm.lane; i < D.mode; i += TS)
+    slab[i] = (i >= nd && i < nd + ns) ? hw[i - nd] : T(0);
+  tm.sync();
+  bs.start();
 
   for (int l = A.L - 1; l >= 0; --l) {
-    const Col<T> R = lay(A.R, n2, l), Tl = lay(A.Tm, n2, l),
-                 P = lay(A.p, nd, l), idif = lay(A.idif, n2, l),
-                 isrc = lay(A.isrc, nd, l), st = lay(A.stacks, sl.rows, l),
-                 X = lay(A.aux, n_aux, l), out = lay(A.outs, 2 * n_rows, l);
-    const Col<T> V{const_cast<T*>(A.vov) + (long long)l * nregp * nreg * C + c, C};
-    int row = 0;
-    for (int mode = 0; mode < 2; ++mode) {
-      const bool src = mode == 0;
-      const Col<T> dn = DN.at(mode * nd);
-      // translate across the interface at layer top (:656-660)
-      for (int q = 0; q < nregp; ++q)
-        for (int a = 0; a < ns; ++a) {
-          T acc = T(0);
-          for (int r = 0; r < nreg; ++r) acc += V[q * nreg + r] * dn[r * ns + a];
-          DBF[q * ns + a] = acc;
+    // phase 1: translate across the interface at layer top (:656-660), the
+    // upward flux there, the fluxes at layer base (:676-690)
+    bs.begin(l);
+    {
+      const auto V = bs.mat(K5_V, l), AB = bs.mat(K5_AB, l), SB = bs.mat(K5_SB, l),
+                 Tl = bs.mat(K5_T, l), SA = bs.mat(K5_SA, l), R = bs.mat(K5_R, l),
+                 P = bs.mat(K5_P, l);
+      for (int i = tm.lane; i < nd2; i += TS) {
+        const int q = i / ns, a = i % ns;
+        T acc0 = T(0), acc1 = T(0);
+        for (int r = 0; r < nreg; ++r) {
+          const T v = V(q, r);
+          acc0 += v * dn0[r * ns + a], acc1 += v * dn1[r * ns + a];
         }
-      mv(UPB, st.at(sl.ab), DBF, nd2, nd2);
-      if (src)
-        for (int i = 0; i < nd2; ++i) UPB[i] += st[sl.sb + i];
-      T roof_in = T(0), roof_up = T(0);
-      for (int a = 0; a < ns; ++a) {
-        roof_in += DBF[nd + a];
-        roof_up += UPB[nd + a];
+        DBF0[i] = acc0, DBF1[i] = acc1;
       }
-      // fluxes at layer base (:676-690)
-      mv(WRK, Tl, DBF, nd, nd);
-      if (src) {
-        mv(WRK, R, st.at(sl.sa), nd, nd, true);
-        for (int i = 0; i < nd; ++i) WRK[i] += P[i];
-      }
-      mv(DNN, st.at(sl.inv), WRK, nd, nd);
-      mv(UPA, st.at(sl.aa), DNN, nd, nd);
-      if (src)
-        for (int i = 0; i < nd; ++i) UPA[i] += st[sl.sa + i];
-      T sdt = T(0), sut = T(0), sdb = T(0), sub = T(0);
-      for (int i = 0; i < nd; ++i) {
-        sdt += DBF[i];
-        sut += UPB[i];
-        sdb += DNN[i];
-        sub += UPA[i];
-      }
-      // integrated fluxes (:706-712)
-      for (int i = 0; i < nd; ++i) WRK[i] = DBF[i] - DNN[i] - UPB[i] + UPA[i];
-      mv(IFL, idif, WRK, nd, nd);
-      if (src)
-        for (int i = 0; i < nd; ++i) IFL[i] += isrc[i];
-      T if_mu[3], if_tan[3];  // nreg <= 3
-      for (int r = 0; r < nreg; ++r) {
-        if_mu[r] = T(0);
-        if_tan[r] = T(0);
-        for (int a = 0; a < ns; ++a) {
-          if_mu[r] += IFL[r * ns + a] * rmu[a];
-          if_tan[r] += IFL[r * ns + a] * rtan[a];
+      tm.sync();
+      for (int i = tm.lane; i < nd2 + 2 * nd; i += TS) {
+        T acc0 = T(0), acc1 = T(0);
+        if (i < nd2) {
+          dot_row2(AB, i, DBF0, DBF1, nd2, acc0, acc1);
+          UPB0[i] = acc0 + SB(i, 0), UPB1[i] = acc1;
+        } else if (i < nd2 + nd) {
+          const int j = i - nd2;
+          dot_row2(Tl, j, DBF0, DBF1, nd, acc0, acc1);
+          WRK0[j] = dot_row(R, j, SA.v, nd, acc0) + P(j, 0), WRK1[j] = acc1;
+        } else {
+          SAV[i - nd2 - nd] = SA(i - nd2 - nd, 0);
         }
       }
-      // absorption minus emission (:714-757) and walls (:759-771)
-      const T ab = X[a_ab], vb = X[a_ab + 1], weps = X[a_ab + 2];
-      out[row++] = roof_in;
-      out[row++] = roof_in - roof_up;
-      out[row++] = ab * if_mu[0] - (src ? X[a_ab + 3] : T(0));
-      if (nreg > 1) {
-        T va = T(0), vs = T(0);
-        for (int r = 1; r < nreg; ++r) {
-          va += if_mu[r];
-          vs += if_mu[r] * X[nreg + r - 1];
-        }
-        out[row++] = ab * va - (src ? X[a_ab + 4] : T(0));
-        out[row++] = vb * vs - (src ? X[a_ab + 5] : T(0));
-      }
-      if (A.do_urban) {
-        T wall_in = T(0);
-        for (int r = 0; r < nreg; ++r) wall_in += X[r] * if_tan[r];
-        out[row++] = wall_in;
-        out[row++] = wall_in * weps - (src ? X[a_ab + 6] : T(0));
-      }
-      if (A.with_profiles) {
-        out[row++] = sdt;
-        out[row++] = sut;
-        out[row++] = sdb;
-        out[row++] = sub;
-      }
-      copy(dn, DNN, nd);
+      tm.sync();
     }
+    // phase 2: the fluxes at layer base, integrated fluxes (:706-712),
+    // absorption minus emission (:714-757) and walls (:759-771)
+    {
+      const auto INV = bs.mat(K5_INV, l), AA = bs.mat(K5_AA, l), IDIF = bs.mat(K5_IDIF, l),
+                 ISRC = bs.mat(K5_ISRC, l), X = bs.mat(K5_X, l);
+      for (int i = tm.lane; i < nd; i += TS) {
+        T acc0 = T(0), acc1 = T(0);
+        dot_row2(INV, i, WRK0, WRK1, nd, acc0, acc1);
+        DNN0[i] = acc0, DNN1[i] = acc1;
+      }
+      tm.sync();
+      for (int i = tm.lane; i < nd; i += TS) {
+        T acc0 = T(0), acc1 = T(0);
+        dot_row2(AA, i, DNN0, DNN1, nd, acc0, acc1);
+        UPA0[i] = acc0 + SAV[i], UPA1[i] = acc1;
+      }
+      tm.sync();
+      for (int i = tm.lane; i < nd; i += TS) {
+        WRK0[i] = DBF0[i] - DNN0[i] - UPB0[i] + UPA0[i];
+        WRK1[i] = DBF1[i] - DNN1[i] - UPB1[i] + UPA1[i];
+      }
+      tm.sync();
+      for (int i = tm.lane; i < nd; i += TS) {
+        T acc0 = T(0), acc1 = T(0);
+        dot_row2(IDIF, i, WRK0, WRK1, nd, acc0, acc1);
+        IFL0[i] = acc0 + ISRC(i, 0), IFL1[i] = acc1;
+      }
+      tm.sync();
+      // the step's sums (lw_down_sums), split over the lanes
+      const auto SUM = sm.at(D.sums);
+      int per;
+      const int nsums = lw_down_sums(nreg, &per);
+      for (int j = tm.lane; j < nsums; j += TS) {
+        T acc = T(0);
+        const int mode = j / per, k = j - mode * per;
+        const auto DBF = mode == 0 ? DBF0 : DBF1, UPB = mode == 0 ? UPB0 : UPB1,
+                   DNN = mode == 0 ? DNN0 : DNN1, UPA = mode == 0 ? UPA0 : UPA1,
+                   IFL = mode == 0 ? IFL0 : IFL1;
+        if (k < 2) {  // roof_in, roof_up
+          const auto v = k == 0 ? DBF : UPB;
+          SPX_UNROLL4
+          for (int a = 0; a < ns; ++a) acc += v[nd + a];
+        } else if (k < 6) {  // the profile sums
+          const auto v = k == 2 ? DBF : k == 3 ? UPB : k == 4 ? DNN : UPA;
+          SPX_UNROLL4
+          for (int i = 0; i < nd; ++i) acc += v[i];
+        } else {  // if_mu, if_tan
+          const int r = (k - 6) % nreg;
+          const T* w = k - 6 < nreg ? rmu : rtan;
+          SPX_UNROLL4
+          for (int a = 0; a < ns; ++a) acc += IFL[r * ns + a] * w[a];
+        }
+        SUM[j] = acc;
+      }
+      tm.sync();
+      // the step's output rows, in the order of lw_out_rows
+      const auto out = bs.out(l);
+      const T ab = X(a_ab, 0), vb = X(a_ab + 1, 0), weps = X(a_ab + 2, 0);
+      int row = 0;
+      SPX_UNROLL
+      for (int mode = 0; mode < 2; ++mode) {
+        const bool src = mode == 0;
+        const auto s = SUM.at(mode * per);
+        const T roof_in = s[0], roof_up = s[1], sdt = s[2], sut = s[3], sdb = s[4],
+                sub = s[5];
+        T if_mu[3], if_tan[3];  // nreg <= 3
+        for (int r = 0; r < nreg; ++r) {
+          if_mu[r] = s[6 + r];
+          if_tan[r] = s[6 + nreg + r];
+        }
+        const bool w = tm.lane == 0;
+        auto put = [&](T v) {
+          if (w) out[row] = v;
+          ++row;
+        };
+        put(roof_in);
+        put(roof_in - roof_up);
+        put(ab * if_mu[0] - (src ? X(a_ab + 3, 0) : T(0)));
+        if (nreg > 1) {
+          T va = T(0), vs = T(0);
+          for (int r = 1; r < nreg; ++r) {
+            va += if_mu[r];
+            vs += if_mu[r] * X(nreg + r - 1, 0);
+          }
+          put(ab * va - (src ? X(a_ab + 4, 0) : T(0)));
+          put(vb * vs - (src ? X(a_ab + 5, 0) : T(0)));
+        }
+        if (A.do_urban) {
+          T wall_in = T(0);
+          for (int r = 0; r < nreg; ++r) wall_in += X(r, 0) * if_tan[r];
+          put(wall_in);
+          put(wall_in * weps - (src ? X(a_ab + 6, 0) : T(0)));
+        }
+        if (A.with_profiles) {
+          put(sdt);
+          put(sut);
+          put(sdb);
+          put(sub);
+        }
+      }
+      for (int i = tm.lane; i < nd; i += TS) dn0[i] = DNN0[i], dn1[i] = DNN1[i];
+    }
+    bs.store(l);
   }
-  const Col<T> fin{A.fin + b, B};
-  copy(fin, DN, 2 * nd);
+  if (valid)
+    for (int i = tm.lane; i < D.mode; i += TS) A.fin[i * B + b] = slab[i];
 }
 
 template <typename T>
@@ -333,15 +453,15 @@ LwUpArgs<T> lw_up_args(void* R, void* Tm, void* p, void* uov, void* vov,
 template <typename T>
 LwDownArgs<T> lw_down_args(void* R, void* Tm, void* p, void* idif, void* isrc,
                            void* stacks, void* vov, void* aux, void* hw,
-                           void* rmu, void* rtan, void* outs, void* fin,
-                           void* ws, int nd, int ns, int nreg, int L, int S,
-                           int do_urban, int with_profiles, long long B) {
+                           void* rmu, void* rtan, void* outs, void* fin, int nd,
+                           int ns, int nreg, int L, int S, int do_urban,
+                           int with_profiles, long long B) {
   return LwDownArgs<T>{(const T*)R,    (const T*)Tm,   (const T*)p,
                        (const T*)idif, (const T*)isrc, (const T*)stacks,
                        (const T*)vov,  (const T*)aux,  (const T*)hw,
                        (const T*)rmu,  (const T*)rtan, (T*)outs,
-                       (T*)fin,        (T*)ws,         nd, ns, nreg, L, S,
-                       do_urban,       with_profiles,  B};
+                       (T*)fin,        nd, ns, nreg, L, S, do_urban,
+                       with_profiles,  B};
 }
 
 }  // namespace spx
@@ -356,11 +476,11 @@ LwDownArgs<T> lw_down_args(void* R, void* Tm, void* p, void* idif, void* isrc,
 #define SPX_LW_DOWN_PARAMS                                                    \
   void *R, void *Tm, void *p, void *idif, void *isrc, void *stacks,          \
       void *vov, void *aux, void *hw, void *rmu, void *rtan, void *outs,     \
-      void *fin, void *ws, int nd, int ns, int nreg, int L, int S,           \
-      int do_urban, int with_profiles, long long B
+      void *fin, int nd, int ns, int nreg, int L, int S, int do_urban,       \
+      int with_profiles, long long B
 #define SPX_LW_DOWN_ARGS                                                      \
-  R, Tm, p, idif, isrc, stacks, vov, aux, hw, rmu, rtan, outs, fin, ws, nd,  \
-      ns, nreg, L, S, do_urban, with_profiles, B
+  R, Tm, p, idif, isrc, stacks, vov, aux, hw, rmu, rtan, outs, fin, nd, ns,  \
+      nreg, L, S, do_urban, with_profiles, B
 
 #ifdef __CUDACC__
 // K4: teams of TS lanes (spx::up_sweep_teams), as K2's kernel.
@@ -373,14 +493,14 @@ __global__ void lw_up_kernel(spx::LwUpArgs<T> A, spx::UpSlab S, int stride) {
       });
 }
 
-template <typename T>
-__global__ void lw_down_kernel(spx::LwDownArgs<T> A) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b < A.B) spx::lw_down_thread(A, b);
-}
-
-static unsigned n_blocks(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
+// K5: teams of TS lanes (spx::down_sweep_teams), as K3's kernel.
+template <typename T, int TS, bool AHEAD>
+__global__ void lw_down_kernel(spx::LwDownArgs<T> A, spx::LwDownSlab D, int stride, int es) {
+  spx::down_sweep_teams<T, TS, AHEAD>(
+      spx::lw_down_operands(A), A.B, A.S, A.L, stride, es, D.out, D.n_out, A.outs,
+      [&](const spx::Team<TS>& tm, const auto& bs, bool valid, T* slab) {
+        spx::lw_down_team<TS>(A, D, tm, bs, valid, slab);
+      });
 }
 
 // K4 at team size TS: with `configure`, its configuration (as K2's,
@@ -417,11 +537,40 @@ static int lw_up_config(int nd, int ns, int nreg, long long B, long long* info) 
   return run_lw_up<T>(A, nullptr, info, 1);
 }
 
+// K5 at team size TS: with `configure`, its configuration (as K3's,
+// sw_sweeps.cu run_k3) written to info; else the launch info describes.
+template <typename T, int TS>
+static int run_k5(const spx::LwDownArgs<T>& A, cudaStream_t stream, long long* info,
+                  int configure) {
+  auto* ks = &lw_down_kernel<T, TS, true>;
+  decltype(ks) kd = TS == 32 ? &lw_down_kernel<T, TS, TS != 32> : nullptr;
+  const spx::LwDownSlab D = spx::lw_down_slab(A);
+  const int es = spx::slot_stride(spx::lw_down_operands(A), TS, (int)(sizeof(T) / 4));
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  if (configure)
+    return (int)spx::team_config<T, TS>(ks, kd, D.size, 2 * es, A.B, info,
+                                        (int)(32 / sizeof(T)), true);
+  return spx::team_launch(ks, kd, info, stream, A, D, (int)(info[3] / sizeof(T)), es);
+}
+
+// K5 by team size (the power of two >= nd, 2 to 32)
 template <typename T>
-static int launch_lw_down(SPX_LW_DOWN_PARAMS, void* stream) {
-  lw_down_kernel<T><<<n_blocks(B, 128), 128, 0, (cudaStream_t)stream>>>(
-      spx::lw_down_args<T>(SPX_LW_DOWN_ARGS));
-  return (int)cudaGetLastError();
+static int run_lw_down(const spx::LwDownArgs<T>& A, cudaStream_t s, long long* info,
+                       int configure) {
+  if (A.nd <= 2) return run_k5<T, 2>(A, s, info, configure);
+  if (A.nd <= 4) return run_k5<T, 4>(A, s, info, configure);
+  if (A.nd <= 8) return run_k5<T, 8>(A, s, info, configure);
+  if (A.nd <= 16) return run_k5<T, 16>(A, s, info, configure);
+  return run_k5<T, 32>(A, s, info, configure);
+}
+
+template <typename T>
+static int lw_down_config(int nd, int ns, int nreg, int do_urban, int with_profiles,
+                          long long B, long long* info) {
+  spx::LwDownArgs<T> A{};
+  A.nd = nd, A.ns = ns, A.nreg = nreg, A.do_urban = do_urban;
+  A.with_profiles = with_profiles, A.S = 1, A.B = B;
+  return run_lw_down<T>(A, nullptr, info, 1);
 }
 
 extern "C" int lw_up_sweep_f32(SPX_LW_UP_PARAMS, const long long* cfg, void* stream) {
@@ -440,10 +589,20 @@ extern "C" int lw_up_sweep_config_f64(int nd, int ns, int nreg, long long B,
                                       long long* info) {
   return lw_up_config<double>(nd, ns, nreg, B, info);
 }
-extern "C" int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, void* stream) {
-  return launch_lw_down<float>(SPX_LW_DOWN_ARGS, stream);
+extern "C" int lw_down_sweep_f32(SPX_LW_DOWN_PARAMS, const long long* cfg, void* stream) {
+  return run_lw_down<float>(spx::lw_down_args<float>(SPX_LW_DOWN_ARGS), (cudaStream_t)stream,
+                            const_cast<long long*>(cfg), 0);
 }
-extern "C" int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, void* stream) {
-  return launch_lw_down<double>(SPX_LW_DOWN_ARGS, stream);
+extern "C" int lw_down_sweep_f64(SPX_LW_DOWN_PARAMS, const long long* cfg, void* stream) {
+  return run_lw_down<double>(spx::lw_down_args<double>(SPX_LW_DOWN_ARGS),
+                             (cudaStream_t)stream, const_cast<long long*>(cfg), 0);
+}
+extern "C" int lw_down_sweep_config_f32(int nd, int ns, int nreg, int do_urban,
+                                        int with_profiles, long long B, long long* info) {
+  return lw_down_config<float>(nd, ns, nreg, do_urban, with_profiles, B, info);
+}
+extern "C" int lw_down_sweep_config_f64(int nd, int ns, int nreg, int do_urban,
+                                        int with_profiles, long long B, long long* info) {
+  return lw_down_config<double>(nd, ns, nreg, do_urban, with_profiles, B, info);
 }
 #endif

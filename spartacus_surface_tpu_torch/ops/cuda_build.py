@@ -120,15 +120,15 @@ def bind(lib, name: str, argtypes, restype=ctypes.c_int):
 
 
 # a team kernel's launch configuration as the C config functions write it
-# (csrc/common.cuh SPX_TEAM_INFO; K1, K2, K4)
+# (csrc/common.cuh SPX_TEAM_INFO; K1-K5)
 TEAM_FIELDS = ("team_size", "teams_per_block", "threads_per_block",
                "slab_bytes", "smem_per_block", "blocks_per_sm", "registers",
-               "sms", "global_slab", "grid")
+               "sms", "global_slab", "grid", "fallback")
 _team_configs: dict = {}
 
 
 def team_config(lib, symbol: str, shape: tuple, n: int, itemsize: int) -> dict:
-    """The launch configuration of a team kernel (K1, K2, K4) over n
+    """The launch configuration of a team kernel (K1-K5) over n
     elements: lib's config function `symbol` (int arguments `shape`, then n)
     runs once per (lib, symbol, shape), on the card the CUDA occupancy
     calculator; each call sets only the grid (ceil(n / teams_per_block), no

@@ -16,9 +16,11 @@ ops/sweep_kernels.py): a team of TS lanes per element, its carry and solve
 workspace in a shared-memory slab, the next layer's operands copied ahead
 (read from device memory only where the slabs must be global); what bounds it
 is the latency of each layer's chain of small products and one solve with
-2 nd + 1 right-hand sides.  K5 stays
-one thread per element with a struct-of-arrays global workspace allocated
-here, and runs both source modes in the same layer step.
+2 nd + 1 right-hand sides.  K5 has K3's design (ops/sweep_kernels.py):
+teams of lanes walking the layers from the top down, the carry in shared
+memory, both source modes side by side in each layer step, the next
+layer's operands copied ahead block-wide in whole sectors, nothing
+allocated but its outputs.
 """
 
 from __future__ import annotations
@@ -29,14 +31,15 @@ import torch
 
 from . import cuda_build
 from .matrix import matvec, solve
-from .sweep_kernels import _check_sizes, _cols, _ground_blocks, _mats, up_config
+from .sweep_kernels import (_check_sizes, _cols, _ground_blocks, _mats, down_config,
+                            up_config)
 
-# the C signatures of the launchers (csrc/lw_sweeps.cu); K4 takes its
+# the C signatures of the launchers (csrc/lw_sweeps.cu); each takes its
 # launch configuration (cuda_build.team_config) before the stream
 UP_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
-DOWN_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                 + [ctypes.c_longlong, ctypes.c_void_p])
+DOWN_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
 
 
 def lw_stack_rows(nd: int, ns: int, nreg: int) -> int:
@@ -273,18 +276,19 @@ def lw_down_sweep_both(R, T, p, idif, isrc, stacks, vov, aux, hw, rmu, rtan, *,
 
 def launch_down(lib, R, T, p, idif, isrc, stacks, vov, aux, hw, rmu, rtan, *,
                 nd, ns, nreg, do_urban, with_profiles, stream):
-    """Allocate outputs and workspace and launch lib's lw_down_sweep_f32/f64;
-    counts the launch."""
+    """Allocate the outputs (nothing else) and launch lib's
+    lw_down_sweep_f32/f64 as down_config says; counts the launch."""
     L, _, B = R.shape
     fn = cuda_build.bind(lib, "lw_down_sweep_f32" if R.dtype == torch.float32
                          else "lw_down_sweep_f64", DOWN_ARGTYPES)
+    cfg = down_config(lib, "lw_down_sweep", nd, ns, nreg, do_urban, with_profiles, B,
+                      R.dtype)
     outs = R.new_empty((L, 2 * len(lw_out_rows(do_urban, nreg, with_profiles)), B))
     fin = R.new_empty((2 * nd, B))
-    ws = R.new_empty(((6 * nd + 2 * (nreg + 1) * ns) * B,))
     err = fn(*map(cuda_build.ptr, (R, T, p, idif, isrc, stacks, vov, aux, hw,
-                                   rmu, rtan, outs, fin, ws)),
+                                   rmu, rtan, outs, fin)),
              nd, ns, nreg, L, B // vov.shape[-1], int(do_urban),
-             int(with_profiles), B, stream)
+             int(with_profiles), B, cuda_build.team_info(cfg), stream)
     cuda_build.check(err, "lw_down_sweep_both")
     lw_down_sweep_both.launches += 1
     return outs, fin

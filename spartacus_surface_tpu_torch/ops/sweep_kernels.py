@@ -28,9 +28,22 @@ where a slab and its copy-ahead buffers exceed a block's shared memory (nd
 above ~57 in float64) does the kernel keep its slabs in a scratch of one
 slab per resident team, allocated here, and read its operands from device
 memory.  ``up_config`` reports the launch shape, computed once per shape
-(cuda_build.team_config).  K3 stays one thread per element with a
-struct-of-arrays global workspace, and runs both normalizations in the
-same layer step, so each layer's operators and stack are read once.
+(cuda_build.team_config).
+
+K3 has the same teams, E of them a block on E consecutive elements,
+walking the layers from the top down with the carry (both normalizations'
+down fluxes) and each layer step's vectors in the team's shared-memory slab;
+it runs both normalizations side by side in each step, so each layer's
+operators and stack are read once, and allocates nothing but its outputs.
+Its operands are read once (under one FMA a byte), so latency hidden it is
+bound by bytes: while a block computes one layer, all its threads copy the
+next layer's operands of its elements into shared memory, neighbouring
+threads on neighbouring elements of one row (whole 32-byte sectors from 8
+f32 / 4 f64 elements a block), and the output rows go out the same way.
+Only where those copies exceed a block's shared memory (nd from ~40-48 on
+in float64, ~56-66 in float32) does the kernel read its operands from
+device memory.
+``down_config`` reports its launch shape.
 """
 
 from __future__ import annotations
@@ -42,12 +55,12 @@ import torch
 from . import cuda_build
 from .matrix import matvec, solve
 
-# the C signatures of the launchers (csrc/sw_sweeps.cu); K2 takes its
+# the C signatures of the launchers (csrc/sw_sweeps.cu); each takes its
 # launch configuration (cuda_build.team_config) before the stream
 UP_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
                + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
-DOWN_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
-                 + [ctypes.c_longlong, ctypes.c_void_p])
+DOWN_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
 
 
 def sw_stack_rows(nd: int, ns: int, nreg: int) -> int:
@@ -367,22 +380,32 @@ def sw_down_sweep_both(R, T, E, Sdn, idir, idif, idd, stacks, vov, aux, zcos,
                            stream=cuda_build.stream(dev), **kw)
 
 
+def down_config(lib, kernel, nd, ns, nreg, do_urban, with_profiles, B, dtype) -> dict:
+    """The launch configuration of K3 (kernel "sw_down_sweep") or K5
+    ("lw_down_sweep") over B elements (cuda_build.team_config's fields)."""
+    bits = "f32" if dtype == torch.float32 else "f64"
+    return cuda_build.team_config(lib, f"{kernel}_config_{bits}",
+                                  (nd, ns, nreg, int(do_urban), int(with_profiles)),
+                                  B, 4 if bits == "f32" else 8)
+
+
 def launch_down(lib, R, T, E, Sdn, idir, idif, idd, stacks, vov, aux, zcos, hw,
                 rmu, rtan, *, nd, ns, nreg, do_urban, with_profiles, stream):
-    """Allocate outputs and workspace and launch lib's sw_down_sweep_f32/f64;
-    counts the launch."""
+    """Allocate the outputs (nothing else) and launch lib's
+    sw_down_sweep_f32/f64 as down_config says; counts the launch."""
     L, _, B = R.shape
     fn = cuda_build.bind(lib, "sw_down_sweep_f32" if R.dtype == torch.float32
                          else "sw_down_sweep_f64", DOWN_ARGTYPES)
+    cfg = down_config(lib, "sw_down_sweep", nd, ns, nreg, do_urban, with_profiles, B,
+                      R.dtype)
     n_out = sum(len(sw_out_rows(wd, do_urban, nreg, with_profiles))
                 for wd in MODES)
     outs = R.new_empty((L, n_out, B))
     fin = R.new_empty((nreg + 2 * nd, B))
-    ws = R.new_empty(((5 * nreg + 1 + 2 * (nreg + 1) * ns + 8 * nd) * B,))
     err = fn(*map(cuda_build.ptr, (R, T, E, Sdn, idir, idif, idd, stacks, vov,
-                                   aux, zcos, hw, rmu, rtan, outs, fin, ws)),
+                                   aux, zcos, hw, rmu, rtan, outs, fin)),
              nd, ns, nreg, L, B // vov.shape[-1], int(do_urban),
-             int(with_profiles), B, stream)
+             int(with_profiles), B, cuda_build.team_info(cfg), stream)
     cuda_build.check(err, "sw_down_sweep_both")
     sw_down_sweep_both.launches += 1
     return outs, fin

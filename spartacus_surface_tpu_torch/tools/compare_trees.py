@@ -5,9 +5,9 @@
 
 Each DIR holds a copy of the repo (for example a ``git archive`` of another
 commit unpacked under build/) and is timed end to end and on the
-up-sweeps, as is this script's own tree.  ``--variant NAME`` adds a copy
+sweeps, as is this script's own tree.  ``--variant NAME`` adds a copy
 of this script's tree with the named edit of VARIANTS applied (under
-build/compare_trees/NAME), timed on the up-sweeps only: an experiment that
+build/compare_trees/NAME), timed on the sweeps only: an experiment that
 is measured here and not kept in the kernels.
 
 First every tree's kernels are built, one process per tree, all at once.
@@ -16,17 +16,19 @@ a drift of the card between turns cancels in the mean over the two turns.
 Each imports the package from its own tree and measures:
 - walls (not for variants): host seconds of warm kernel-route
   run_radsurf calls (SW + LW, ending in a synchronize; median, min, max of
-  WALL_REPS after one) at the headline shape, float32 and float64, and at
-  the rami5 shape in float32 (the shapes of chip_smoke.py's slices);
-- sweeps: K2 (sw_up_sweep) and K4 (lw_up_sweep) through their public
-  wrappers on seeded operands on the card (no solver: the up-sweeps' work
-  does not depend on the values), at the headline and the rami5 shapes,
-  float32 and float64: device ms per call (CUDA events over SWEEP_REPS
-  back-to-back calls after a warm-up), the field-normalized error against
-  the tree's own plain version (an edit that breaks the kernel shows here;
-  the no_stack_stores variant breaks it on purpose) and, where the tree
-  has sweep_kernels.up_config, the launch shape (registers, shared bytes
-  and blocks per SM, resident teams per SM, waves).
+  WALL_REPS after one) at the headline and the rami5 shapes, float32 and
+  float64 (the shapes of chip_smoke.py's slices);
+- sweeps: K2 (sw_up_sweep), K3 (sw_down_sweep_both), K4 (lw_up_sweep)
+  and K5 (lw_down_sweep_both) through their public wrappers on seeded
+  operands on the card (no solver: the sweeps' work does not depend on the
+  values; K3 / K5 read the stacks the tree's own K2 / K4 wrote), at the
+  headline and the rami5 shapes, float32 and float64: device ms per call
+  (CUDA events over SWEEP_REPS back-to-back calls after a warm-up), the
+  field-normalized error against the tree's own plain version (an edit that
+  breaks a kernel shows here; the no_stack_stores variant breaks K2 / K4 on
+  purpose) and, where the tree reports it (sweep_kernels.up_config,
+  down_config), the launch shape (registers, shared bytes and blocks per SM, resident teams per SM,
+  waves).
 Each process prints one JSON line; the script prints, per tree, the mean of
 its two turns, then the card's name and power limit, and writes every line
 to --out (default build/compare_trees/results.jsonl).  Needs one CUDA card.
@@ -49,8 +51,9 @@ WORK = THIS_TREE / "build" / "compare_trees"
 WALL_REPS = 10
 SWEEP_REPS = 5
 SHAPE_KEYS = ("registers", "smem_per_block", "blocks_per_sm", "resident_per_sm", "waves")
-# (nreg, ns, layers, columns, bands) of the up-sweeps at each shape
-SWEEP_SHAPES = {"headline": (2, 4, 8, 16384, 1), "rami5_shape": (3, 4, 62, 1024, 14)}
+# (nreg, ns, layers, columns, bands, do_urban) of the sweeps at each shape
+SWEEP_SHAPES = {"headline": (2, 4, 8, 16384, 1, True),
+                "rami5_shape": (3, 4, 62, 1024, 14, False)}
 # chip_smoke.py's slices: tile types per column, layers, bands, namelist
 WALL_SHAPES = {
     "headline": ([3] * 16384 + [0] * 512 + [4] * 256 + [5] * 256, 8, 1,
@@ -58,9 +61,9 @@ WALL_SHAPES = {
                       n_stream_lw_urban=4, nsw=1, nlw=1), ("float32", "float64")),
     "rami5_shape": ([1] * 1024, 62, 14,
                     dict(n_vegetation_region_forest=2, n_stream_sw_forest=4,
-                         n_stream_lw_forest=4, nsw=14, nlw=14), ("float32",)),
+                         n_stream_lw_forest=4, nsw=14, nlw=14), ("float32", "float64")),
 }
-# experiments on the up-sweeps: {name: [(file under the package, text, replacement)]}
+# experiments on the sweeps: {name: [(file under the package, text, replacement)]}
 VARIANTS = {
     # K2 and K4 read their operands from device memory (no copy-ahead, and
     # no shared memory for its buffers)
@@ -86,6 +89,12 @@ VARIANTS = {
          "          x /= S;\n"
          "          if (k > 0 && x == (b0 + k - 1 < B ? b0 + k - 1 : B - 1) / S) continue;\n"
          "        }\n"),
+    ],
+    # K3 and K5 copy nothing ahead (their slots hold what they hold): the
+    # time of their arithmetic and stores alone
+    "no_copy": [
+        ("csrc/common.cuh", "__pipeline_memcpy_async(dst + i * ld + c, src, sizeof(T));",
+         "(void)dst;"),
     ],
     # K2 and K4 store no stack rows (nor the top): the most that any way of
     # storing them (staging through shared memory) could save
@@ -169,6 +178,37 @@ def up_operands(mode, nreg, ns, L, C, S, dtype, dev, seed):
             u(L, B), torch.cat([u(1, B, lo=0.5), u(1, B, hi=400.0), u(nreg, B)]))
 
 
+def down_operands(mode, nreg, ns, up_args, stacks, dtype, dev, seed):
+    """Seeded operands of one K3 (mode "sw") or K5 ("lw") call on the layer
+    operators of up_operands' call (up_args) and the stacks its K2 / K4
+    wrote, in the ranges of tests/test_torch_kernels.py's Pallas check,
+    with the quadrature of ns streams."""
+    import torch
+
+    from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    nd, nod = nreg * ns, max(nreg - 1, 1)
+    L, _, B = up_args[0].shape
+
+    def u(*shape, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev, dtype=dtype) * hi
+
+    lg = LegendreGauss(ns)
+    quad = tuple(torch.as_tensor(x, dtype=dtype, device=dev)
+                 for x in (lg.hweight, 1.0 / lg.mu, lg.tan_ang))
+    if mode == "sw":
+        R, T, E, _, Sdn, _, vov, _, _, grd = up_args[:10]
+        return (R, T, E, Sdn, u(L, nreg * nreg, B, hi=0.5), u(L, nd * nd, B, hi=0.5 / nd),
+                u(L, nd * nreg, B, hi=0.2), stacks, vov, u(L, nreg + nod + 3, B),
+                grd[2].contiguous(), *quad)
+    R, T, p, _, vov = up_args[:5]
+    aux = torch.cat([u(L, nreg + nod + 3, B), u(L, 4, B, hi=400.0)], dim=1)
+    return (R, T, p, u(L, nd * nd, B, hi=0.5 / nd), u(L, nd, B, hi=50.0), stacks, vov,
+            aux, *quad)
+
+
 def worker(tree: Path, label: str, turn: int, walls: bool) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -184,24 +224,32 @@ def worker(tree: Path, label: str, turn: int, walls: bool) -> dict:
     dev = torch.device("cuda")
     dtypes = {"float32": torch.float32, "float64": torch.float64}
     rec = {"tree": label, "turn": turn, "sweeps": {}}
-    for sname, (nreg, ns, L, C, S) in SWEEP_SHAPES.items():
+    for sname, (nreg, ns, L, C, S, urban) in SWEEP_SHAPES.items():
         hw = LegendreGauss(ns).hweight
         kw = dict(nd=nreg * ns, ns=ns, nreg=nreg)
+        dkw = dict(kw, do_urban=urban, with_profiles=False)
         for dname, dt in dtypes.items():
             for mode, mod in (("sw", SK), ("lw", LSK)):
                 a = (*up_operands(mode, nreg, ns, L, C, S, dt, dev, seed=7),
                      torch.as_tensor(hw, dtype=dt, device=dev))
-                fn = getattr(mod, f"{mode}_up_sweep")
-                ms = _ms(lambda: fn(*a, **kw), SWEEP_REPS)
-                err = _field_err(getattr(mod, f"{mode}_up_sweep_plain")(*a, **kw),
-                                 fn(*a, **kw))
-                row = rec["sweeps"][f"{'K2' if mode == 'sw' else 'K4'} {sname} {dname}"] = {
-                    "ms": ms, "err": err}
-                if hasattr(SK, "up_config"):
-                    c = SK.up_config(cuda_build.load(f"{mode}_sweeps"), f"{mode}_up_sweep",
-                                     kw["nd"], ns, nreg, C * S, dt)
-                    row.update({k: c[k] for k in SHAPE_KEYS})
-                del a
+                up, down = getattr(mod, f"{mode}_up_sweep"), getattr(mod, f"{mode}_down_sweep_both")
+                d = down_operands(mode, nreg, ns, a, up(*a, **kw)[0], dt, dev, seed=8)
+                lib = cuda_build.load(f"{mode}_sweeps")
+                for k, fn, args, kws, plain, config in (
+                        ("K2" if mode == "sw" else "K4", up, a, kw, f"{mode}_up_sweep_plain",
+                         hasattr(SK, "up_config") and (lambda: SK.up_config(
+                             lib, f"{mode}_up_sweep", kw["nd"], ns, nreg, C * S, dt))),
+                        ("K3" if mode == "sw" else "K5", down, d, dkw,
+                         f"{mode}_down_sweep_plain",
+                         hasattr(SK, "down_config") and (lambda: SK.down_config(
+                             lib, f"{mode}_down_sweep", kw["nd"], ns, nreg, urban, False,
+                             C * S, dt)))):
+                    ms = _ms(lambda: fn(*args, **kws), SWEEP_REPS)
+                    err = _field_err(getattr(mod, plain)(*args, **kws), fn(*args, **kws))
+                    row = rec["sweeps"][f"{k} {sname} {dname}"] = {"ms": ms, "err": err}
+                    if config:  # the launch shape, where the tree reports it
+                        row.update({key: config()[key] for key in SHAPE_KEYS})
+                del a, d
                 torch.cuda.empty_cache()
     if walls:
         from spartacus_surface_tpu_torch.models.dispatch import run_radsurf

@@ -167,7 +167,8 @@ def _mm(n, p, m):
 
 
 def _mv(n, p):
-    """FLOPs of common.cuh mv: an (n x p) matrix-vector product."""
+    """FLOPs of an (n x p) matrix-vector product (common.cuh dot_row, one
+    row at a time)."""
     return 2 * n * p
 
 
@@ -224,15 +225,16 @@ def _sw_up_flops(nd, ns, nreg, L):
 
 
 def _sw_down_flops(nd, ns, nreg, L, do_urban, with_profiles):
-    """K3, one thread over L layers, both modes (sw_sweeps.cu)."""
+    """K3, one element over L layers, both modes (sw_sweeps.cu: its team
+    body counts once per element, as K1's)."""
     nregp, nd2 = nreg + 1, (nreg + 1) * ns
-    mode = (2 * nreg * nregp * (1 + ns) + _mv(nd2, nd2) + 2 * ns
+    mode = (2 * nreg * nd2 + _mv(nd2, nd2) + 2 * ns
             + 4 * _mv(nd, nd) + 11 * nd + 3
             + (7 * (nreg - 1) + 2 if nreg > 1 else 0)
             + (4 * nreg + 2 if do_urban else 0))
-    direct = (_mv(nd2, nregp) + 2 + 2 * _mv(nreg, nreg) + 3 * _mv(nd, nreg)
-              + _mv(nd, nd) + nd + 3 * nreg + (nreg > 1) + 3 * do_urban
-              + 6 * with_profiles)
+    direct = (2 * nregp * nreg + _mv(nd2, nregp) + 2 + 2 * _mv(nreg, nreg)
+              + 3 * _mv(nd, nreg) + _mv(nd, nd) + nd + 3 * nreg + (nreg > 1)
+              + 3 * do_urban + 6 * with_profiles)
     return 3 + L * (2 * mode + direct)
 
 
@@ -246,7 +248,7 @@ def _lw_up_flops(nd, ns, nreg, L):
 
 
 def _lw_down_flops(nd, ns, nreg, L, do_urban):
-    """K5, one thread over L layers, both modes (lw_sweeps.cu)."""
+    """K5, one element over L layers, both modes (lw_sweeps.cu)."""
     nd2 = (nreg + 1) * ns
     mode = (2 * nd2 * nreg + _mv(nd2, nd2) + 2 * ns + 4 * _mv(nd, nd) + 11 * nd
             + 3 + (3 * (nreg - 1) + 4 if nreg > 1 else 0)

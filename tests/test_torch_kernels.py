@@ -10,7 +10,7 @@ configurations and the three 1-stream ones (where the factory is K1d).
   the kernels' indexing and algebra are checked here without a GPU; the
   K1d body is also held against the JAX package's layer_matrices;
 * cuda (marked, skipped without a GPU): the nvcc-built kernels on the card;
-* the up-sweeps K2 / K4 (plain and host-built) against the JAX package's
+* the sweeps K2-K5 (plain and host-built) against the JAX package's
   Pallas kernels in interpret mode.
 
 Tolerances: float64 per-field max|diff| / max(1, max|plain|) <= 1e-9 for
@@ -233,16 +233,22 @@ def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk):
     assert all(field_err([ref[n]], [got[n]]) <= 1e-9 for n in ref)
 
 
-@pytest.mark.parametrize("mode", ["sw", "lw"])
+@pytest.mark.parametrize("mode", ["sw", "lw", "sw_down", "lw_down"])
 def test_sweep_launch_has_no_workspace(host_lib, monkeypatch, mode):
-    """K2 / K4 launch once per call with no workspace (a null pointer),
-    their launch configuration passed in, and nothing allocated but their
-    stacks and top; the results match the plain version (1e-9)."""
+    """K2 / K4 (mode "sw" / "lw") and K3 / K5 ("sw_down" / "lw_down")
+    launch once per call with no workspace (K2 / K4: a null pointer; K3 /
+    K5: no such argument), their launch configuration passed in, and
+    nothing allocated but their results (stacks and top; outs and fin); the
+    results match the plain version (1e-9)."""
     calls = capture(monkeypatch, 2, 4, np.float64, "cpu")
-    name, mod = ("sw_up_sweep", SK) if mode == "sw" else ("lw_up_sweep", LSK)
-    cuda_build.bind(host_lib, f"{name}_f64", mod.UP_ARGTYPES)
-    cuda_build.bind(host_lib, f"{name}_config_f64",
-                    [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
+    name, mod = {"sw": ("sw_up_sweep", SK), "lw": ("lw_up_sweep", LSK),
+                 "sw_down": ("sw_down_sweep_both", SK),
+                 "lw_down": ("lw_down_sweep_both", LSK)}[mode]
+    symbol = name.replace("_both", "")
+    down = mode.endswith("down")
+    cuda_build.bind(host_lib, f"{symbol}_f64", mod.DOWN_ARGTYPES if down else mod.UP_ARGTYPES)
+    cuda_build.bind(host_lib, f"{symbol}_config_f64",
+                    [ctypes.c_int] * (5 if down else 3) + [ctypes.c_longlong, ctypes.c_void_p])
     lib = _Recorder(host_lib)
     allocated = []
     new_empty = torch.Tensor.new_empty
@@ -252,14 +258,24 @@ def test_sweep_launch_has_no_workspace(host_lib, monkeypatch, mode):
     a, k, ref = calls[name]
     got = LAUNCH[name](lib, *a, stream=None, **k)
     monkeypatch.undo()
-    launches = [args for n, args in lib.calls if n == f"{name}_f64"]
-    assert len(launches) == 1 and launches[0][13 if mode == "sw" else 12] is None
+    launches = [args for n, args in lib.calls if n == f"{symbol}_f64"]
+    argtypes = mod.DOWN_ARGTYPES if down else mod.UP_ARGTYPES
+    assert len(launches) == 1 and len(launches[0]) == len(argtypes)
+    if not down:
+        assert launches[0][13 if mode == "sw" else 12] is None
     assert launches[0][-2] is not None  # the launch configuration
     assert getattr(solver, name).launches == n0 + 1
     L, _, B = a[0].shape
     nd, ns, nreg = k["nd"], k["ns"], k["nreg"]
-    rows = (SK.sw_stack_rows(nd, ns, nreg), nd * nd + nd * nreg) if mode == "sw" \
-        else (LSK.lw_stack_rows(nd, ns, nreg), nd * nd + nd)
+    if mode == "sw":
+        rows = (SK.sw_stack_rows(nd, ns, nreg), nd * nd + nd * nreg)
+    elif mode == "lw":
+        rows = (LSK.lw_stack_rows(nd, ns, nreg), nd * nd + nd)
+    elif mode == "sw_down":
+        rows = (sum(len(SK.sw_out_rows(wd, k["do_urban"], nreg, k["with_profiles"]))
+                    for wd in SK.MODES), nreg + 2 * nd)
+    else:
+        rows = (2 * len(LSK.lw_out_rows(k["do_urban"], nreg, k["with_profiles"])), 2 * nd)
     assert sorted(allocated) == sorted([(L, rows[0], B), (rows[1], B)])
     assert field_err(ref, got) <= 1e-9
 
@@ -316,6 +332,81 @@ def test_up_sweeps_match_pallas_kernels(host_lib, mode):
            torch.as_tensor(np.asarray(top).T.copy()))
     args = (*port_args, torch.as_tensor(hw))
     name = f"{mode}_up_sweep"
+    plain = PLAIN[name](*args, **kw)
+    team = LAUNCH[name](host_lib, *args, stream=None, **kw)
+    for got in (plain, team):
+        assert got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
+        assert field_err(ref, got) <= 1e-12
+
+
+def _pallas_down_operands(mode, nreg, ns, L, C, S, seed, up_sweep):
+    """Seeded float64 operands of one down-sweep call (K3: mode "sw", K5:
+    "lw") in the JAX Pallas kernel's layout and in the port's, as
+    _pallas_up_operands, and the quadrature; the stacks from
+    up_sweep(jax_args, port_args, hw) ([B, L, rows], an up-sweep on the same
+    layer operators)."""
+    rng = np.random.default_rng(seed + 1)
+    nd, B = nreg * ns, C * S
+    nod = max(nreg - 1, 1)
+    u = lambda *shape, hi=1.0: rng.uniform(0.0, hi, shape)
+    up_jax, up_port = _pallas_up_operands(mode, nreg, ns, L, C, S, seed)
+    lg = LegendreGauss(ns)
+    quad = dict(hw=tuple(map(float, lg.hweight)), rmu=tuple(map(float, 1.0 / lg.mu)),
+                rtan=tuple(map(float, lg.tan_ang)))
+    stacks = np.asarray(up_sweep(up_jax, up_port, lg.hweight))
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x))
+    port = lambda x: t(x.transpose(1, 2, 0))
+    if mode == "sw":
+        R, T, E, _, Sdn, _, vov = up_jax[:7]
+        ops = dict(idir=u(B, L, nreg * nreg, hi=0.5), idif=u(B, L, nd * nd, hi=0.5 / nd),
+                   idd=u(B, L, nd * nreg, hi=0.2))
+        aux = u(B, L, nreg + nod + 3)
+        zcos = up_jax[-1][:, 2]
+        jax_args = (R, T, E, Sdn, *ops.values(), stacks, vov, aux, zcos[:, None])
+        port_args = (*up_port[:3], up_port[4], *map(port, ops.values()), port(stacks),
+                     up_port[6], port(aux), t(zcos))
+    else:
+        R, T, p = up_jax[:3]
+        vov = up_jax[4]
+        idif, isrc = u(B, L, nd * nd, hi=0.5 / nd), u(B, L, nd, hi=50.0)
+        aux = np.concatenate([u(B, L, nreg + nod + 3), u(B, L, 4, hi=400.0)], axis=2)
+        jax_args = (R, T, p, idif, isrc, stacks, vov, aux)
+        port_args = (*up_port[:3], port(idif), port(isrc), port(stacks), up_port[4],
+                     port(aux))
+    port_args += tuple(torch.as_tensor(np.asarray(x)) for x in
+                       (lg.hweight, 1.0 / lg.mu, lg.tan_ang))
+    return jax_args, port_args, quad
+
+
+@pytest.mark.parametrize("mode", ["sw", "lw"])
+def test_down_sweeps_match_pallas_kernels(host_lib, mode):
+    """The port's plain K3 / K5 and their host-built team bodies (a team of
+    one lane, NaN-filled slab) against the JAX package's Pallas kernels
+    themselves (pallas_sweep.sw_down_sweep_both / lw_down_sweep_both,
+    interpret mode), float64, B = 1024 (the kernels' tile), L = 2, (nreg,
+    ns) = (2, 4), urban, with profiles, the stacks from the JAX Pallas
+    up-sweep: every out row and fin within 1e-12 per field after the
+    relayout."""
+    import importlib
+
+    PS = importlib.import_module("spartacus_surface_tpu.ops.pallas_sweep")
+    nreg, ns, L, C, S = 2, 4, 2, 512, 2
+    nd = nreg * ns
+    up = PS.sw_up_sweep if mode == "sw" else PS.lw_up_sweep
+    jax_args, args, quad = _pallas_down_operands(
+        mode, nreg, ns, L, C, S, nreg * ns, lambda a, _, hw: up(
+            *a, hw=tuple(map(float, hw)), nd=nd, ns=ns, nreg=nreg, interpret=True)[0])
+    kw = dict(nd=nd, ns=ns, nreg=nreg, do_urban=True, with_profiles=True)
+    fn = PS.sw_down_sweep_both if mode == "sw" else PS.lw_down_sweep_both
+    outs, fins = fn(*jax_args, interpret=True, **quad, **kw)
+    if mode == "sw":
+        names = [SK.sw_out_rows(wd, True, nreg, True) for wd in SK.MODES]
+    else:
+        names = [LSK.lw_out_rows(True, nreg, True)] * 2
+    rows = [np.asarray(o[n]).T for o, ns_ in zip(outs, names) for n in ns_]
+    ref = (torch.as_tensor(np.stack(rows, axis=1)),
+           torch.as_tensor(np.concatenate([np.asarray(f) for f in fins], axis=1).T.copy()))
+    name = f"{mode}_down_sweep_both"
     plain = PLAIN[name](*args, **kw)
     team = LAUNCH[name](host_lib, *args, stream=None, **kw)
     for got in (plain, team):
@@ -552,58 +643,118 @@ def test_cuda_dense_factory_launches(cuda_device, nd, ndir, dtype):
             assert field_err([ref[k]], [got[k]]) <= 1e-9, k
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("nreg,ns,ts", [(1, 1, 2), (2, 4, 8), (3, 4, 16), (3, 8, 32)])
-def test_cuda_up_sweeps_ragged_batch(cuda_device, monkeypatch, nreg, ns, ts, dtype):
-    """K2 and K4 as team kernels on a batch of 37 columns x 3 bands (111
-    elements: not a multiple of the teams of a block or of a warp), at team
-    sizes 2 to 32: against their plain versions (float32 3e-5 per field,
-    float64 1e-9); the launch shape: a team of the power of two >= nd (at
-    least 2) lanes, whole warps of teams, shared memory of the slabs and
-    of two layers' operands a team (the copy-ahead), no scratch."""
-    calls = capture(monkeypatch, nreg, ns, dtype, cuda_device, C=37, L=3, S=3)
-    for name, mod in (("sw_up_sweep", SK), ("lw_up_sweep", LSK)):
+def _check_ragged_batch(monkeypatch, device, nreg, ns, ts, dtype, names):
+    """The sweeps `names` (wrapper name, module) as team kernels on a batch
+    of 37 columns x 3 bands (111 elements: not a multiple of the teams of a
+    block or of a warp), at team size ts: against their plain versions
+    (float32 3e-5 per field, K5 2e-4; float64 1e-9); the launch shape: a team
+    of the power of two >= nd (at least 2) lanes, whole warps of teams,
+    shared memory of the slabs and of the copy-ahead (K2 / K4: two layers'
+    operands a team; K3 / K5: blocks of whole 32-byte sectors, at least 8
+    f32 / 4 f64 elements, where such a block fits), no scratch."""
+    calls = capture(monkeypatch, nreg, ns, dtype, device, C=37, L=3, S=3)
+    for name, mod in names:
         a, k, _ = calls[name]
         n = getattr(solver, name).launches
         got = getattr(mod, name)(*a, **k)
         torch.cuda.synchronize()
         assert getattr(solver, name).launches == n + 1
         err = field_err(PLAIN[name](*a, **k), got)
-        assert err <= (3e-5 if dtype == np.float32 else 1e-9), (name, err)
-        lib = cuda_build.load("sw_sweeps" if name == "sw_up_sweep" else "lw_sweeps")
-        c = SK.up_config(lib, name, k["nd"], k["ns"], k["nreg"], a[0].shape[2],
-                         a[0].dtype)
+        assert err <= (SWEEP_TOL_F32[name] if dtype == np.float32 else 1e-9), (name, err)
+        lib = cuda_build.load("sw_sweeps" if name.startswith("sw") else "lw_sweeps")
+        if "down" in name:
+            c = SK.down_config(lib, name.replace("_both", ""), k["nd"], k["ns"], k["nreg"],
+                               k["do_urban"], k["with_profiles"], a[0].shape[2], a[0].dtype)
+            assert ts == 32 or c["teams_per_block"] * a[0].element_size() >= 32, c
+        else:
+            c = SK.up_config(lib, name, k["nd"], k["ns"], k["nreg"], a[0].shape[2],
+                             a[0].dtype)
         assert c["team_size"] == ts and c["threads_per_block"] % 32 == 0, c
         assert c["blocks_per_sm"] >= 1 and c["registers"] > 0, c
-        assert c["scratch_elements"] == 0 and not c["global_slab"], c
+        assert c["scratch_elements"] == 0 and not c["global_slab"] and not c["fallback"], c
         assert c["grid"] == -(-111 // c["teams_per_block"]), c
         assert c["smem_per_block"] > c["teams_per_block"] * c["slab_bytes"], c
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["sw", "lw"])
-def test_cuda_up_sweeps_global_slab(cuda_device, mode):
-    """Where a slab and its copy-ahead buffers exceed a block's shared
-    memory ((nreg, ns) = (3, 24), nd = 72, in float64), K2 / K4 keep their
-    slabs in a scratch of one slab per resident team and read their
-    operands from device memory, still in one launch, and match the plain
-    version (1e-9 per field) on 13 columns x 3 bands."""
-    nreg, ns, L, C, S = 3, 24, 2, 13, 3
-    _, args = _pallas_up_operands(mode, nreg, ns, L, C, S, seed=ns)
-    args = [x.to(cuda_device) for x in args]
-    args.append(torch.as_tensor(LegendreGauss(ns).hweight, device=cuda_device))
-    name = f"{mode}_up_sweep"
-    mod, kw = (SK if mode == "sw" else LSK), dict(nd=nreg * ns, ns=ns, nreg=nreg)
-    lib = cuda_build.load("sw_sweeps" if mode == "sw" else "lw_sweeps")
-    c = SK.up_config(lib, name, kw["nd"], ns, nreg, C * S, torch.float64)
-    assert c["global_slab"] and c["scratch_elements"] > 0, c
-    assert c["team_size"] == 32 and c["smem_per_block"] == 0, c
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nreg,ns,ts", [(1, 1, 2), (2, 4, 8), (3, 4, 16), (3, 8, 32)])
+def test_cuda_up_sweeps_ragged_batch(cuda_device, monkeypatch, nreg, ns, ts, dtype):
+    """K2 and K4 on a ragged batch at team sizes 2 to 32 (_check_ragged_batch)."""
+    _check_ragged_batch(monkeypatch, cuda_device, nreg, ns, ts, dtype,
+                        (("sw_up_sweep", SK), ("lw_up_sweep", LSK)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nreg,ns,ts", [(1, 1, 2), (2, 4, 8), (3, 4, 16), (3, 8, 32)])
+def test_cuda_down_sweeps_ragged_batch(cuda_device, monkeypatch, nreg, ns, ts, dtype):
+    """K3 and K5 on a ragged batch at team sizes 2 to 32 (_check_ragged_batch)."""
+    _check_ragged_batch(monkeypatch, cuda_device, nreg, ns, ts, dtype,
+                        (("sw_down_sweep_both", SK), ("lw_down_sweep_both", LSK)))
+
+
+# (nreg, ns, layers, columns, bands) where a team's slab and copy-ahead slots
+# exceed a block's shared memory in float64 (nd = 72)
+WIDE = (3, 24, 2, 13, 3)
+
+
+def _check_one_launch(device, module, name, args, kw):
+    """One launch of the wrapper `name` of module on args (moved to device),
+    within 1e-9 per field of its plain version."""
+    args = [x.to(device) for x in args]
     n = getattr(solver, name).launches
-    got = getattr(mod, name)(*args, **kw)
+    got = getattr(module, name)(*args, **kw)
     torch.cuda.synchronize()
     assert getattr(solver, name).launches == n + 1
     assert field_err(PLAIN[name](*args, **kw), got) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sw", "lw"])
+def test_cuda_up_sweeps_global_slab(cuda_device, mode):
+    """Where a slab and its copy-ahead slots exceed a block's shared memory
+    (WIDE, in float64), K2 / K4 keep their slabs in a scratch of one slab per
+    resident team and read their operands from device memory, still in one
+    launch, and match their plain versions (1e-9 per field)."""
+    nreg, ns, L, C, S = WIDE
+    kw = dict(nd=nreg * ns, ns=ns, nreg=nreg)
+    name = f"{mode}_up_sweep"
+    c = SK.up_config(cuda_build.load(f"{mode}_sweeps"), name, nreg * ns, ns, nreg, C * S,
+                     torch.float64)
+    assert c["global_slab"] and c["fallback"] and c["scratch_elements"] > 0, c
+    assert c["team_size"] == 32 and c["smem_per_block"] == 0, c
+    _, args = _pallas_up_operands(mode, nreg, ns, L, C, S, seed=ns)
+    args.append(torch.as_tensor(LegendreGauss(ns).hweight))
+    _check_one_launch(cuda_device, SK if mode == "sw" else LSK, name, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sw", "lw"])
+def test_cuda_down_sweeps_fallback_kernel(cuda_device, mode):
+    """Where a slab and its copy-ahead slots exceed a block's shared memory
+    (WIDE, in float64), K3 / K5 (on stacks from K2 / K4) keep their slabs in
+    shared memory and read their operands from device memory, still in one
+    launch, and match their plain versions (1e-9 per field)."""
+    nreg, ns, L, C, S = WIDE
+    nd = nreg * ns
+    kw = dict(nd=nd, ns=ns, nreg=nreg)
+    mod = SK if mode == "sw" else LSK
+
+    def up(_, port_args, hw):
+        st = getattr(mod, f"{mode}_up_sweep")(
+            *(x.to(cuda_device) for x in port_args),
+            torch.as_tensor(hw, device=cuda_device), **kw)[0]
+        return st.cpu().numpy().transpose(2, 0, 1)
+
+    c = SK.down_config(cuda_build.load(f"{mode}_sweeps"), f"{mode}_down_sweep", nd, ns,
+                       nreg, True, True, C * S, torch.float64)
+    assert c["fallback"] and not c["global_slab"] and c["scratch_elements"] == 0, c
+    assert c["team_size"] == 32, c
+    assert c["smem_per_block"] == c["teams_per_block"] * c["slab_bytes"], c
+    _, args, _ = _pallas_down_operands(mode, nreg, ns, L, C, S, ns, up)
+    _check_one_launch(cuda_device, mod, f"{mode}_down_sweep_both", args,
+                      dict(kw, do_urban=True, with_profiles=True))
 
 
 @pytest.mark.cuda
