@@ -28,13 +28,16 @@ final line):
          8 layers x 1 band, plus 512 Flat, 256 SimpleUrban and 256
          InfiniteStreet;
        rami5_shape: 1,024 Forest columns (nreg=3, ns=4 SW and LW) x 62
-         layers x 14 bands.
+         layers x 14 bands;
+       rami5_ns1: the same at 1 stream (SW on K1d at nd = ndir = 3,
+         888,832 elements in one launch; LW on K1 at nd = 3).
      Checks: field-normalized error (bench.py's metric) <= 3e-4 (SW) /
      2.5e-3 (LW) in f32, 1e-9 in f64; finite outputs of the expected
      shapes; the SW and LW energy budgets close (LW: on the layered and flat
      columns; the simple-urban LW solve keeps the reference's ground
      emissivity in its wall-wall term and does not conserve exactly); every
-     kernel of the path launched in the kernel-route run (K1 in both modes);
+     kernel of the path launched in the kernel-route run (K1 in both modes;
+     at rami5_ns1 K1d in SW mode and K1 in LW mode);
      and each kernel's results in that run against its plain version on the
      same operands, at the tolerances of phase 2.  Also prints each route's
      wall seconds (first call, after synchronize) and peak device memory.
@@ -90,12 +93,16 @@ final line):
      of a warm kernel-route call: device launches, device busy ms (union of
      the device intervals), the device idle share of the call, and each
      kernel's device ms.
-Phase 3 also prints K1's launch shape for each run (team size, teams and
-threads per block, slab and shared bytes per block, resident blocks and
-teams per SM, registers, waves; layer_kernel.factory_config), and a
-`sweeps` line: K2-K5 timed on that run's operands with their FLOPs, bytes,
-bound and share, and their launch shapes (sweep_kernels.up_config for K2
-and K4, down_config for K3 and K5).
+Phase 3 also prints the factory's launch shape for each run (K1, or K1d
+at rami5_ns1's SW: team size, teams and threads per block, slab and shared
+bytes per block, resident blocks and teams per SM, registers, waves;
+layer_kernel.factory_config), and a `sweeps` line: K2-K5 timed on that
+run's operands with their FLOPs, bytes, bound and share, and their launch
+shapes (sweep_kernels.up_config for K2 and K4, down_config for K3 and K5).
+A `k1d` line for rami5_ns1 and for the CLI's cli_ns1 run, float32 and
+float64: K1d's SW call (rami5_ns1: its one SW call; cli_ns1: its largest)
+and its LW call (cli_ns1 only) timed with CUDA events against their plain
+versions, with FLOPs, bytes, bound, share and K1d's launch shape.
 Then the per-kernel summary line {"kernels": [...]} (K1-K5: launches
 counted over the headline float32 run of phase 3, ms / plain_ms timed with
 CUDA events on that run's operands, the K1 row also with K1's launch shape
@@ -104,7 +111,10 @@ at the rami5 shape in float32 (*_rami5), and their launch shapes at both
 shapes;
 K1d: launches over the cli_ns1 single
 run, timed on its largest SW call and its LW call; the LW calls as
-launches_lw / ms_lw / plain_ms_lw; K6 and K7: launches over the roofline
+launches_lw / ms_lw / plain_ms_lw; on both calls its launch shape and its
+kernel's own device ms (device_ms, share_device: the wrapper's ms of a
+small call is mostly host work); its SW call at rami5_ns1 (float32) as
+*_rami5; K6 and K7: launches over the roofline
 tool's run, timed on its operands, K6's float64 as *_f64, K7 and its
 library call both with event_ms and the profiler; every row with
 flops, bytes, bound_ms, bound_by and share, the factory rows also
@@ -176,6 +186,7 @@ SHAPE_FIELDS = {"team_size": "team_size", "teams_per_block": "elements_per_block
 # the launch counters a run must raise: a 4-stream path, and a 1-stream one
 PATH_4 = ("K1", "K2", "K3", "K4", "K5", "K1 LW mode")
 PATH_1 = PATH_4 + ("K1d", "K1d LW mode")
+PATH_R5_1 = PATH_4 + ("K1d",)  # rami5_ns1: SW on K1d (nd = 3), LW on K1
 # tile types of layered columns (forest, urban, vegetated urban), and the
 # work model's (nreg, nstream, layers, bands) of each slice run
 LAYERED = (1, 2, 3)
@@ -337,9 +348,10 @@ def time_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(fn, calls=20):
+def profiled_ms(fn, calls=20, symbol=""):
     """Kernel-only device ms per call: the summed durations of the device
-    kernels of one torch.profiler trace of `calls` calls, over `calls`."""
+    kernels (those whose name holds `symbol`) of one torch.profiler trace of
+    `calls` calls, over `calls`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -351,7 +363,7 @@ def profiled_ms(fn, calls=20):
             fn()
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+               if e.device_type == DeviceType.CUDA and symbol in e.name) / 1e3 / calls
 
 
 def sorted_by_doubling(a, k, kernel, RL):
@@ -594,7 +606,9 @@ def main(argv=None) -> int:
                     or "spill" in line]
              for name, log in cuda_build.build_log.items()}
     emit(phase="build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=cuda_build.build_seconds, ptxas=ptxas)
+         nvcc_seconds=cuda_build.build_seconds,
+         part_seconds={f"{n}:{m or 'main'}": t for (n, m), t in cuda_build.part_seconds.items()},
+         ptxas=ptxas)
 
     # ---- 2. each kernel against its plain version, 1024 columns x 8 layers
     C2, L2, S2 = 1024, 8, 2
@@ -634,11 +648,53 @@ def main(argv=None) -> int:
             np.array([1] * 1024), 62, 14,
             dict(n_vegetation_region_forest=2, n_stream_sw_forest=4,
                  n_stream_lw_forest=4, nsw=14, nlw=14)),
+        "rami5_ns1": (
+            np.array([1] * 1024), 62, 14,
+            dict(n_vegetation_region_forest=2, n_stream_sw_forest=1,
+                 n_stream_lw_forest=1, nsw=14, nlw=14)),
     }
+    slice_paths = {"headline": PATH_4, "rami5_shape": PATH_4, "rami5_ns1": PATH_R5_1}
     runs = [(sname, dname, Config(do_lw=True, **cfg).consolidate(), rep, L, S)
             for sname, (rep, L, S, cfg) in slices.items() for dname in dtypes]
     mean_steps = {}  # {slice: [SW, LW] mean doubling steps per factory element}
     sweep_runs = {}  # {(slice, dtype): {sweep wrapper: times, bound, shape}}
+    dense_runs = {}  # {(run, dtype): {factory wrapper: K1d's times, bound, shape}}
+
+    def time_dense(tag, dt, calls):
+        """K1d's calls {wrapper name: (args, kwargs)} timed against their
+        plain versions, with their work, bound and launch shape, and the
+        kernel's own device ms (device_ms: the profiler's, without the
+        wrapper's allocations and the LW mode's epilogue) and its share;
+        emitted as a `k1d` line and kept in dense_runs."""
+        plains = plain_versions(LK, SK, LSK)
+        res = {}
+        for n, (a, k) in calls.items():
+            wrapper = getattr(solver, n)
+            ms = time_ms(lambda: wrapper(*a, **k))
+            flops, nbytes = RL.kernel_work(n, *a, **k)
+            device_ms = profiled_ms(lambda: wrapper(*a, **k), symbol=KERNELS[-1][3])
+            res[n] = dict(ms=ms, plain_ms=time_ms(lambda: plains[n](*a, **k)),
+                          device_ms=device_ms,
+                          elements=a[1].shape[0] * a[1].shape[2], nd=k["nd"],
+                          ndir=k.get("ndir", 1), flops=flops, bytes=nbytes,
+                          **RL.roofline(flops, nbytes, ms, dt),
+                          share_device=RL.roofline(flops, nbytes, device_ms, dt)["share"],
+                          **launch_shape(LK.factory_config(
+                              factory_lib, k["nd"], k.get("ndir", 1),
+                              a[1].shape[0] * a[1].shape[2], dt)))
+        dense_runs[tag, str(dt).split(".")[-1]] = res
+        emit(phase="k1d", run=tag, dtype=str(dt).split(".")[-1], **res)
+
+    def dense_calls(calls):
+        """{wrapper: (args, kwargs)} of K1d's largest SW call and largest LW
+        call among the captured calls (absent: none ran on K1d)."""
+        out = {}
+        for n in ("layer_factory", "lw_layer_factory"):
+            dense = [(a, k) for a, k, _ in calls[n] if runs_on("dense", k, LK)]
+            if dense:
+                out[n] = max(dense, key=lambda c: c[0][1].shape[0] * c[0][1].shape[2])
+        return out
+
     for sname, dname, config, rep, L, S in runs:
         np_dt, dt = dtypes[dname]
         arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np_dt,
@@ -677,7 +733,7 @@ def main(argv=None) -> int:
                   and out_k["bc_out"]["lw_emission"].shape == (len(rep), S))
         f32 = dname == "float32"
         tag = f"{sname} {dname}"
-        k1_shape = {}
+        k1_shape = {}  # the factory's (K1's, or K1d's) launch shape
         for n, mode in (("layer_factory", "sw"), ("lw_layer_factory", "lw")):
             a, k, _ = cap.calls[n][0]
             k1_shape[mode] = launch_shape(LK.factory_config(
@@ -691,7 +747,7 @@ def main(argv=None) -> int:
         check(err_lw <= (2.5e-3 if f32 else 1e-9),
               f"{tag}: LW kernel route vs scan route {err_lw:.3e}")
         check(finite and shapes, f"{tag}: non-finite or misshapen output")
-        check_launched(launches, PATH_4, tag)
+        check_launched(launches, slice_paths[sname], tag)
         check_kernels(kernel_errs, tag)
         emit(phase="slice", run=sname, dtype=dname, columns=len(rep),
              layers=L, bands=S, sw_field_normalized_err=err_sw,
@@ -702,7 +758,7 @@ def main(argv=None) -> int:
              kernel_vs_plain_passed=[ok for _, ok in kernel_errs],
              seconds_kernel_route=t_kernel, seconds_scan_route=t_scan,
              peak_gib_kernel_route=mem_kernel, peak_gib_scan_route=mem_scan,
-             finite=finite, shapes_ok=shapes, k1_launch_shape=k1_shape)
+             finite=finite, shapes_ok=shapes, factory_launch_shape=k1_shape)
         # the sweeps on this run's operands: K2-K5 timed (CUDA events) with
         # their bounds and their launch shapes
         sweeps = {}
@@ -722,9 +778,13 @@ def main(argv=None) -> int:
                     k["nreg"], k["do_urban"], k["with_profiles"], a[0].shape[2], dt)))
         sweep_runs[sname, dname] = sweeps
         emit(phase="sweeps", run=sname, dtype=dname, **sweeps)
+        if sname == "rami5_ns1":  # K1d at nd = 3 on 888,832 elements
+            time_dense(sname, dt, dense_calls(cap.calls))
         if f32:  # each factory element's doubling count, for the roofline
             mean_steps[sname] = [mean_doubling_steps(cap.calls[n], n, RL)
                                  for n in ("layer_factory", "lw_layer_factory")]
+        if sname == "rami5_ns1" and f32:
+            main_launches_r5 = launches["K1d"]
         if sname == "headline" and f32:  # the main path of K1-K5
             main_launches, errs, main_k1_shape = launches, kernel_errs, k1_shape
             wrappers = {n: getattr(solver, n) for n in WRAPPERS}
@@ -747,6 +807,7 @@ def main(argv=None) -> int:
                     useful_doubling_share=useful)
                 del flat, ordered
             emit(phase="k1_divergence", run=sname, dtype=dname, **divergence)
+        a = k = None  # no operand of this run stays allocated into the next
         del cap
         torch.cuda.empty_cache()
 
@@ -825,23 +886,11 @@ def main(argv=None) -> int:
                  walls_seconds={k: walls.get(k) for k in ("read_input", "radsurf", "save")},
                  elapsed_line=next((ln for ln in stdout.getvalue().splitlines()
                                     if ln.startswith("Time elapsed")), None))
-            if nname == "cli_ns1" and f32:  # the main path of K1d
-                dense_launches = (launches["K1d"], launches["K1d LW mode"])
-                dense_err = kernel_errs[-1][0]
-                dense = {n: [(a, k) for a, k, _ in cap.calls[n]
-                             if runs_on("dense", k, LK)]
-                         for n in ("layer_factory", "lw_layer_factory")}
-                # the SW call with the most elements (L x B of g1)
-                a, k = max(dense["layer_factory"],
-                           key=lambda c: c[0][1].shape[0] * c[0][1].shape[2])
-                wrappers = {n: getattr(solver, n) for n in dense}
-                plains = plain_versions(LK, SK, LSK)
-                dense_timings, dense_works = {}, {}
-                for n, (a, k) in (("layer_factory", (a, k)),
-                                  ("lw_layer_factory", dense["lw_layer_factory"][0])):
-                    dense_timings[n] = (time_ms(lambda: wrappers[n](*a, **k)),
-                                        time_ms(lambda: plains[n](*a, **k)))
-                    dense_works[n] = RL.kernel_work(n, *a, **k)
+            if nname == "cli_ns1":  # the main path of K1d
+                time_dense(nname, dt, dense_calls(cap.calls))
+                if f32:
+                    dense_launches = (launches["K1d"], launches["K1d LW mode"])
+                    dense_err = kernel_errs[-1][0]
             del cap
             torch.cuda.empty_cache()
     cli.run_radsurf = run_radsurf
@@ -878,7 +927,7 @@ def main(argv=None) -> int:
     f32 = torch.float32
     walls = {}  # {slice: (layered columns, warm wall s)}, float32 kernel route
     for sname, dname, config, rep, L, S in runs:
-        if dname == "float32":
+        if dname == "float32" and sname in SOLVE_MODELS:
             arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np.float32,
                                     i_representation=rep)
             walls[sname] = (int(np.isin(rep, LAYERED).sum()), wall_seconds(
@@ -958,8 +1007,13 @@ def main(argv=None) -> int:
 
     bounds = {}  # {kernel row: [bound of each timed call]}
     for kname, _, _, _, names, factory in KERNELS:
-        w, t = (dense_works, dense_timings) if factory == "dense" else (works, timings)
-        bounds[kname] = [bound(*w[n], t[n][0]) for n in names]
+        if factory == "dense":  # K1d: the cli_ns1 float32 run's calls
+            d = dense_runs["cli_ns1", "float32"]
+            bounds[kname] = [bound(d[n]["flops"], d[n]["bytes"], d[n]["ms"]) for n in names]
+        else:
+            bounds[kname] = [bound(*works[n], timings[n][0]) for n in names]
+    k1d_r5 = dense_runs["rami5_ns1", "float32"]["layer_factory"]
+    bounds["K1d rami5_ns1"] = [bound(k1d_r5["flops"], k1d_r5["bytes"], k1d_r5["ms"])]
     for key, p in probes.items():
         bounds[key] = [bound(p["flops"], p["bytes"], p["ms"], p["dtype"])]
     for kname, bs in bounds.items():
@@ -1002,7 +1056,9 @@ def main(argv=None) -> int:
     rows = []
     for (kname, src, rep, _, names, factory), e in zip(KERNELS, errs):
         if factory == "dense":  # K1d: the cli_ns1 float32 run
-            n, n_lw, err, t = (*dense_launches, dense_err, dense_timings)
+            d = dense_runs["cli_ns1", "float32"]
+            n, n_lw, err = (*dense_launches, dense_err)
+            t = {w: (d[w]["ms"], d[w]["plain_ms"]) for w in names}
         else:
             n, n_lw, err, t = (main_launches[kname.split()[0]],
                                main_launches["K1 LW mode"], e[0], timings)
@@ -1017,6 +1073,14 @@ def main(argv=None) -> int:
             for sname, sfx in (("headline", ""), ("rami5_shape", "_rami5")):
                 r = sweep_runs[sname, "float32"][names[0]]
                 row.update({f"{key}{sfx}": r[key] for key in SHAPE_FIELDS.values()})
+        if factory == "dense":  # K1d: device ms, launch shape; rami5_ns1's SW call
+            for w, sfx in zip(names, ("", "_lw")):
+                row.update({f"{key}{sfx}": d[w][key] for key in
+                            ("device_ms", "share_device", *SHAPE_FIELDS.values())})
+            row.update({f"{key}_rami5": k1d_r5[key] for key in
+                        ("ms", "plain_ms", "device_ms", "flops", "bytes", "bound_ms",
+                         "bound_by", "share", "share_device", *SHAPE_FIELDS.values())})
+            row["launches_rami5"] = main_launches_r5
         if factory == "structured":  # K1's launch shape at the headline
             for mode, c in main_k1_shape.items():
                 sfx = "" if mode == "sw" else "_lw"

@@ -3,15 +3,14 @@
 // Operands and results are struct-of-arrays: an element's matrix of n x m
 // rows lives at p[i * s] (row-major entry i, stride s = the batch), so
 // neighbouring elements' copies of one entry are neighbours in memory.  The
-// dense factory (K1d) keeps one batch element per thread, with its
-// workspace in that layout.  The structured factory (K1) and the sweeps
-// (K2-K5) give each element a team of TS lanes of one warp and a
-// contiguous slab of shared memory; the team forms below (Team, Mat, tmm,
+// layer factory (K1, and K1d, its dense branch) and the sweeps (K2-K5)
+// give each element a team of TS lanes of one warp and a contiguous slab
+// of shared memory; the team forms below (Team, Mat, tmm,
 // tsolve, dot_row) split a matrix's rows over the lanes, and a team of one
 // lane (TS = 1) runs them as plain loops.  The up-sweeps' warps
 // (OperandReader) and the down-sweeps' blocks (BlockSweep) copy each
 // layer's operands ahead into shared memory.  team_config / team_launch
-// (CUDA only) choose and launch the five team kernels' block shapes.
+// (CUDA only) choose and launch the six team kernels' block shapes.
 //
 // The bodies are plain C++ on scalars.  Built with nvcc they are device
 // functions; built by a host C++ compiler (see host_check.cpp) the same
@@ -120,8 +119,9 @@ struct Team {
 // Team product: out (n x m) (+)= a (n x p) @ b (p x m), each lane its own
 // rows; b is read whole by every lane (a broadcast).  Where p <= CAP a
 // lane keeps its row of a in registers and, with JU > 1, computes JU
-// entries of its row at once (JU independent sums).  Each entry sums in the
-// order of mm below.  `out` must not alias `a` or `b`.  Ends with a team
+// entries of its row at once (JU independent sums).  Each entry sums its
+// products over k = 0, ..., p - 1 in order (after `out` where it
+// accumulates).  `out` must not alias `a` or `b`.  Ends with a team
 // sync.
 template <int TS, int CAP, int JU = 1, class MO, class MA, class MB>
 SPX_DEV void tmm(const Team<TS>& tm, MO out, MA a, MB b, int n, int p, int m,
@@ -201,9 +201,11 @@ SPX_DEV void dot_row2(const MA& a, int i, const VX& x0, const VX& x1, int p, T& 
 }
 
 // Team pivot-free solve a X = rhs (a n x n, destroyed; rhs n x m,
-// overwritten by X), the arithmetic of solve_inplace below: the
-// elimination splits the rows over the lanes, one broadcast pivot row per
-// step; the back substitution splits the columns.  Ends with a team sync.
+// overwritten by X).  The SPARTACUS matrices are diagonally dominant by
+// construction, as in the reference's unpivoted LU
+// (radtool_matrix.F90:982-1055).  The elimination splits the rows over the
+// lanes, one broadcast pivot row per step; the back substitution splits the
+// columns.  Ends with a team sync.
 template <int TS, class MA, class MB>
 SPX_DEV void tsolve(const Team<TS>& tm, MA a, MB rhs, int n, int m) {
   using T = elem_t<MA>;
@@ -243,50 +245,6 @@ SPX_DEV void teye(const Team<TS>& tm, MD dst, int n) {
   for (int i = tm.lane; i < n; i += TS)
     for (int j = 0; j < n; ++j) dst(i, j) = T(i == j);
   tm.sync();
-}
-
-// out[i*os + j] (+)= sum_k a[i*as + k] * b[k*bs + j] for the (n x m) result
-// of (n x p) @ (p x m).  `out` must not alias `a` or `b`.
-template <typename T>
-SPX_DEV void mm(Col<T> out, int os, Col<T> a, int as, Col<T> b, int bs,
-                int n, int p, int m, bool accumulate = false) {
-  for (int i = 0; i < n; ++i)
-    for (int j = 0; j < m; ++j) {
-      T acc = accumulate ? out[i * os + j] : T(0);
-      for (int k = 0; k < p; ++k) acc += a[i * as + k] * b[k * bs + j];
-      out[i * os + j] = acc;
-    }
-}
-
-// Contiguous-stride form: out (n x m) (+)= a (n x p) @ b (p x m).
-template <typename T>
-SPX_DEV void mmc(Col<T> out, Col<T> a, Col<T> b, int n, int p, int m,
-                 bool accumulate = false) {
-  mm(out, m, a, p, b, m, n, p, m, accumulate);
-}
-
-// Pivot-free in-place solve a X = rhs: a is (n x n) with row stride as and
-// is destroyed; rhs is (n x m) with row stride rs and is overwritten by X.
-// The SPARTACUS matrices are diagonally dominant by construction, as in the
-// reference's unpivoted LU (radtool_matrix.F90:982-1055).
-template <typename T>
-SPX_DEV void solve_inplace(Col<T> a, int as, Col<T> rhs, int rs, int n, int m) {
-  for (int k = 0; k < n - 1; ++k) {
-    const T piv = T(1) / a[k * as + k];
-    for (int i = k + 1; i < n; ++i) {
-      const T f = a[i * as + k] * piv;
-      for (int j = k + 1; j < n; ++j) a[i * as + j] -= f * a[k * as + j];
-      for (int j = 0; j < m; ++j) rhs[i * rs + j] -= f * rhs[k * rs + j];
-    }
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    const T rd = T(1) / a[i * as + i];
-    for (int j = 0; j < m; ++j) {
-      T acc = rhs[i * rs + j];
-      for (int k = i + 1; k < n; ++k) acc -= a[i * as + k] * rhs[k * rs + j];
-      rhs[i * rs + j] = acc * rd;
-    }
-  }
 }
 
 // An up-sweep's slab (K2, K4), per element: the carry [AA | D] (nd x nd

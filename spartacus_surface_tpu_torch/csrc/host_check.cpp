@@ -23,7 +23,7 @@ static void factory_host(SPX_FACTORY_PARAMS) {
   std::vector<T> slab(S.size);
   for (long long t = 0; t < n; ++t) {
     slab.assign(S.size, std::numeric_limits<T>::quiet_NaN());
-    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, j0 + t, slab.data(), 0u);
+    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, t, slab.data(), 0u);
   }
 }
 
@@ -39,7 +39,13 @@ static int team_config_host(long long slab_bytes, long long n, long long* info) 
 template <typename T>
 static void dense_factory_host(SPX_FACTORY_PARAMS) {
   const auto A = spx::factory_args<T>(SPX_FACTORY_ARGS);
-  for (long long t = 0; t < n; ++t) spx::layer_factory_dense_thread(A, t);
+  const spx::DenseSlab S = spx::dense_slab_layout(nd, ndir);
+  std::vector<T> slab(S.size);
+  for (long long t = 0; t < n; ++t) {
+    slab.assign(S.size, std::numeric_limits<T>::quiet_NaN());
+    spx::layer_factory_dense_team<1, SPX_DENSE_CAP>(A, S, spx::Team<1>{0, 0u}, t,
+                                                    slab.data(), 0u);
+  }
 }
 
 // K2 and K4: each element's team body as a team of one lane, reading its
@@ -131,6 +137,12 @@ int layer_factory_dense_f32(SPX_FACTORY_PARAMS, const long long*, void*) {
 int layer_factory_dense_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   dense_factory_host<double>(SPX_FACTORY_ARGS);
   return 0;
+}
+int layer_factory_dense_config_f32(int nd, int ndir, long long n, long long* info) {
+  return team_config_host(spx::dense_slab_layout(nd, ndir).size * sizeof(float), n, info);
+}
+int layer_factory_dense_config_f64(int nd, int ndir, long long n, long long* info) {
+  return team_config_host(spx::dense_slab_layout(nd, ndir).size * sizeof(double), n, info);
 }
 int sw_up_sweep_f32(SPX_UP_PARAMS, const long long*, void*) {
   up_host<float>(SPX_UP_ARGS);

@@ -4,11 +4,10 @@
 // counter for every add, subtract, multiply and divide it performs (an fma
 // counts two); negation, fabs, fmax, fmin, ceil, log2, ldexp and sqrt count
 // nothing.  Each "launch" runs the thread function for every thread index in
-// turn (K1-K5: their team bodies as a team of one lane per element, so
-// an element's work counts once, not once per lane) and records that
-// thread's count.
-// Counted<double> has the size and
-// layout of a double, so the buffers are float64 tensors and the exported
+// turn (K1, K1d and K2-K5: their team bodies as a team of one lane per
+// element, so an element's work counts once, not once per lane) and
+// records that thread's count.  Counted<double> has the size and layout of a
+// double, so the buffers are float64 tensors and the exported
 // functions have the C interface of the float64 CUDA launchers.  Built with
 // a host C++ compiler; nvcc never sees this file.
 
@@ -93,7 +92,7 @@ int layer_factory_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   const spx::Slab S = spx::slab_layout(nd, ndir);
   std::vector<CT> slab(S.size);
   each_thread(n, [&](long long t) {
-    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, j0 + t, slab.data(), 0u);
+    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, t, slab.data(), 0u);
   });
   return 0;
 }
@@ -102,8 +101,16 @@ int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
 }
 int layer_factory_dense_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   const auto A = spx::factory_args<CT>(SPX_FACTORY_ARGS);
-  each_thread(n, [&](long long t) { spx::layer_factory_dense_thread(A, t); });
+  const spx::DenseSlab S = spx::dense_slab_layout(nd, ndir);
+  std::vector<CT> slab(S.size);
+  each_thread(n, [&](long long t) {
+    spx::layer_factory_dense_team<1, SPX_DENSE_CAP>(A, S, spx::Team<1>{0, 0u}, t,
+                                                    slab.data(), 0u);
+  });
   return 0;
+}
+int layer_factory_dense_config_f64(int nd, int ndir, long long n, long long* info) {
+  return config_host(n, info);
 }
 int sw_up_sweep_f64(SPX_UP_PARAMS, const long long*, void*) {
   const auto A = spx::up_args<CT>(SPX_UP_ARGS);

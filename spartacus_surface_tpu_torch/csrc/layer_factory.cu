@@ -36,9 +36,9 @@
 //      int_dir and int_dir_diff.
 // K1d replaces steps 1-3 by the full N = 2 nd + ndir matrix: assemble
 // [[-g1, -g2, -g3], [g2, g1, g3], [0, 0, g0]] dz, the same per-element K,
-// A^2, A^4, A^6, U = A (b7 A^6 + b5 A^4 + b3 A^2 + b1 I) and a size-N solve;
-// steps 4-5 are the same device functions (extract_double, schur_ints),
-// run by a team of one lane.  All solves are pivot-free.
+// A^2, A^4, A^6, U = A (b7 A^6 + b5 A^4 + b3 A^2 + b1 I) and a size-N solve
+// for F; steps 4-5 are the same device functions (extract_double,
+// schur_ints).  All solves are pivot-free.
 //
 // K1's design on the H100.  One team of TS lanes of a warp per element (TS
 // the power of two >= nd, at most 32: 8 at nd = 8, 4 elements a warp; 16 at
@@ -65,12 +65,27 @@
 // memory per block (nd > ~45 in float64) goes to a global scratch of one
 // slab per resident team, which the wrapper allocates.
 //
-// K1d stays one thread per element with its workspace in a struct-of-arrays
-// global buffer (4 N^2 + max(N^2, 3 nd ndir) + 4 nd^2 + 4 nd ndir + 2 ndir^2
-// rows, under 500 for N <= 9), launched in chunks of elements by the
-// wrapper.  The norm rule covers the whole [Gamma | b] row, so the longwave
-// (b = O(10^2) W m^-2 per unit height) takes several more doubling steps
-// per element than the shortwave.
+// K1d's design on the H100 is K1's: one team of TS lanes per element (TS
+// the power of two >= nd, at most 4: 1, 2, 4 at the solver's nd = 1, 2, 3,
+// so a lane takes about three rows of the N-row products at N = 3, 6, 9),
+// the same team forms (tmm, tsolve, team_max) and the same extraction and
+// Schur functions, one launch over all L*B elements and no workspace.  Its
+// slab (dense_slab_layout) holds F, Gamma dz and the three Pade powers, N
+// x N each at the odd row stride N | 1 (5 N (N | 1) entries: 405 at N = 9,
+// 1,620 B in float32, 3,240 B in float64); the extraction's workspaces
+// overlay the dead Gamma dz and powers, and the Schur integrals' operand
+// copies and workspaces the whole slab.  What bounds it: shared memory per
+// SM and the registers of a lane (a row of the left factor of each N-wide
+// product in registers), which set the resident teams; and, as for K1, the
+// doubling counts that differ within a warp (the longwave pseudo-beam's
+// norm covers the emission column b = O(10^2) W m^-2 per unit height, so
+// its elements take several more steps than the shortwave's).  K1d has no
+// global-slab kernel: a slab above a block's shared memory (N > ~75 in
+// float64, far beyond the solver's N <= 9) has no launch configuration,
+// and the launch raises (cudaErrorInvalidConfiguration).  It replaces the
+// one-thread-per-element body whose workspace lay in a chunked global
+// buffer (up to 495 rows an element), which every access went to device
+// memory for.
 
 #include "common.cuh"
 
@@ -80,12 +95,12 @@ template <typename T>
 struct FactoryArgs {
   const T *g0, *g1, *g2, *g3, *dz;  // [L, rows, B] and dz [L, B]
   T *R, *Tm, *E, *Sup, *Sdn, *idiff, *idir, *idd;  // [L, rows, B]
-  // K1d: workspace [rows, n]; K1: null, or one slab per resident team
-  // where a slab exceeds the shared memory of a block
+  // K1: null, or one slab per resident team where a slab exceeds the
+  // shared memory of a block; K1d: null
   T* ws;
   int nd, ndir, n_double, int_direct;  // int_direct 0: idir, idd unused
   T theta;
-  long long B, j0, n;  // batch; this launch covers elements j0 .. j0+n-1
+  long long B, n;  // batch; this launch covers elements 0 .. n - 1 (L*B)
 };
 
 // Diagonal Pade [7/7] coefficients.
@@ -555,101 +570,170 @@ SPX_DEV void layer_factory_team(const FactoryArgs<T>& A, const Slab& S,
                       A.int_direct ? op(A.idd, nr, ndir) : none);
 }
 
-// K1d: dense Pade-7 expm of the whole N x N Gamma dz (pallas_layer.py:268).
-// Workspace slots (rows): G, F, W1, W2 = N^2 each; W3 = max(N^2, 3 nd ndir);
-// RT = 4 nd^2, SS = 4 nd ndir, EE = 2 ndir^2 for extraction.  The Schur
-// integrals reuse G, F, W1, W2, W3 as nd^2 slots.
-template <typename T>
-SPX_DEV void layer_factory_dense_thread(const FactoryArgs<T>& A, long long t) {
-  const int nd = A.nd, ndir = A.ndir, N = 2 * nd + ndir, NN = N * N;
+// K1d's per-element slab: offsets (in elements) of its matrices and their
+// row strides.  Stage 1-3 (assembly, Pade, the size-N solve): F, Gamma dz
+// (G) and the powers A^2, A^4, A^6 (W1, W2, W3; W1 becomes V - U, W2 U),
+// N x N each at the odd row stride ldN; stage 4 (extraction and doubling)
+// over the dead G .. W3, with TT over F (dead after the first step); stage
+// 5 (Schur integrals) starts over, its five workspaces large enough for
+// the direct part's ndir-column matrices.
+struct DenseSlab {
+  int ldN, ldn, ldm;  // row strides of N-, nd-, nd+ndir-wide
+  int f, g, w1, w2, w3;
+  int x1, x2, x3a, x3b, x3c, r, t, tmq, sup, sdn, smid, supe, e, e2;
+  int g0, g1, g2, g3, sg, sf, s1, s2, s3;
+  int size;
+};
+
+inline DenseSlab dense_slab_layout(int nd, int ndir) {
+  DenseSlab S{};
+  const int N = 2 * nd + ndir;
+  S.ldN = N | 1;
+  S.ldn = nd | 1;
+  S.ldm = (nd + ndir) | 1;
+  const int nn = N * S.ldN, sq = nd * S.ldn, rc = nd * ndir, dd = ndir * ndir;
+  int o = 0;
+  auto take = [&o](int rows) { const int at = o; o += rows; return at; };
+  S.f = take(nn), S.g = take(nn), S.w1 = take(nn), S.w2 = take(nn), S.w3 = take(nn);
+  int size = o;
+  o = S.g;
+  S.x1 = take(sq), S.x2 = take(nd * S.ldm), S.x3a = take(rc), S.x3b = take(rc);
+  S.x3c = take(rc), S.r = take(sq), S.t = take(sq), S.tmq = take(sq);
+  S.sup = take(rc), S.sdn = take(rc), S.smid = take(rc), S.supe = take(rc);
+  S.e = take(dd), S.e2 = take(dd);
+  size = o > size ? o : size;
+  o = 0;
+  int ws = sq > dd ? sq : dd;
+  ws = ws > rc ? ws : rc;
+  S.g0 = take(dd), S.g1 = take(sq), S.g2 = take(sq), S.g3 = take(rc);
+  S.sg = take(ws), S.sf = take(ws), S.s1 = take(ws), S.s2 = take(ws), S.s3 = take(ws);
+  S.size = o > size ? o : size;
+  return S;
+}
+
+// K1d, one element j (a team of TS lanes; TS = 1 on the host) with its
+// slab: dense Pade-7 expm of the whole N x N Gamma dz (pallas_layer.py:268),
+// then K1's extraction, doubling and Schur integrals.  `live` as for
+// layer_factory_team.  A lane owns rows i and nd + i of Gamma dz for its
+// i < nd and row 2 nd + i for its i < ndir through the assembly, the norm
+// and the scaling, then the rows lane, lane + TS, ... of every N x N
+// matrix.  Ends with a team sync.
+template <int TS, int CAP, typename T>
+SPX_DEV void layer_factory_dense_team(const FactoryArgs<T>& A, const DenseSlab& S,
+                                      const Team<TS>& tm, long long j, T* slab,
+                                      unsigned live) {
+  const int nd = A.nd, ndir = A.ndir, N = 2 * nd + ndir;
   const int n2 = nd * nd, nr = nd * ndir, d2 = ndir * ndir;
-  const long long j = A.j0 + t, l = j / A.B, b = j % A.B;
-  auto op = [&](const T* p, int rows) {
-    return Col<T>{const_cast<T*>(p) + l * rows * A.B + b, A.B};
+  const long long l = j / A.B, b = j % A.B;
+  auto op = [&](const T* p, int rows, int ld) {
+    return mat(Col<T>{const_cast<T*>(p) + l * rows * A.B + b, A.B}, ld);
   };
-  const Col<T> g0 = op(A.g0, d2), g1 = op(A.g1, n2), g2 = op(A.g2, n2),
-               g3 = op(A.g3, nr);
+  const auto g0 = op(A.g0, d2, ndir), g1 = op(A.g1, n2, nd),
+             g2 = op(A.g2, n2, nd), g3 = op(A.g3, nr, ndir);
   const T s = A.dz[l * A.B + b];
-  const Col<T> G{A.ws + t, A.n};
-  const Col<T> F = G.at(NN), W1 = F.at(NN), W2 = W1.at(NN), W3 = W2.at(NN),
-               RT = W3.at(NN > 3 * nr ? NN : 3 * nr), SS = RT.at(4 * n2),
-               EE = SS.at(4 * nr);
+  const Sh<T> sm{slab};
+  auto at = [&](int off, int ld) { return mat(sm.at(off), ld); };
+  const int ldn = S.ldn;
+  const auto F = at(S.f, S.ldN), G = at(S.g, S.ldN), W1 = at(S.w1, S.ldN),
+             W2 = at(S.w2, S.ldN), W3 = at(S.w3, S.ldN);
+  auto row_sum = [&](int i) {
+    T r = T(0);
+    for (int k = 0; k < N; ++k) r += fabs(G(i, k));
+    return r;
+  };
 
   // ---- assemble Gamma dz = [[-g1, -g2, -g3], [g2, g1, g3], [0, 0, g0]] dz
-  for (int i = 0; i < nd; ++i) {
+  // and the row-sum norm
+  T nrm = T(0);
+  for (int i = tm.lane; i < nd; i += TS) {
     for (int k = 0; k < nd; ++k) {
-      const T g1r = g1[i * nd + k] * s, g2r = g2[i * nd + k] * s;
-      G[i * N + k] = -g1r;
-      G[i * N + nd + k] = -g2r;
-      G[(nd + i) * N + k] = g2r;
-      G[(nd + i) * N + nd + k] = g1r;
+      const T g1r = g1(i, k) * s, g2r = g2(i, k) * s;
+      G(i, k) = -g1r;
+      G(i, nd + k) = -g2r;
+      G(nd + i, k) = g2r;
+      G(nd + i, nd + k) = g1r;
     }
     for (int e = 0; e < ndir; ++e) {
-      const T g3r = g3[i * ndir + e] * s;
-      G[i * N + 2 * nd + e] = -g3r;
-      G[(nd + i) * N + 2 * nd + e] = g3r;
+      const T g3r = g3(i, e) * s;
+      G(i, 2 * nd + e) = -g3r;
+      G(nd + i, 2 * nd + e) = g3r;
     }
+    nrm = fmax(nrm, row_sum(i));
+    nrm = fmax(nrm, row_sum(nd + i));
   }
-  for (int i = 0; i < ndir; ++i) {
-    for (int k = 0; k < 2 * nd; ++k) G[(2 * nd + i) * N + k] = T(0);
-    for (int e = 0; e < ndir; ++e)
-      G[(2 * nd + i) * N + 2 * nd + e] = g0[i * ndir + e] * s;
+  for (int i = tm.lane; i < ndir; i += TS) {
+    for (int k = 0; k < 2 * nd; ++k) G(2 * nd + i, k) = T(0);
+    for (int e = 0; e < ndir; ++e) G(2 * nd + i, 2 * nd + e) = g0(i, e) * s;
+    nrm = fmax(nrm, row_sum(2 * nd + i));
   }
-
-  // ---- per-element scaling from the row-sum norm of Gamma dz
-  T nrm = T(0);
-  for (int i = 0; i < N; ++i) {
-    T r = T(0);
-    for (int k = 0; k < N; ++k) r += fabs(G[i * N + k]);
-    nrm = fmax(nrm, r);
-  }
+  nrm = team_max(tm, nrm);
   const T kf = fmin(fmax(ceil(log2(fmax(nrm, T(1e-30)) / A.theta)), T(0)),
                     T(A.n_double));
   const int nK = int(kf);
   const T fac = ldexp(T(1), -nK);
-  for (int i = 0; i < NN; ++i) G[i] *= fac;
+  for (int i = tm.lane; i < nd; i += TS)
+    for (int k = 0; k < N; ++k) {
+      G(i, k) *= fac;
+      G(nd + i, k) *= fac;
+    }
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int k = 0; k < N; ++k) G(2 * nd + i, k) *= fac;
+  tm.sync();
 
   // ---- Pade-7: V = b6 A6 + b4 A4 + b2 A2 + b0 I in F,
   // U = A (b7 A6 + b5 A4 + b3 A2 + b1 I) in W2; solve (V - U) F = (V + U)
-  mmc(W1, G, G, N, N, N);    // A2
-  mmc(W2, W1, W1, N, N, N);  // A4
-  mmc(W3, W1, W2, N, N, N);  // A6
-  for (int i = 0; i < NN; ++i) {
-    F[i] = pade<T>(6) * W3[i] + pade<T>(4) * W2[i] + pade<T>(2) * W1[i];
-    W3[i] = pade<T>(7) * W3[i] + pade<T>(5) * W2[i] + pade<T>(3) * W1[i];
+  tmm<TS, CAP>(tm, W1, G, G, N, N, N);    // A2
+  tmm<TS, CAP>(tm, W2, W1, W1, N, N, N);  // A4
+  tmm<TS, CAP>(tm, W3, W1, W2, N, N, N);  // A6
+  for (int i = tm.lane; i < N; i += TS) {
+    for (int k = 0; k < N; ++k) {
+      F(i, k) = pade<T>(6) * W3(i, k) + pade<T>(4) * W2(i, k) + pade<T>(2) * W1(i, k);
+      W3(i, k) = pade<T>(7) * W3(i, k) + pade<T>(5) * W2(i, k) + pade<T>(3) * W1(i, k);
+    }
+    F(i, i) += pade<T>(0);
+    W3(i, i) += pade<T>(1);
   }
-  for (int i = 0; i < N; ++i) {
-    F[i * N + i] += pade<T>(0);
-    W3[i * N + i] += pade<T>(1);
-  }
-  mmc(W2, G, W3, N, N, N);  // U
-  for (int i = 0; i < NN; ++i) {
-    W1[i] = F[i] - W2[i];
-    F[i] += W2[i];
-  }
-  solve_inplace(W1, N, F, N, N, N);  // F = expm(Gamma dz 2^-K)
+  tm.sync();
+  tmm<TS, CAP>(tm, W2, G, W3, N, N, N);  // U
+  for (int i = tm.lane; i < N; i += TS)
+    for (int k = 0; k < N; ++k) {
+      W1(i, k) = F(i, k) - W2(i, k);
+      F(i, k) += W2(i, k);
+    }
+  tm.sync();
+  tsolve(tm, W1, F, N, N);  // F = expm(Gamma dz 2^-K)
 
-  // ---- extraction + doubling, then the Schur integrals (G..W3 are dead),
-  // through the team functions with a team of one lane on the workspace
-  const Team<1> one{0, 0u};
-  const auto Fm = mat(F, N);
-  const ExtractWs<Mat<Col<T>>> ws{
-      mat(W1, nd),         mat(W2, nd + ndir),  mat(W3, ndir),
-      mat(W3.at(nr), ndir), mat(W3.at(2 * nr), ndir), mat(RT, nd),
-      mat(RT.at(n2), nd),  mat(RT.at(3 * n2), nd), mat(F, nd),
-      mat(SS, ndir),       mat(SS.at(nr), ndir), mat(SS.at(2 * nr), ndir),
-      mat(SS.at(3 * nr), ndir), mat(EE, ndir),  mat(EE.at(d2), ndir)};
-  extract_double<1, 0>(one, nd, ndir, nK, Fm, Fm.sub(2 * nd, 2 * nd), ws,
-                       mat(op(A.R, n2), nd), mat(op(A.Tm, n2), nd),
-                       mat(op(A.E, d2), ndir), mat(op(A.Sup, nr), ndir),
-                       mat(op(A.Sdn, nr), ndir));
+  // ---- extraction + doubling, then the Schur integrals on the operands
+  // copied into the slab
+  const ExtractWs<Mat<Sh<T>>> ws{
+      at(S.x1, ldn),  at(S.x2, S.ldm), at(S.x3a, ndir), at(S.x3b, ndir),
+      at(S.x3c, ndir), at(S.r, ldn),   at(S.t, ldn),    at(S.tmq, ldn),
+      at(S.f, ldn),   at(S.sup, ndir), at(S.sdn, ndir), at(S.smid, ndir),
+      at(S.supe, ndir), at(S.e, ndir), at(S.e2, ndir)};
+  extract_double<TS, CAP>(tm, nd, ndir, nK, F, F.sub(2 * nd, 2 * nd), ws,
+                          op(A.R, n2, nd), op(A.Tm, n2, nd), op(A.E, d2, ndir),
+                          op(A.Sup, nr, ndir), op(A.Sdn, nr, ndir));
+#ifdef __CUDACC__
+  if (TS < 32) __syncwarp(live);
+#endif
+  const auto G0 = at(S.g0, ndir), G1 = at(S.g1, ldn), G2 = at(S.g2, ldn),
+             G3 = at(S.g3, ndir);
+  for (int i = tm.lane; i < nd; i += TS) {
+    for (int k = 0; k < nd; ++k) {
+      G1(i, k) = g1(i, k);
+      G2(i, k) = g2(i, k);
+    }
+    for (int e = 0; e < ndir; ++e) G3(i, e) = g3(i, e);
+  }
+  for (int i = tm.lane; i < ndir; i += TS)
+    for (int e = 0; e < ndir; ++e) G0(i, e) = g0(i, e);
+  tm.sync();
   const auto none = mat(Col<T>{nullptr, A.B}, 0);
-  schur_ints<1, 0>(one, nd, ndir, ndir, A.int_direct != 0, mat(g0, ndir),
-                   mat(g1, nd), mat(g2, nd), mat(g3, ndir), mat(G, nd),
-                   mat(F, nd), mat(W1, nd), mat(W2, nd), mat(W3, nd),
-                   mat(op(A.idiff, n2), nd),
-                   A.int_direct ? mat(op(A.idir, d2), ndir) : none,
-                   A.int_direct ? mat(op(A.idd, nr), ndir) : none);
+  schur_ints<TS, CAP>(tm, nd, ndir, ndir, A.int_direct != 0, G0, G1, G2, G3,
+                      at(S.sg, ldn), at(S.sf, ldn), at(S.s1, ldn),
+                      at(S.s2, ldn), at(S.s3, ldn), op(A.idiff, n2, nd),
+                      A.int_direct ? op(A.idir, d2, ndir) : none,
+                      A.int_direct ? op(A.idd, nr, ndir) : none);
 }
 
 template <typename T>
@@ -657,13 +741,11 @@ FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
                             void* R, void* Tm, void* E, void* Sup, void* Sdn,
                             void* idiff, void* idir, void* idd, void* ws,
                             int nd, int ndir, int n_double, int int_direct,
-                            double theta, long long B, long long j0,
-                            long long n) {
+                            double theta, long long B, long long n) {
   return FactoryArgs<T>{(const T*)g0, (const T*)g1, (const T*)g2,
                         (const T*)g3, (const T*)dz, (T*)R, (T*)Tm, (T*)E,
                         (T*)Sup, (T*)Sdn, (T*)idiff, (T*)idir, (T*)idd,
-                        (T*)ws, nd, ndir, n_double, int_direct, T(theta), B,
-                        j0, n};
+                        (T*)ws, nd, ndir, n_double, int_direct, T(theta), B, n};
 }
 
 }  // namespace spx
@@ -672,27 +754,34 @@ FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
   void *g0, void *g1, void *g2, void *g3, void *dz, void *R, void *Tm,       \
       void *E, void *Sup, void *Sdn, void *idiff, void *idir, void *idd,     \
       void *ws, int nd, int ndir, int n_double, int int_direct,              \
-      double theta, long long B, long long j0, long long n
+      double theta, long long B, long long n
 #define SPX_FACTORY_ARGS                                                      \
   g0, g1, g2, g3, dz, R, Tm, E, Sup, Sdn, idiff, idir, idd, ws, nd, ndir,    \
-      n_double, int_direct, theta, B, j0, n
+      n_double, int_direct, theta, B, n
+
+// K1d's team products keep a row of the left factor in registers up to this
+// width (N <= 9 in every solver configuration)
+#define SPX_DENSE_CAP 16
 
 #ifdef __CUDACC__
 // The source compiles in parts, one nvcc each, started together
 // (ops/cuda_build.py PARTS): SPX_PART_TS16, SPX_PART_TS32_F32 and
-// SPX_PART_TS32_F64 instantiate K1 at those team sizes; the main part
-// (neither macro) the rest, K1d and the C interface.
-#if defined(SPX_PART_TS16) || defined(SPX_PART_TS32_F32) || defined(SPX_PART_TS32_F64)
+// SPX_PART_TS32_F64 instantiate K1 at those team sizes, SPX_PART_DENSE K1d
+// at every team size; the main part (no macro) the rest and the C
+// interface.
+#if defined(SPX_PART_TS16) || defined(SPX_PART_TS32_F32) || \
+    defined(SPX_PART_TS32_F64) || defined(SPX_PART_DENSE)
 #define SPX_PART_SIDE
 #endif
 
-// K1: teams of TS lanes, blockDim.x / TS of them a block, each looping over
-// the elements j = its index, + the grid's teams, ...; the slab in dynamic
-// shared memory, or (GLOBAL, at TS = 32 only) in the wrapper's scratch at
-// A.ws.
-template <typename T, int TS, bool GLOBAL>
-__global__ void layer_factory_kernel(spx::FactoryArgs<T> A, spx::Slab S,
-                                     int stride) {
+// The body of K1's and K1d's team kernels: teams of TS lanes, blockDim.x /
+// TS of them a block, each looping over the elements j = its index, + the
+// grid's teams, ...; the slab in dynamic shared memory, or (GLOBAL, K1 at
+// TS = 32 only) in the wrapper's scratch at A.ws.  Every lane of the warp
+// takes each round, so the teams with an element know one another (live);
+// body(tm, j, slab, live) runs one element.
+template <typename T, int TS, bool GLOBAL, class F>
+__device__ __forceinline__ void factory_teams(const spx::FactoryArgs<T>& A, int stride, F body) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int per_block = blockDim.x / TS, team = threadIdx.x / TS;
   const unsigned ones = (unsigned)((1ull << TS) - 1ull);
@@ -702,13 +791,31 @@ __global__ void layer_factory_kernel(spx::FactoryArgs<T> A, spx::Slab S,
   const long long step = (long long)gridDim.x * per_block;
   T* slab = GLOBAL ? A.ws + first * stride
                    : reinterpret_cast<T*>(smem_raw) + team * stride;
-  // every lane of the warp takes each round, so the teams with an element
-  // know one another (live)
   for (long long j = first;; j += step) {
     const unsigned live = __ballot_sync(0xffffffffu, j < A.n);
     if (live == 0) break;
-    if (j < A.n) spx::layer_factory_team<TS, TS>(A, S, tm, A.j0 + j, slab, live);
+    if (j < A.n) body(tm, j, slab, live);
   }
+}
+
+// K1 at team size TS.
+template <typename T, int TS, bool GLOBAL>
+__global__ void layer_factory_kernel(spx::FactoryArgs<T> A, spx::Slab S,
+                                     int stride) {
+  factory_teams<T, TS, GLOBAL>(A, stride, [&](const spx::Team<TS>& tm, long long j,
+                                              T* slab, unsigned live) {
+    spx::layer_factory_team<TS, TS>(A, S, tm, j, slab, live);
+  });
+}
+
+// K1d at team size TS.
+template <typename T, int TS>
+__global__ void layer_factory_dense_kernel(spx::FactoryArgs<T> A, spx::DenseSlab S,
+                                           int stride) {
+  factory_teams<T, TS, false>(A, stride, [&](const spx::Team<TS>& tm, long long j,
+                                             T* slab, unsigned live) {
+    spx::layer_factory_dense_team<TS, SPX_DENSE_CAP>(A, S, tm, j, slab, live);
+  });
 }
 
 // K1 at team size TS: with `configure`, its configuration for A.nd, A.ndir
@@ -740,6 +847,37 @@ SPX_K1_ENTRY(spx_k1_ts16_f64, double, 16)
 SPX_K1_ENTRY(spx_k1_ts32_f32, float, 32)
 #elif defined(SPX_PART_TS32_F64)
 SPX_K1_ENTRY(spx_k1_ts32_f64, double, 32)
+#elif defined(SPX_PART_DENSE)
+// K1d at team size TS, as run_k1 (no global-slab kernel: where no block
+// fits, team_config returns cudaErrorInvalidConfiguration).
+template <typename T, int TS>
+static int run_k1d(const spx::FactoryArgs<T>& A, cudaStream_t stream,
+                   long long* info, int configure) {
+  auto* k = &layer_factory_dense_kernel<T, TS>;
+  const spx::DenseSlab S = spx::dense_slab_layout(A.nd, A.ndir);
+  if (info == nullptr) return (int)cudaErrorInvalidValue;
+  if (configure)
+    return (int)spx::team_config<T, TS>(k, (decltype(k)) nullptr, S.size, 0, A.n, info);
+  return spx::team_launch(k, (decltype(k)) nullptr, info, stream, A, S,
+                          (int)(info[3] / sizeof(T)));
+}
+
+// K1d by team size: the power of two >= nd, at most 4.
+template <typename T>
+static int run_dense(const void* a, void* stream, long long* info, int configure) {
+  const auto& A = *(const spx::FactoryArgs<T>*)a;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (A.nd <= 1) return run_k1d<T, 1>(A, s, info, configure);
+  if (A.nd <= 2) return run_k1d<T, 2>(A, s, info, configure);
+  return run_k1d<T, 4>(A, s, info, configure);
+}
+
+extern "C" int spx_k1d_f32(const void* A, void* stream, long long* info, int configure) {
+  return run_dense<float>(A, stream, info, configure);
+}
+extern "C" int spx_k1d_f64(const void* A, void* stream, long long* info, int configure) {
+  return run_dense<double>(A, stream, info, configure);
+}
 #endif
 
 #ifndef SPX_PART_SIDE
@@ -747,20 +885,17 @@ extern "C" int spx_k1_ts16_f32(const void*, void*, long long*, int);
 extern "C" int spx_k1_ts16_f64(const void*, void*, long long*, int);
 extern "C" int spx_k1_ts32_f32(const void*, void*, long long*, int);
 extern "C" int spx_k1_ts32_f64(const void*, void*, long long*, int);
+extern "C" int spx_k1d_f32(const void*, void*, long long*, int);
+extern "C" int spx_k1d_f64(const void*, void*, long long*, int);
 
-template <typename T>
-__global__ void layer_factory_dense_kernel(spx::FactoryArgs<T> A) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t < A.n) spx::layer_factory_dense_thread(A, t);
-}
-
-// K1 by team size (the power of two >= nd, at most 32): its configuration
-// (configure) or its launch as info says.
-template <typename T>
-static int run_structured(const spx::FactoryArgs<T>& A, void* stream,
-                          long long* info, int configure) {
+// K1 by team size (the power of two >= nd, at most 32), or K1d: its
+// configuration (configure) or its launch as info says.
+template <typename T, bool dense>
+static int run_factory(const spx::FactoryArgs<T>& A, void* stream, long long* info,
+                       int configure) {
   const cudaStream_t s = (cudaStream_t)stream;
   const bool f32 = sizeof(T) == 4;
+  if (dense) return (f32 ? spx_k1d_f32 : spx_k1d_f64)(&A, stream, info, configure);
   if (A.nd <= 2) return run_k1<T, 2>(A, s, info, configure);
   if (A.nd <= 4) return run_k1<T, 4>(A, s, info, configure);
   if (A.nd <= 8) return run_k1<T, 8>(A, s, info, configure);
@@ -769,22 +904,18 @@ static int run_structured(const spx::FactoryArgs<T>& A, void* stream,
   return (f32 ? spx_k1_ts32_f32 : spx_k1_ts32_f64)(&A, stream, info, configure);
 }
 
-// K1 (as cfg, its configuration with the grid of this launch) or K1d.
+// K1 or K1d as cfg (its configuration with the grid of this launch) says.
 template <typename T, bool dense>
 static int launch_factory(SPX_FACTORY_PARAMS, const long long* cfg, void* stream) {
   const auto A = spx::factory_args<T>(SPX_FACTORY_ARGS);
-  if (!dense) return run_structured<T>(A, stream, const_cast<long long*>(cfg), 0);
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  layer_factory_dense_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(A);
-  return (int)cudaGetLastError();
+  return run_factory<T, dense>(A, stream, const_cast<long long*>(cfg), 0);
 }
 
-template <typename T>
+template <typename T, bool dense>
 static int factory_config(int nd, int ndir, long long n, long long* info) {
   spx::FactoryArgs<T> A{};
   A.nd = nd, A.ndir = ndir, A.n = n;
-  return run_structured<T>(A, nullptr, info, 1);
+  return run_factory<T, dense>(A, nullptr, info, 1);
 }
 
 #define SPX_CFG const long long *cfg
@@ -801,10 +932,18 @@ extern "C" int layer_factory_dense_f64(SPX_FACTORY_PARAMS, SPX_CFG, void* stream
   return launch_factory<double, true>(SPX_FACTORY_ARGS, cfg, stream);
 }
 extern "C" int layer_factory_config_f32(int nd, int ndir, long long n, long long* info) {
-  return factory_config<float>(nd, ndir, n, info);
+  return factory_config<float, false>(nd, ndir, n, info);
 }
 extern "C" int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
-  return factory_config<double>(nd, ndir, n, info);
+  return factory_config<double, false>(nd, ndir, n, info);
+}
+extern "C" int layer_factory_dense_config_f32(int nd, int ndir, long long n,
+                                              long long* info) {
+  return factory_config<float, true>(nd, ndir, n, info);
+}
+extern "C" int layer_factory_dense_config_f64(int nd, int ndir, long long n,
+                                              long long* info) {
+  return factory_config<double, true>(nd, ndir, n, info);
 }
 #endif  // SPX_PART_SIDE
 #endif

@@ -153,8 +153,9 @@ class SolverOptions:
     # ||Gamma dz|| up to theta * 2**n_double at full accuracy (30 covers
     # horizon sun, see the JAX SolverOptions).
     n_double: int = 30
-    # Batch elements (column x band x layer) per factory launch: bounds the
-    # factory's workspace (K1: ~5,500 rows per element at nd=16).
+    # Batch elements (column x band x layer) per step of the factory's
+    # plain version (the CPU route), bounding its temporaries; the kernels
+    # (K1, K1d) launch once over every element and need no workspace.
     factory_chunk: int = 65536
     # Solve in chunks of this many columns (0 = whole batch).
     column_chunk: int = 0

@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
 source and the shared headers, so an edited source is rebuilt).  A source
 listed in PARTS compiles as several objects, one nvcc each with one of its
 macros, all started together, then links into the one library (the layer
-factory's team sizes 16 and 32 are most of its build).  Nothing here
+factory's K1 at team sizes 16 and 32, and its K1d, build apart).  Nothing here
 runs at import time: a machine without nvcc imports every module, and only a
 launch on a CUDA tensor builds.  Also the operand checks and ctypes helpers
 that the kernel wrappers share.
@@ -30,10 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # {source: the macro of each part} (csrc/layer_factory.cu: SPX_PART_*); ""
 # is the main part
 PARTS = {"layer_factory": ("", "SPX_PART_TS16", "SPX_PART_TS32_F32",
-                           "SPX_PART_TS32_F64")}
+                           "SPX_PART_TS32_F64", "SPX_PART_DENSE")}
 
 _libs: dict = {}
 build_seconds: dict = {}  # name -> nvcc wall seconds (absent: cached build)
+part_seconds: dict = {}  # (name, macro) -> that part's nvcc wall seconds
 build_log: dict = {}  # name -> nvcc's stderr (ptxas register/spill report)
 
 
@@ -62,12 +63,13 @@ def load(name: str) -> ctypes.CDLL:
         base = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
         parts = PARTS.get(name)
         if parts is None:
-            log = _nvcc_all([[*base, "-shared", "-o", str(tmp), str(src)]], src)
+            log = _nvcc_all([[*base, "-shared", "-o", str(tmp), str(src)]], src)[0]
         else:
             objs = [tmp.with_name(f"{tmp.name}.{i}.o") for i in range(len(parts))]
-            log = _nvcc_all([[*base, *([f"-D{m}"] if m else []), "-c", "-o", str(o),
-                              str(src)] for m, o in zip(parts, objs)], src)
-            log += _nvcc_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]], src)
+            log, secs = _nvcc_all([[*base, *([f"-D{m}"] if m else []), "-c", "-o",
+                                    str(o), str(src)] for m, o in zip(parts, objs)], src)
+            part_seconds.update({(name, m): t for m, t in zip(parts, secs)})
+            log += _nvcc_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]], src)[0]
             for o in objs:
                 o.unlink()
         os.replace(tmp, lib_path)
@@ -77,16 +79,22 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def _nvcc_all(cmds, src) -> str:
-    """Run the nvcc commands at once and wait for every one; their stderr
-    (the ptxas report), or raise if one failed."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for c in cmds]
-    errs = [proc.communicate()[1] for proc in procs]
-    for proc, err in zip(procs, errs):
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{err}")
-    return "".join(errs)
+def _nvcc_all(cmds, src):
+    """Run the nvcc commands at once and wait for every one: (their stderr,
+    the ptxas report; each one's wall seconds), or raise if one failed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        return res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(pool.map(run, cmds))
+    for res, _ in done:
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{res.stderr}")
+    return "".join(res.stderr for res, _ in done), [t for _, t in done]
 
 
 def validate(kernel: str, operands: dict) -> torch.device:
@@ -170,6 +178,10 @@ def stream(device) -> ctypes.c_void_p:
 
 
 def check(err: int, name: str) -> None:
-    """Raise on a nonzero cudaGetLastError() returned by a launcher."""
+    """Raise on a nonzero cudaGetLastError() returned by a launcher (or a
+    team kernel's config function)."""
     if err != 0:
-        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
+        why = (" (invalid configuration: no block of the kernel fits an SM, as"
+               " where one element's slab exceeds a block's shared memory)"
+               if err == 9 else "")
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}{why}")

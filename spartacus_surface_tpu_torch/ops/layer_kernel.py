@@ -31,14 +31,25 @@ H100: shared memory, whose slabs set how many elements an SM runs at once
 (56 at the headline in float32), too few warps to hide each lane's chain
 of shared-memory loads and FMAs; and the doubling counts, which differ
 between the teams of a warp (the warp runs its largest).
-``factory_config`` reports the launch shape (team size, teams per block,
-shared memory, resident blocks per SM, registers), computed once per
-shape and dtype (cuda_build.team_config, shared with K2 and K4); the
-launch takes it, so the occupancy calculator runs once per shape, not
-twice per call.  K1d stays one thread per element with a struct-of-arrays
-global workspace, launched in chunks of ``chunk`` elements.  Each element
-loops exactly its own K doubling steps, which is the TPU kernel's masked
-commit (pallas_layer.py:400) without the masking.
+
+K1d, the dense branch (pallas_layer.py:268), is built the same way: a team
+of TS lanes per element (the power of two >= nd, at most 4) runs the full
+N = 2 nd + ndir Pade-7 (the N x N products and the size-N solve split over
+the lanes) and K1's extraction, doubling and Schur functions on a slab of
+shared memory (``dense_slab_layout``: 5 N (N | 1) entries, 405 at N = 9),
+in one launch over all L*B elements with no workspace.  What bounds it:
+shared memory and registers per SM, which set the resident teams, and the
+doubling counts that differ within a warp.  A slab above a block's shared
+memory (N > ~75 in float64; the solver's N is at most 9) has no launch
+configuration, and the launch raises.
+
+``factory_config`` reports either kernel's launch shape (team size, teams
+per block, shared memory, resident blocks per SM, registers), computed once
+per shape and dtype (cuda_build.team_config, shared with K2-K5); the launch
+takes it, so the occupancy calculator runs once per shape, not twice per
+call.  ``chunk`` bounds only the plain version's steps.  Each element loops
+exactly its own K doubling steps, which is the TPU kernel's masked commit
+(pallas_layer.py:400) without the masking.
 """
 
 from __future__ import annotations
@@ -71,13 +82,6 @@ def is_structured(nd: int, ndir: int) -> bool:
     return nd >= 2 * ndir and nd >= 2
 
 
-def dense_workspace_rows(nd: int, ndir: int) -> int:
-    """Per-element workspace of K1d: G, F, W1, W2, W3, RT, SS, EE slots
-    (csrc/layer_factory.cu, pallas_layer.py:871-879)."""
-    nn, nr = (2 * nd + ndir) ** 2, nd * ndir
-    return 4 * nn + max(nn, 3 * nr) + 4 * nd * nd + 4 * nr + 2 * ndir * ndir
-
-
 def layer_factory_plain(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30,
                         chunk=65536, int_direct=True):
     """Plain PyTorch version of K1 on the same [L, rows, B] operands."""
@@ -97,10 +101,9 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
     int_direct, int_dir and int_dir_diff, each [L, rows, B].
 
     g0 [L, ndir^2, B], g1/g2 [L, nd^2, B], g3 [L, nd*ndir, B], dz [L, B].
-    CUDA tensors launch csrc/layer_factory.cu: K1 where is_structured(nd,
-    ndir), once over every element; K1d otherwise, in chunks of `chunk`
-    elements.  CPU tensors take layer_factory_plain (`chunk` elements at a
-    time).
+    CUDA tensors launch csrc/layer_factory.cu once over every element: K1
+    where is_structured(nd, ndir), K1d otherwise.  CPU tensors take
+    layer_factory_plain (`chunk` elements at a time).
     """
     L, _, B = g1.shape
     dev = cuda_build.validate("layer_factory", {
@@ -118,59 +121,55 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
 
 
 # the C signatures of the launchers (csrc/layer_factory.cu): the operands,
-# then K1's launch configuration (cuda_build.team_config; K1d ignores it)
+# then the launch configuration (cuda_build.team_config)
 FACTORY_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
-                    + [ctypes.c_double] + [ctypes.c_longlong] * 3
+                    + [ctypes.c_double] + [ctypes.c_longlong] * 2
                     + [ctypes.c_void_p] * 2)
 
 
+def _kind(nd, ndir) -> str:
+    """The C symbols' infix: "" for K1, "_dense" for K1d."""
+    return "" if is_structured(nd, ndir) else "_dense"
+
+
 def factory_config(lib, nd, ndir, n, dtype) -> dict:
-    """K1's launch configuration for n elements at (nd, ndir) in dtype
-    (cuda_build.TEAM_FIELDS and the derived fields of team_config; on the
-    card, the kernel's registers and its resident blocks per SM from the
-    CUDA occupancy calculator, computed once per (nd, ndir, dtype))."""
+    """The launch configuration of K1 (or K1d, by is_structured) for n
+    elements at (nd, ndir) in dtype (cuda_build.TEAM_FIELDS and the derived
+    fields of team_config; on the card, the kernel's registers and its
+    resident blocks per SM from the CUDA occupancy calculator, computed once
+    per (kernel, nd, ndir, dtype))."""
     bits = "f32" if dtype == torch.float32 else "f64"
-    return cuda_build.team_config(lib, f"layer_factory_config_{bits}",
+    return cuda_build.team_config(lib, f"layer_factory{_kind(nd, ndir)}_config_{bits}",
                                   (nd, ndir), n, 4 if bits == "f32" else 8)
 
 
 def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
            int_direct=True):
-    """Allocate the outputs and launch lib's layer_factory_f32/f64 (K1:
-    one launch over every element, no workspace) or
-    layer_factory_dense_f32/f64 (K1d: in chunks of `chunk` elements, with
-    its workspace).  Counts each launch in layer_factory.launches (K1) or
+    """Allocate the outputs and launch lib's layer_factory_f32/f64 (K1) or
+    layer_factory_dense_f32/f64 (K1d) once over every element, with no
+    workspace (K1 only: a scratch where its slab exceeds a block's shared
+    memory); `chunk` is not used (it bounds the plain version's steps).
+    Counts the launch in layer_factory.launches (K1) or
     layer_factory.dense_launches (K1d) and, without int_direct, in the same
     counter of lw_layer_factory too."""
     L, _, B = g1.shape
-    structured = is_structured(nd, ndir)
-    kind = "" if structured else "_dense"
+    kind = _kind(nd, ndir)
     bits = "f32" if g1.dtype == torch.float32 else "f64"
     fn = cuda_build.bind(lib, f"layer_factory{kind}_{bits}", FACTORY_ARGTYPES)
     rows = out_rows(nd, ndir)
     outs = {k: g1.new_empty((L, rows[k], B)) for k in out_names(int_direct)}
-    total = L * B
-    cfg = None
-    if structured:
-        cfg = factory_config(lib, nd, ndir, total, g1.dtype)
-        scratch = cfg["scratch_elements"]
-        spans = [(0, total, g1.new_empty((scratch,)) if scratch else None)]
-    else:
-        step = max(1, min(chunk or total, total))
-        ws = g1.new_empty((dense_workspace_rows(nd, ndir) * step,))
-        spans = [(j0, min(step, total - j0), ws) for j0 in range(0, total, step)]
-    counter = "launches" if structured else "dense_launches"
-    wrappers = (layer_factory,) + (() if int_direct else (lw_layer_factory,))
-    for j0, n, ws in spans:
-        err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz)),
-                 *(cuda_build.ptr(outs[k]) if k in outs else None
-                   for k in OUT_NAMES),
-                 None if ws is None else cuda_build.ptr(ws), nd, ndir,
-                 n_double, int(int_direct), pade7_theta(g1.dtype), B, j0, n,
-                 cfg and cuda_build.team_info(cfg), stream)
-        cuda_build.check(err, f"layer_factory{kind}")
-        for w in wrappers:
-            setattr(w, counter, getattr(w, counter) + 1)
+    cfg = factory_config(lib, nd, ndir, L * B, g1.dtype)
+    scratch = (g1.new_empty((cfg["scratch_elements"],))
+               if cfg["scratch_elements"] else None)
+    err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz)),
+             *(cuda_build.ptr(outs[k]) if k in outs else None for k in OUT_NAMES),
+             None if scratch is None else cuda_build.ptr(scratch), nd, ndir,
+             n_double, int(int_direct), pade7_theta(g1.dtype), B, L * B,
+             cuda_build.team_info(cfg), stream)
+    cuda_build.check(err, f"layer_factory{kind}")
+    counter = "dense_launches" if kind else "launches"
+    for w in (layer_factory,) + (() if int_direct else (lw_layer_factory,)):
+        setattr(w, counter, getattr(w, counter) + 1)
     return outs
 
 
@@ -215,7 +214,7 @@ def lw_layer_factory(g1, g2, b, dz, *, nd, n_double=30, chunk=65536):
     gamma3 = b and int_direct off (K1d where nd = 1); CUDA tensors launch it
     (counted in the launches / dense_launches of layer_factory and of
     lw_layer_factory), CPU tensors take the plain version.  `chunk` bounds
-    the elements of a K1d launch and of a plain-version step.
+    the elements of a plain-version step.
     """
     g0, g3 = _lw_operands(g1, b)
     lay = layer_factory(g0, g1, g2, g3, dz, nd=nd, ndir=1, n_double=n_double,

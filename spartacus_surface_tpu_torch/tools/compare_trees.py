@@ -4,11 +4,12 @@
         [--walls DIR ...] [--variant NAME ...] [--out FILE]
 
 Each DIR holds a copy of the repo (for example a ``git archive`` of another
-commit unpacked under build/) and is timed end to end and on the
-sweeps, as is this script's own tree.  ``--variant NAME`` adds a copy
-of this script's tree with the named edit of VARIANTS applied (under
-build/compare_trees/NAME), timed on the sweeps only: an experiment that
-is measured here and not kept in the kernels.
+commit unpacked under build/) and is timed end to end, on the sweeps and
+on the dense factory, as is this script's own tree.  ``--variant NAME``
+adds a copy of this script's tree with the named edit of VARIANTS applied
+(under build/compare_trees/NAME), timed on what it edits only (the dense
+factory where it edits csrc/layer_factory.cu alone, else the sweeps): an
+experiment that is measured here and not kept in the kernels.
 
 First every tree's kernels are built, one process per tree, all at once.
 Then one process per tree and turn runs in the order t1 .. tn tn .. t1, so
@@ -16,8 +17,19 @@ a drift of the card between turns cancels in the mean over the two turns.
 Each imports the package from its own tree and measures:
 - walls (not for variants): host seconds of warm kernel-route
   run_radsurf calls (SW + LW, ending in a synchronize; median, min, max of
-  WALL_REPS after one) at the headline and the rami5 shapes, float32 and
-  float64 (the shapes of chip_smoke.py's slices);
+  WALL_REPS after one) at the headline, rami5 and rami5_ns1 shapes (those
+  of chip_smoke.py's slices) and the cli_ns1 shape (its CLI's columns at
+  1 stream), float32 and float64;
+- factory: K1d (layer_factory where is_structured is false) on the
+  operands of one kernel-route run_radsurf at the cli_ns1 and rami5_ns1
+  shapes, float32 and float64, captured from the tree's own solver: its SW
+  call with the largest operands (cli_ns1: the Forest tiles', nd = 3) and
+  its LW call (where one is dense), device ms per call
+  as for the sweeps and the kernel's own (device_ms: its summed durations
+  in a torch.profiler trace, without the wrapper's other launches and host
+  work), the field-normalized error against the tree's plain
+  version and, where the tree reports it (layer_kernel.factory_config for
+  K1d), the launch shape;
 - sweeps: K2 (sw_up_sweep), K3 (sw_down_sweep_both), K4 (lw_up_sweep)
   and K5 (lw_down_sweep_both) through their public wrappers on seeded
   operands on the card (no solver: the sweeps' work does not depend on the
@@ -54,7 +66,11 @@ SHAPE_KEYS = ("registers", "smem_per_block", "blocks_per_sm", "resident_per_sm",
 # (nreg, ns, layers, columns, bands, do_urban) of the sweeps at each shape
 SWEEP_SHAPES = {"headline": (2, 4, 8, 16384, 1, True),
                 "rami5_shape": (3, 4, 62, 1024, 14, False)}
-# chip_smoke.py's slices: tile types per column, layers, bands, namelist
+# chip_smoke.py's slices and the CLI's columns at 1 stream: tile types per
+# column, layers, bands, namelist
+CLI_COLUMNS = [3] * 8192 + [1] * 4096 + [2] * 4096 + [0] * 512 + [4] * 256 + [5] * 256
+ONE_STREAM = dict(n_stream_sw_forest=1, n_stream_sw_urban=1, n_stream_lw_forest=1,
+                  n_stream_lw_urban=1)
 WALL_SHAPES = {
     "headline": ([3] * 16384 + [0] * 512 + [4] * 256 + [5] * 256, 8, 1,
                  dict(n_vegetation_region_urban=1, n_stream_sw_urban=4,
@@ -62,9 +78,61 @@ WALL_SHAPES = {
     "rami5_shape": ([1] * 1024, 62, 14,
                     dict(n_vegetation_region_forest=2, n_stream_sw_forest=4,
                          n_stream_lw_forest=4, nsw=14, nlw=14), ("float32", "float64")),
+    "cli_ns1": (CLI_COLUMNS, 8, 1,
+                dict(ONE_STREAM, n_vegetation_region_forest=2, n_vegetation_region_urban=1,
+                     nsw=1, nlw=1), ("float32", "float64")),
+    "rami5_ns1": ([1] * 1024, 62, 14,
+                  dict(ONE_STREAM, n_vegetation_region_forest=2, nsw=14, nlw=14),
+                  ("float32", "float64")),
 }
-# experiments on the sweeps: {name: [(file under the package, text, replacement)]}
+FACTORY_SHAPES = ("cli_ns1", "rami5_ns1")  # the dense factory's (K1d's) shapes
+FACTORY_REPS = 5
+# experiments on the kernels: {name: [(file under the package, text, replacement)]}
 VARIANTS = {
+    # K1d's team size the power of two >= N = 2 nd + ndir (4, 8, 16 at the
+    # solver's N = 3, 6, 9) rather than >= nd
+    "dense_ts_n": [
+        ("csrc/layer_factory.cu",
+         "  if (A.nd <= 1) return run_k1d<T, 1>(A, s, info, configure);\n"
+         "  if (A.nd <= 2) return run_k1d<T, 2>(A, s, info, configure);\n"
+         "  return run_k1d<T, 4>(A, s, info, configure);\n",
+         "  const int N = 2 * A.nd + A.ndir;\n"
+         "  if (N <= 4) return run_k1d<T, 4>(A, s, info, configure);\n"
+         "  if (N <= 8) return run_k1d<T, 8>(A, s, info, configure);\n"
+         "  return run_k1d<T, 16>(A, s, info, configure);\n"),
+    ],
+    # K1d stops after the size-N solve (assembly, norm, Pade), or after the
+    # extraction and doubling (before the Schur integrals): the time of each
+    # stage by difference (their results are not written)
+    "dense_stop_after_pade": [
+        ("csrc/layer_factory.cu", "  tsolve(tm, W1, F, N, N);  // F = expm(Gamma dz 2^-K)\n",
+         "  tsolve(tm, W1, F, N, N);  // F = expm(Gamma dz 2^-K)\n  if (A.n > 0) return;\n"),
+    ],
+    "dense_stop_after_extract": [
+        ("csrc/layer_factory.cu",
+         "op(A.R, n2, nd), op(A.Tm, n2, nd), op(A.E, d2, ndir),\n"
+         "                          op(A.Sup, nr, ndir), op(A.Sdn, nr, ndir));\n",
+         "op(A.R, n2, nd), op(A.Tm, n2, nd), op(A.E, d2, ndir),\n"
+         "                          op(A.Sup, nr, ndir), op(A.Sdn, nr, ndir));\n"
+         "  if (A.n > 0) return;\n"),
+    ],
+    # K1d's team products keep at most 9 entries of a row in registers
+    # (N <= 9) rather than 16
+    "dense_cap9": [
+        ("csrc/layer_factory.cu", "#define SPX_DENSE_CAP 16", "#define SPX_DENSE_CAP 9"),
+    ],
+    # K1d's N x N Pade products compute three entries of a row at once
+    # (three independent sums)
+    "dense_ju3": [
+        ("csrc/layer_factory.cu", "  tmm<TS, CAP>(tm, W1, G, G, N, N, N);    // A2",
+         "  tmm<TS, CAP, 3>(tm, W1, G, G, N, N, N);    // A2"),
+        ("csrc/layer_factory.cu", "  tmm<TS, CAP>(tm, W2, W1, W1, N, N, N);  // A4",
+         "  tmm<TS, CAP, 3>(tm, W2, W1, W1, N, N, N);  // A4"),
+        ("csrc/layer_factory.cu", "  tmm<TS, CAP>(tm, W3, W1, W2, N, N, N);  // A6",
+         "  tmm<TS, CAP, 3>(tm, W3, W1, W2, N, N, N);  // A6"),
+        ("csrc/layer_factory.cu", "  tmm<TS, CAP>(tm, W2, G, W3, N, N, N);  // U",
+         "  tmm<TS, CAP, 3>(tm, W2, G, W3, N, N, N);  // U"),
+    ],
     # K2 and K4 read their operands from device memory (no copy-ahead, and
     # no shared memory for its buffers)
     "direct_reads": [
@@ -107,6 +175,12 @@ VARIANTS = {
 }
 
 
+def times_factory(name: str) -> bool:
+    """Whether the variant is timed on the dense factory (it edits
+    csrc/layer_factory.cu alone), not on the sweeps."""
+    return all(rel == "csrc/layer_factory.cu" for rel, _, _ in VARIANTS[name])
+
+
 def make_variant(name: str, work: Path = WORK) -> Path:
     """A copy of this tree's package under work/name with VARIANTS[name]
     applied (each text must occur exactly once); returns work/name."""
@@ -144,6 +218,23 @@ def _ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, symbol, calls):
+    """Device ms per call of the kernels whose name holds `symbol`: their
+    summed durations in one torch.profiler trace of `calls` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and symbol in e.name) / 1e3 / calls
 
 
 def _field_err(ref, got):
@@ -209,7 +300,37 @@ def down_operands(mode, nreg, ns, up_args, stacks, dtype, dev, seed):
             aux, *quad)
 
 
-def worker(tree: Path, label: str, turn: int, walls: bool) -> dict:
+def _dense_calls(solver, LK, run):
+    """{"sw": (args, kwargs) of the largest K1d call of the SW factory, "lw":
+    the first K1d call of the LW factory} of run() (absent: no K1d call),
+    recorded on the tree's solver."""
+    calls = {"layer_factory": [], "lw_layer_factory": []}
+    saved = {n: getattr(solver, n) for n in calls}
+
+    def recorder(name, fn):
+        def rec(*a, **k):
+            calls[name].append((a, k))
+            return fn(*a, **k)
+        return rec
+
+    for n, fn in saved.items():
+        setattr(solver, n, recorder(n, fn))
+    try:
+        run()
+    finally:
+        for n, fn in saved.items():
+            setattr(solver, n, fn)
+    dense = {n: [(a, k) for a, k in c if not LK.is_structured(k["nd"], k.get("ndir", 1))]
+             for n, c in calls.items()}
+    out = {}
+    if dense["layer_factory"]:
+        out["sw"] = max(dense["layer_factory"], key=lambda c: c[0][1].numel())
+    if dense["lw_layer_factory"]:
+        out["lw"] = dense["lw_layer_factory"][0]
+    return out
+
+
+def worker(tree: Path, label: str, turn: int, walls: bool, parts=("sweeps", "factory")) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -224,7 +345,8 @@ def worker(tree: Path, label: str, turn: int, walls: bool) -> dict:
     dev = torch.device("cuda")
     dtypes = {"float32": torch.float32, "float64": torch.float64}
     rec = {"tree": label, "turn": turn, "sweeps": {}}
-    for sname, (nreg, ns, L, C, S, urban) in SWEEP_SHAPES.items():
+    for sname, (nreg, ns, L, C, S, urban) in (SWEEP_SHAPES.items() if "sweeps" in parts
+                                              else ()):
         hw = LegendreGauss(ns).hweight
         kw = dict(nd=nreg * ns, ns=ns, nreg=nreg)
         dkw = dict(kw, do_urban=urban, with_profiles=False)
@@ -251,11 +373,40 @@ def worker(tree: Path, label: str, turn: int, walls: bool) -> dict:
                         row.update({key: config()[key] for key in SHAPE_KEYS})
                 del a, d
                 torch.cuda.empty_cache()
-    if walls:
-        from spartacus_surface_tpu_torch.models.dispatch import run_radsurf
-        from spartacus_surface_tpu_torch.utils.config import Config
-        from spartacus_surface_tpu_torch.utils.inputs import example_arrays
+    from spartacus_surface_tpu_torch.models import solver
+    from spartacus_surface_tpu_torch.models.dispatch import run_radsurf
+    from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+    from spartacus_surface_tpu_torch.utils.config import Config
+    from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 
+    if "factory" in parts:
+        rec["factory"] = {}
+        lib = cuda_build.load("layer_factory")
+        for sname in FACTORY_SHAPES:
+            rep, L, S, cfg, dnames = WALL_SHAPES[sname]
+            config = Config(do_lw=True, **cfg).consolidate()
+            for dname in dnames:
+                arrays = example_arrays(C=len(rep), L=L, S=S, dtype=getattr(np, dname),
+                                        i_representation=np.array(rep))
+                calls = _dense_calls(solver, LK, lambda: run_radsurf(config, arrays, dev))
+                for mode, (a, k) in calls.items():
+                    fn = getattr(LK, "layer_factory" if mode == "sw" else "lw_layer_factory")
+                    plain = getattr(LK, f"{fn.__name__}_plain")
+                    ms = _ms(lambda: fn(*a, **k), FACTORY_REPS)
+                    got, ref = fn(*a, **k), plain(*a, **k)
+                    row = rec["factory"][f"K1d {mode} {sname} {dname}"] = {
+                        "ms": ms, "err": _field_err([ref[n] for n in ref], [got[n] for n in ref]),
+                        "device_ms": _device_ms(lambda: fn(*a, **k), "layer_factory_dense_kernel",
+                                                FACTORY_REPS),
+                        "elements": a[1].shape[0] * a[1].shape[2], "nd": k["nd"]}
+                    if not hasattr(LK, "dense_workspace_rows"):  # K1d's launch shape
+                        c = LK.factory_config(lib, k["nd"], k.get("ndir", 1), row["elements"],
+                                              a[1].dtype)
+                        row.update({key: c[key] for key in SHAPE_KEYS + ("team_size",)})
+                    del got, ref
+                del arrays, calls
+                torch.cuda.empty_cache()
+    if walls:
         rec["walls"] = {}
         for sname, (rep, L, S, cfg, dnames) in WALL_SHAPES.items():
             config = Config(do_lw=True, **cfg).consolidate()
@@ -278,13 +429,14 @@ def worker(tree: Path, label: str, turn: int, walls: bool) -> dict:
     return rec
 
 
-def build(tree: Path, walls: bool) -> None:
+def build(tree: Path, parts) -> None:
     sys.path.insert(0, str(tree))
     from concurrent.futures import ThreadPoolExecutor
 
     from spartacus_surface_tpu_torch.ops import cuda_build
 
-    names = ("layer_factory", "sw_sweeps", "lw_sweeps") if walls else ("sw_sweeps", "lw_sweeps")
+    names = ((("sw_sweeps", "lw_sweeps") if "sweeps" in parts else ())
+             + (("layer_factory",) if "factory" in parts else ()))
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_build.load, names))
 
@@ -306,13 +458,16 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", nargs=3, metavar=("TREE", "LABEL", "TURN"))
     ap.add_argument("--build", type=Path)
     ap.add_argument("--with-walls", action="store_true")
+    ap.add_argument("--parts", default="sweeps,factory")
     o = ap.parse_args(argv)
+    parts = tuple(o.parts.split(","))
     if o.build is not None:
-        build(o.build, o.with_walls)
+        build(o.build, parts)
         return 0
     if o.worker is not None:
         tree, label, turn = o.worker
-        print(json.dumps(worker(Path(tree), label, int(turn), o.with_walls)), flush=True)
+        print(json.dumps(worker(Path(tree), label, int(turn), o.with_walls, parts)),
+              flush=True)
         return 0
 
     import torch
@@ -320,14 +475,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("compare_trees: needs a CUDA card", file=sys.stderr)
         return 1
-    trees = [(p.name, p, True) for p in o.walls] + [("this", THIS_TREE, True)]
-    trees += [(name, make_variant(name), False) for name in o.variant]
+    both = "sweeps,factory"
+    trees = [(p.name, p, True, both) for p in o.walls] + [("this", THIS_TREE, True, both)]
+    trees += [(name, make_variant(name), False,
+               "factory" if times_factory(name) else "sweeps") for name in o.variant]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--build",
-                               str(path), *(["--with-walls"] if walls else [])],
+                               str(path), "--parts", parts],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for _, path, walls in trees]
-    for (label, _, _), proc in zip(trees, procs):
+             for _, path, _, parts in trees]
+    for (label, *_), proc in zip(trees, procs):
         err = proc.communicate()[1]
         if proc.returncode != 0:
             print(f"compare_trees: the build of {label} failed:\n{err[-4000:]}",
@@ -338,8 +495,8 @@ def main(argv=None) -> int:
     records = []
     order = [(t, 0) for t in trees] + [(t, 1) for t in reversed(trees)]
     with o.out.open("w") as f:
-        for (label, path, walls), turn in order:
-            res = _run(["--worker", str(path), label, str(turn),
+        for (label, path, walls, parts), turn in order:
+            res = _run(["--worker", str(path), label, str(turn), "--parts", parts,
                         *(["--with-walls"] if walls else [])], timeout=900)
             if res.returncode != 0:
                 print(f"compare_trees: {label} turn {turn} failed:\n{res.stderr[-4000:]}",
@@ -349,13 +506,16 @@ def main(argv=None) -> int:
             records.append(rec)
             f.write(json.dumps(rec) + "\n")
             print(json.dumps(rec), flush=True)
-    for label, _, _ in trees:
+    for label, *_ in trees:
         turns = [r for r in records if r["tree"] == label]
         mean = {}
-        for part in ("sweeps", "walls"):
+        for part in ("sweeps", "factory", "walls"):
             for key in turns[0].get(part, {}):
-                vals = [r[part][key]["ms" if part == "sweeps" else "ms_median"] for r in turns]
+                vals = [r[part][key]["ms_median" if part == "walls" else "ms"] for r in turns]
                 mean[f"{part} {key}"] = {"mean_ms": statistics.mean(vals), "turns_ms": vals}
+                if part == "factory":
+                    mean[f"{part} {key}"]["mean_device_ms"] = statistics.mean(
+                        r[part][key]["device_ms"] for r in turns)
         print(json.dumps({"tree": label, "mean_of_turns": mean}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

@@ -162,7 +162,7 @@ def _fma_solve(n, m):
 
 
 def _mm(n, p, m):
-    """FLOPs of common.cuh mm / mmc: an (n x p) @ (p x m) product."""
+    """FLOPs of common.cuh tmm: an (n x p) @ (p x m) product."""
     return 2 * n * p * m
 
 
@@ -173,7 +173,7 @@ def _mv(n, p):
 
 
 def _solve(n, m):
-    """FLOPs of common.cuh solve_inplace: n x n, m right-hand sides."""
+    """FLOPs of common.cuh tsolve: n x n, m right-hand sides."""
     elim = sum(1 + j * (1 + 2 * j + 2 * m) for j in range(1, n))
     back = sum(1 + m * (2 * j + 1) for j in range(n))
     return elim + back
@@ -190,10 +190,10 @@ def _factory_fixed_flops(nd, ndir, int_direct=True):
     """Per element, everything of K1 or K1d but the doubling steps: the
     expm (K1: half-size Pade-7 and the F - I solve at 2 nd; K1d: the full
     N = 2 nd + ndir Pade-7), the thin-layer extraction and the Schur
-    integrals (layer_factory.cu).  K1's team body counts once per element,
-    whatever its team size: a product or solve split over the lanes does
-    the element's arithmetic once, and the scalars each lane repeats (a
-    pivot's reciprocal, the norm's max) are not counted again."""
+    integrals (layer_factory.cu).  K1's and K1d's team bodies count once
+    per element, whatever their team size: a product or solve split over
+    the lanes does the element's arithmetic once, and the scalars each lane
+    repeats (a pivot's reciprocal, the norm's max) are not counted again."""
     n2, nr, d2, N = nd * nd, nd * ndir, ndir * ndir, 2 * nd + ndir
     if LK.is_structured(nd, ndir):  # K1
         f = 8 * n2 + 4 * nr + 3 * d2 + 3 * nd + ndir + 1  # assembly, K, 2^-K
@@ -203,8 +203,8 @@ def _factory_fixed_flops(nd, ndir, int_direct=True):
         f += 7 * _mm(nd, nd, ndir) + 10 * _mm(nd, ndir, ndir) + 20 * nr  # columns
         f += 2 * n2 + nr * (2 + 6 * ndir) + _solve(2 * nd, N)  # (V - U) X = 2 U
         f += 12 * n2 + 4 * nr + 2 * nd + d2  # butterfly, + I
-    else:  # K1d
-        f = 2 * n2 + nr + d2 + 2 * N * N + 1  # assembly, K, 2^-K
+    else:  # K1d: assembly, the row sums of |Gamma dz|, K, 2^-K
+        f = 2 * n2 + nr + d2 + 2 * N * N + 1
         f += 4 * _mm(N, N, N) + 12 * N * N + 2 * N + _solve(N, N)  # Pade-7
     f += _solve(nd, nd + ndir) + 2 * n2 * (nd + ndir)  # extraction
     f += 2 * _solve(nd, nd) + 4 * _mm(nd, nd, nd) + 2 * n2  # int_diff

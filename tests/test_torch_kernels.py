@@ -168,7 +168,7 @@ def test_host_built_kernels_match_plain(host_lib, monkeypatch, nreg, ns, dtype):
     assert_matches_plain(host_launch(host_lib, calls), calls, dtype == np.float32)
 
 
-@pytest.mark.parametrize("nreg,ns", [(2, 1), (3, 1), (2, 4)])
+@pytest.mark.parametrize("nreg,ns", [(2, 1), (3, 1), (2, 4), (1, 1)])
 def test_host_built_factory_float32_accuracy(host_lib, monkeypatch, nreg, ns):
     """In float32 each factory output of K1 / K1d is as close to the float64
     answer as the plain version's, within a factor 2 plus 1e-6 (at 1 stream
@@ -202,32 +202,38 @@ class _Recorder:
         return call
 
 
+@pytest.mark.parametrize("nreg,ns", [(2, 4), (1, 1)])
 @pytest.mark.parametrize("chunk", [1, 5, 65536, 0])
 @pytest.mark.parametrize("mode", ["sw", "lw"])
-def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk):
-    """K1 launches once per call whatever `chunk` is, over every element,
-    with no workspace (a null pointer) and nothing allocated but its
-    outputs."""
-    calls = capture(monkeypatch, 2, 4, np.float64, "cpu")
-    cuda_build.bind(host_lib, "layer_factory_f64", LK.FACTORY_ARGTYPES)
-    cuda_build.bind(host_lib, "layer_factory_config_f64",
+def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk, nreg, ns):
+    """K1 (nreg, ns = 2, 4) and K1d (1, 1: both modes dense) launch once
+    per call whatever `chunk` is, over every element, with no workspace (a
+    null pointer), their launch configuration passed in, and nothing
+    allocated but their outputs."""
+    calls = capture(monkeypatch, nreg, ns, np.float64, "cpu")
+    kind = "" if ns > 1 else "_dense"
+    cuda_build.bind(host_lib, f"layer_factory{kind}_f64", LK.FACTORY_ARGTYPES)
+    cuda_build.bind(host_lib, f"layer_factory{kind}_config_f64",
                     [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
     lib = _Recorder(host_lib)
     allocated = []
     new_empty = torch.Tensor.new_empty
     monkeypatch.setattr(torch.Tensor, "new_empty", lambda t, shape, **kw: (
         allocated.append(tuple(shape)), new_empty(t, shape, **kw))[1])
-    n1, nlw = LK.layer_factory.launches, LK.lw_layer_factory.launches
+    counter = "launches" if ns > 1 else "dense_launches"
+    n1, nlw = (getattr(w, counter) for w in (LK.layer_factory, LK.lw_layer_factory))
     a, k, ref = calls[f"{'' if mode == 'sw' else 'lw_'}layer_factory"]
+    assert LK.is_structured(k["nd"], k.get("ndir", 1)) == (ns > 1)
     got = LAUNCH[("" if mode == "sw" else "lw_") + "layer_factory"](
         lib, *a, stream=None, **dict(k, chunk=chunk))
     monkeypatch.undo()
-    launches = [args for name, args in lib.calls if name == "layer_factory_f64"]
-    assert len(launches) == 1
+    launches = [args for name, args in lib.calls if name == f"layer_factory{kind}_f64"]
+    assert len(launches) == 1 and len(launches[0]) == len(LK.FACTORY_ARGTYPES)
     L, _, B = a[0].shape
     assert launches[0][13] is None and launches[0][-3:-2] == (L * B,)  # ws, n
-    assert LK.layer_factory.launches == n1 + 1
-    assert LK.lw_layer_factory.launches == nlw + (mode == "lw")
+    assert launches[0][-2] is not None  # the launch configuration
+    assert getattr(LK.layer_factory, counter) == n1 + 1
+    assert getattr(LK.lw_layer_factory, counter) == nlw + (mode == "lw")
     rows = LK.out_rows(k["nd"], k.get("ndir", 1))
     assert sorted(allocated) == sorted((L, rows[n], B) for n in LK.out_names(mode == "sw"))
     assert all(field_err([ref[n]], [got[n]]) <= 1e-9 for n in ref)
@@ -624,15 +630,16 @@ def _random_gammas(rng, L, B, nd, ndir, dtype):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("nd,ndir", [(1, 1), (2, 2), (3, 3), (2, 4)])
 def test_cuda_dense_factory_launches(cuda_device, nd, ndir, dtype):
-    """Where the structured factory does not apply, K1d launches (its own
-    counter rises, K1's does not) and matches the plain version."""
+    """Where the structured factory does not apply, K1d launches once over
+    every element whatever `chunk` is (its own counter rises, K1's does
+    not) and matches the plain version."""
     assert not LK.is_structured(nd, ndir)
     ops = [x.to(cuda_device) for x in
            _random_gammas(np.random.default_rng(nd), 3, 257, nd, ndir, dtype)]
     n1, nd1 = LK.layer_factory.launches, LK.layer_factory.dense_launches
     got = LK.layer_factory(*ops, nd=nd, ndir=ndir, chunk=500)
     torch.cuda.synchronize()
-    assert LK.layer_factory.dense_launches == nd1 + 2  # 771 elements, 2 chunks
+    assert LK.layer_factory.dense_launches == nd1 + 1  # 771 elements, one launch
     assert LK.layer_factory.launches == n1
     ref = LK.layer_factory_plain(*ops, nd=nd, ndir=ndir)
     assert set(got) == set(ref)
@@ -775,11 +782,13 @@ def test_cuda_lw_wrappers_launch_or_raise(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nd,ndir,ts", [(2, 1, 2), (4, 2, 4), (8, 2, 8), (8, 1, 8),
-                                        (12, 3, 16), (16, 4, 16), (24, 3, 32)])
+                                        (12, 3, 16), (16, 4, 16), (24, 3, 32),
+                                        (1, 1, 1), (2, 2, 2), (3, 3, 4), (2, 4, 2)])
 def test_cuda_factory_config(cuda_device, nd, ndir, ts):
-    """K1's launch shape: a team of the power of two >= nd lanes, whole
-    warps of teams where the slabs fit, at least one block resident per SM,
-    every slab in shared memory (no scratch) at these widths."""
+    """The launch shape of K1 (a team of the power of two >= nd lanes) and
+    K1d (the dense shapes: the power of two >= nd, at most 4): whole warps
+    of teams where the slabs fit, at least one block resident per SM, every
+    slab in shared memory (no scratch) at these widths."""
     lib = cuda_build.load("layer_factory")
     for dtype in (torch.float32, torch.float64):
         c = LK.factory_config(lib, nd, ndir, 1000, dtype)
@@ -788,6 +797,21 @@ def test_cuda_factory_config(cuda_device, nd, ndir, ts):
         assert c["blocks_per_sm"] >= 1 and c["registers"] > 0, c
         assert c["scratch_elements"] == 0, c
         assert c["smem_per_block"] == c["teams_per_block"] * c["slab_bytes"], c
+
+
+@pytest.mark.cuda
+def test_cuda_dense_factory_refuses_oversized_slab(cuda_device):
+    """K1d has no global-slab kernel: where one element's slab exceeds a
+    block's shared memory (nd = 1, ndir = 80, N = 82, in float64) its
+    launch raises, naming the limit, and nothing runs."""
+    nd, ndir = 1, 80
+    assert not LK.is_structured(nd, ndir)
+    ops = [x.to(cuda_device) for x in
+           _random_gammas(np.random.default_rng(nd), 1, 3, nd, ndir, np.float64)]
+    n = LK.layer_factory.dense_launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        LK.layer_factory(*ops, nd=nd, ndir=ndir)
+    assert LK.layer_factory.dense_launches == n
 
 
 @pytest.mark.cuda
@@ -810,7 +834,8 @@ def test_cuda_factory_global_slab(cuda_device):
 
 
 # K1 in SW and LW mode, float32 and float64, at a width its team size
-# divides (nd = 8, TS = 8) and one it does not (nd = 12, TS = 16)
+# divides (nd = 8, TS = 8) and one it does not (nd = 12, TS = 16); K1d at
+# nd = ndir = 3 (TS = 4) and in LW mode at nd = 1 (TS = 1)
 SANITIZED_FACTORY = """
 import sys
 import numpy as np
@@ -819,7 +844,7 @@ sys.path.insert(0, {tests!r})
 from test_torch_kernels import _random_gammas
 from spartacus_surface_tpu_torch.ops import layer_kernel as LK
 dev = torch.device("cuda")
-for nd, ndir in ((8, 2), (8, 1), (12, 3), (12, 1)):
+for nd, ndir in ((8, 2), (8, 1), (12, 3), (12, 1), (3, 3), (1, 1)):
     for dtype in (np.float32, np.float64):
         g0, g1, g2, g3, dz = (x.to(dev) for x in _random_gammas(
             np.random.default_rng(nd), 2, 37, nd, ndir, dtype))
@@ -828,7 +853,7 @@ for nd, ndir in ((8, 2), (8, 1), (12, 3), (12, 1)):
         else:
             LK.layer_factory(g0, g1, g2, g3, dz, nd=nd, ndir=ndir)
 torch.cuda.synchronize()
-print("K1 launches", LK.layer_factory.launches)
+print("K1 launches", LK.layer_factory.launches, "K1d", LK.layer_factory.dense_launches)
 """
 
 
@@ -836,9 +861,10 @@ print("K1 launches", LK.layer_factory.launches)
 @pytest.mark.parametrize("tool", ["racecheck", "synccheck"])
 def test_cuda_factory_sanitizer(cuda_device, tool):
     """compute-sanitizer finds no shared-memory hazard (racecheck) and no
-    invalid __syncwarp (synccheck) in small K1 launches: SW and LW mode,
-    float32 and float64, nd = 8 and 12.  Skips where the tool is not
-    installed, or does not run on this machine."""
+    invalid __syncwarp (synccheck) in small K1 and K1d launches: SW and LW
+    mode, float32 and float64, K1 at nd = 8 and 12, K1d at nd = 3 (SW) and
+    1 (LW).  Skips where the tool is not installed, or does not run on this
+    machine."""
     exe = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
     if not os.path.exists(exe):
         pytest.skip("compute-sanitizer is not installed on this machine")
@@ -858,5 +884,5 @@ def test_cuda_factory_sanitizer(cuda_device, tool):
         pytest.skip(f"compute-sanitizer {tool} does not run on this machine"
                     f" (exit {res.returncode}): {(refused or [out[-400:]])[0]}")
     print(summary[-1])
-    assert res.returncode == 0 and "K1 launches 8" in out, out[-3000:]
+    assert res.returncode == 0 and "K1 launches 8 K1d 4" in out, out[-3000:]
     assert "SUMMARY: 0 hazards" in summary[-1] or "SUMMARY: 0 errors" in summary[-1], out[-3000:]
