@@ -63,6 +63,41 @@ final line):
      launched, and the demo's own factory calls (SW on K1d, LW on K1)
      against their plain versions on the same operands, every output field,
      <= 1e-9 in f64.
+  grad - the gradient of run_radsurf with respect to a veg_ext tensor, of
+     the JAX test's loss (sum of sw_norm_dir ground_net + sum of
+     lw_internal top_net, tests/test_autodiff.py:129), on the kernel route
+     (solver._KernelRouteGrad: the kernels forward, the scan route
+     recomputed per column chunk backward, column_chunk = GRAD_CHUNK) at
+     the headline and on the cli_ns1-shaped columns (the cli phase's tile
+     mix and 1-stream namelist, through run_radsurf: K1d forward), float32
+     and float64.  Checks: every kernel of the path launched in one step
+     and each captured kernel call against its plain version (the phase-2
+     bars); the kernel route's gradient against the scan route's (whose
+     step keeps its whole graph, all columns) at 1e-9 relative in float64
+     and GRAD_AGREE_F32 in float32 (max|diff| / max|scan|); finite; the
+     autograd graph freed after the step; in float64 a directional central
+     difference of the kernel route's loss (step FD_STEP along a seeded
+     normal v) against <grad, v> within 5e-4 relative
+     (tests/test_autodiff.py:104).  Prints each step's launches, peak
+     device memory (kernel-route step; scan-route step) and the warm walls
+     (median of 3) of a forward-only call and of forward + backward, and
+     their ratio.
+  retrieval - examples/retrieval.run([]) on the card at its defaults (64
+     columns, 4 layers, 200 Adam steps): the misfit must fall below 1e-2 of
+     its first value (tests/test_retrieval_example.py:61) with K1, K2 and
+     K3 launched; prints the seconds a step takes and the final mean
+     |veg_ext - truth|.
+  assoc - SolverOptions(associative_sweeps=True) on the kernel route (K1,
+     then the plain associative sweeps) against the sequential kernel route
+     (K1-K5), SW and LW, float32 and float64, at ASSOC_SHAPES: a deep
+     canopy (8 Forest columns, nreg 3, ns 4, 1,024 thin layers, 1 band) and
+     the headline (16,384 VegetatedUrban columns, nreg 2, ns 4, 8 layers),
+     on utils/inputs.example_arrays' seeded fields (as phase 3).
+     Checks: K1 in both modes launched and K2-K5 not on the associative
+     route, K1-K5 on the sequential one; field-normalized error <= 3e-4
+     (SW) / 2.5e-3 (LW) in float32, 1e-9 in float64; the associative
+     route's energy budgets within phase 3's bars.  Prints both routes'
+     warm walls (median of 3) and peak device memory.
   roofline - the roofline tool's main path, tools.roofline.main(
      ["--cols-per-sec", <headline rate>]) with the probe counters set to 0
      just before it and read just after (K6 and K7 must launch); K6
@@ -92,7 +127,8 @@ final line):
      both routes (median, min, max of 5 calls), and one torch.profiler trace
      of a warm kernel-route call: device launches, device busy ms (union of
      the device intervals), the device idle share of the call, and each
-     kernel's device ms.
+     kernel's device ms; the same trace of one headline step of the grad
+     phase, float32 and float64.
 Phase 3 also prints the factory's launch shape for each run (K1, or K1d
 at rami5_ns1's SW: team size, teams and threads per block, slab and shared
 bytes per block, resident blocks and teams per SM, registers, waves;
@@ -113,7 +149,8 @@ K1d: launches over the cli_ns1 single
 run, timed on its largest SW call and its LW call; the LW calls as
 launches_lw / ms_lw / plain_ms_lw; on both calls its launch shape and its
 kernel's own device ms (device_ms, share_device: the wrapper's ms of a
-small call is mostly host work); its SW call at rami5_ns1 (float32) as
+small call is mostly host work; null where three profiler traces in a row
+caught no device event); its SW call at rami5_ns1 (float32) as
 *_rami5; K6 and K7: launches over the roofline
 tool's run, timed on its operands, K6's float64 as *_f64, K7 and its
 library call both with event_ms and the profiler; every row with
@@ -131,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -205,6 +243,18 @@ CLI_NAMELIST = """&radsurf
 """
 # float32 per-field bar of each sweep kernel (tests/test_pallas_sweep.py:25,
 # 94); K1 is held elementwise
+# grad phase: the kernel route's column chunk (each chunk's backward
+# recomputes its own scan graph), the float32 bar of its gradient against
+# the scan route's (the same computation, cuBLAS's batch-size-dependent
+# algorithms apart), and the step of the float64 central difference
+GRAD_CHUNK = 8192
+GRAD_AGREE_F32 = 1e-4
+FD_STEP = 1e-5
+# assoc phase: (columns, layers, tile code, nreg, urban, dz scale) at
+# nstream 4, 1 band;
+# the deep canopy's layers thinned to a ~28 m canopy
+ASSOC_SHAPES = {"deep_canopy": (8, 1024, 1, 3, False, 0.005),  # Forest
+                "headline": (16384, 8, 3, 2, True, 1.0)}  # VegetatedUrban
 SWEEP_TOL_F32 = {"sw_up_sweep": 3e-5, "sw_down_sweep_both": 3e-5,
                  "lw_up_sweep": 3e-5, "lw_down_sweep_both": 2e-4}
 FAILURES = []
@@ -348,22 +398,28 @@ def time_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(fn, calls=20, symbol=""):
+def profiled_ms(fn, calls=20, symbol="", tries=3):
     """Kernel-only device ms per call: the summed durations of the device
     kernels (those whose name holds `symbol`) of one torch.profiler trace of
-    `calls` calls, over `calls`."""
+    `calls` calls, over `calls`.  A trace that caught none of them (the
+    profiler's device tracing now and then returns no device event) is
+    taken again, up to `tries` traces; None (not measured) after that."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA and symbol in e.name) / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and symbol in e.name)
+        if us > 0:
+            return us / 1e3 / calls
+    return None
 
 
 def sorted_by_doubling(a, k, kernel, RL):
@@ -522,9 +578,12 @@ def main(argv=None) -> int:
     from spartacus_surface_tpu_torch.driver import test_kernels as demo
     from spartacus_surface_tpu_torch.driver.read_input import read_input
     from spartacus_surface_tpu_torch.driver.save import save_canopy_fluxes
+    from spartacus_surface_tpu_torch.examples import retrieval
     from spartacus_surface_tpu_torch.models import solver
     from spartacus_surface_tpu_torch.models.dispatch import (
         TILE_INFINITE_STREET, TILE_SIMPLE_URBAN, run_radsurf)
+    from spartacus_surface_tpu_torch.models.dispatch import _LW_KEYS as LW_KEYS
+    from spartacus_surface_tpu_torch.models.dispatch import _SW_KEYS as SW_KEYS
     from spartacus_surface_tpu_torch.models.flux_utils import (
         budget_components, budget_residual)
     from spartacus_surface_tpu_torch.models.simple_spectrum import (
@@ -678,7 +737,7 @@ def main(argv=None) -> int:
                           elements=a[1].shape[0] * a[1].shape[2], nd=k["nd"],
                           ndir=k.get("ndir", 1), flops=flops, bytes=nbytes,
                           **RL.roofline(flops, nbytes, ms, dt),
-                          share_device=RL.roofline(flops, nbytes, device_ms, dt)["share"],
+                          share_device=RL.roofline(flops, nbytes, device_ms, dt).get("share"),
                           **launch_shape(LK.factory_config(
                               factory_lib, k["nd"], k.get("ndir", 1),
                               a[1].shape[0] * a[1].shape[2], dt)))
@@ -921,6 +980,185 @@ def main(argv=None) -> int:
          self_check=next((ln for ln in stdout.getvalue().splitlines()
                           if ln.startswith("Schur vs brute-force")), None))
 
+    # ---- grad: the gradient of run_radsurf at full width, through the
+    # kernel route's autograd Function (forward: the kernels; backward: the
+    # scan route recomputed per column chunk), against the scan route's own
+    # gradient and central differences
+    def grad_loss(out):
+        """The JAX test's loss (tests/test_autodiff.py:129)."""
+        return out["sw_norm_dir"]["ground_net"].sum() + out["lw_internal"]["top_net"].sum()
+
+    def grad_step(config, arrays, veg_ext, route="kernel"):
+        """(loss, d loss / d veg_ext) of one step through run_radsurf."""
+        x = veg_ext.detach().clone().requires_grad_(True)
+        loss = grad_loss(run_radsurf(config, {**arrays, "veg_ext": x}, dev, route=route))
+        loss.backward()
+        return loss.detach(), x.grad
+
+    def loss_at(config, arrays, veg_ext):
+        with torch.no_grad():
+            return grad_loss(run_radsurf(config, {**arrays, "veg_ext": veg_ext}, dev)).item()
+
+    ns1_config = Config.from_namelist(CLI_DIR / "cli_ns1.nam")
+    ns1_config.do_lw = True
+    grad_cases = {  # name: (tile codes, config, the kernels that must launch)
+        "headline": (slices["headline"][0], Config(do_lw=True, **slices["headline"][3]),
+                     PATH_4),
+        "cli_ns1": (rep_cli, ns1_config, PATH_1),
+    }
+    for gname, (rep, base, path) in grad_cases.items():
+        for dname, (np_dt, dt) in dtypes.items():
+            f32, tag = dname == "float32", f"grad {gname} {dname}"
+            config = dataclasses.replace(base, column_chunk=GRAD_CHUNK).consolidate()
+            arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np_dt, i_representation=rep)
+            veg_ext = torch.as_tensor(arrays["veg_ext"], device=dev)
+            # one step with its kernels captured: its launches, and its
+            # kernels against their plain versions
+            reset_counts()
+            with Capture(solver) as cap:
+                grad_step(config, arrays, veg_ext)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            check_launched(launches, path, tag)
+            kernel_errs = compare_kernels(cap.calls, dt, LK, SK, LSK)
+            check_kernels(kernel_errs, tag)
+            del cap
+            torch.cuda.empty_cache()
+            # a second step: its peak memory
+            torch.cuda.reset_peak_memory_stats()
+            loss_k, g_k = grad_step(config, arrays, veg_ext)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # the scan route's gradient, its whole graph kept, at full width
+            torch.cuda.reset_peak_memory_stats()
+            _, g_s = grad_step(dataclasses.replace(config, column_chunk=0), arrays,
+                               veg_ext, route="scan")
+            torch.cuda.synchronize()
+            peak_scan = torch.cuda.max_memory_allocated() / 2**30
+            agree = ((g_k - g_s).abs().max() / g_s.abs().max()).item()
+            finite = bool(g_k.isfinite().all() and g_s.isfinite().all())
+            check(finite and agree <= (GRAD_AGREE_F32 if f32 else 1e-9),
+                  f"{tag}: kernel-route gradient vs scan-route gradient {agree:.3e}")
+            del g_s
+            record = dict(phase="grad", case=gname, dtype=dname, columns=len(rep), layers=8,
+                          column_chunk=GRAD_CHUNK, loss=loss_k.item(),
+                          grad_rel_err_vs_scan=agree,
+                          finite=finite, launches_per_step=launches,
+                          kernel_vs_plain_max_abs_err=[e for e, _ in kernel_errs],
+                          kernel_vs_plain_passed=[ok for _, ok in kernel_errs],
+                          peak_gib_step=peak, peak_gib_scan_route_step=peak_scan)
+            if not f32:  # a directional central difference of the kernel route's loss
+                v = torch.randn(veg_ext.shape, generator=torch.Generator().manual_seed(3),
+                                dtype=dt).to(dev)
+                h = FD_STEP
+                fd = (loss_at(config, arrays, veg_ext + h * v)
+                      - loss_at(config, arrays, veg_ext - h * v)) / (2 * h)
+                dot = (g_k * v).sum().item()
+                fd_err = abs(fd - dot) / abs(dot)
+                check(fd_err <= 5e-4, f"{tag}: finite difference {fd} vs <grad, v> {dot}")
+                record.update(fd_directional=fd, grad_dot_v=dot, fd_rel_err=fd_err, fd_step=h)
+            fwd = wall_seconds(lambda: loss_at(config, arrays, veg_ext), reps=3)[0]
+            step = wall_seconds(lambda: grad_step(config, arrays, veg_ext), reps=3)[0]
+            # after those warm steps (the first step of a process leaves the
+            # libraries' workspaces, 64 MiB), a step leaves nothing of its
+            # graph: only the gradient and the loss it returns, each in
+            # blocks of the caching allocator's 512 bytes
+            blocks = lambda t: -(-t.untyped_storage().nbytes() // 512) * 512
+            mem0 = torch.cuda.memory_allocated()
+            loss, grad = grad_step(config, arrays, veg_ext)
+            torch.cuda.synchronize()
+            left = torch.cuda.memory_allocated() - mem0 - blocks(grad) - blocks(loss)
+            check(left <= 0, f"{tag}: {left} bytes of the step outlived it")
+            del loss, grad
+            record.update(seconds_forward=fwd, seconds_forward_backward=step,
+                          step_over_forward=step / fwd, bytes_left_after_step=left,
+                          graph_freed_after_step=left <= 0)
+            emit(**record)
+            del g_k, arrays, veg_ext
+            torch.cuda.empty_cache()
+
+    # ---- retrieval: the adjoint retrieval example on the card, at its defaults
+    reset_counts()
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        res = retrieval.run([])
+    launches = read_counts()
+    losses = res["losses"]
+    check(losses[-1] < 1e-2 * losses[0],
+          f"retrieval: the misfit fell from {losses[0]:.3e} only to {losses[-1]:.3e}")
+    check_launched(launches, ("K1", "K2", "K3"), "retrieval")
+    emit(phase="retrieval", steps=len(losses), first_loss=losses[0], last_loss=losses[-1],
+         seconds=res["seconds"], seconds_per_step=res["seconds"] / len(losses),
+         final_mean_abs_err=res["final_err"], launches=launches,
+         output=stdout.getvalue().splitlines())
+
+    # ---- assoc: the associative route on the kernel route (K1 / K1d, then
+    # the plain associative sweeps) against the sequential kernel route
+    def solver_residual(flux):
+        """Per-column energy budget residual of a solver result dict."""
+        lay = sum(flux[k].sum((-1, -2)) for k in
+                  ("clear_air_abs", "veg_abs", "veg_air_abs", "wall_net", "roof_net")
+                  if k in flux)
+        return (flux["ground_net"].sum(-1) + lay - flux["top_net"].sum(-1)).abs().max().item()
+
+    for aname, (C, L, code, nreg, urban, dz_scale) in ASSOC_SHAPES.items():
+        for dname, (np_dt, dt) in dtypes.items():
+            f32, tag = dname == "float32", f"assoc {aname} {dname}"
+            # the slice phase's seeded arrays as the solver's SW and LW inputs
+            arrays = example_arrays(C=C, L=L, S=1, dtype=np_dt, i_representation=[code] * C)
+            arrays["dz"] = arrays["dz"] * dz_scale
+            inputs = {mode: solver.CanopyInputs(**{
+                f: torch.as_tensor(arrays[k], device=dev) for f, k in keys.items()})
+                for mode, keys in (("sw", {**SW_KEYS, "ground_albedo_dir": "ground_albedo_dir"}),
+                                   ("lw", LW_KEYS))}
+            lg = LegendreGauss(4)
+
+            def solve(assoc):
+                opt = solver.SolverOptions(nreg=nreg, nstream=4, do_urban=urban,
+                                           associative_sweeps=assoc)
+                return (solver.spartacus_sw(inputs["sw"], opt, lg),
+                        solver.spartacus_lw(inputs["lw"], opt, lg))
+
+            out, launches, walls, peaks = {}, {}, {}, {}
+            for route, assoc in (("associative", True), ("sequential", False)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                out[route] = solve(assoc)
+                torch.cuda.synchronize()
+                launches[route] = read_counts()
+                peaks[route] = torch.cuda.max_memory_allocated() / 2**30
+                walls[route] = wall_seconds(lambda: solve(assoc), reps=3)[0]
+            la = launches["associative"]
+            check(la["K1"] > 0 and la["K1 LW mode"] > 0
+                  and all(la[k] == 0 for k in ("K2", "K3", "K4", "K5")),
+                  f"{tag}: the associative route's launches {la}")
+            check_launched(launches["sequential"], PATH_4, tag)
+            (sw_a, lw_a), (sw_s, lw_s) = out["associative"], out["sequential"]
+            keys = lambda res: [(i, k) for i in range(3) for k in res[i]]
+            err_sw = field_err([sw_s[i][k] for i, k in keys(sw_s)],
+                               [sw_a[i][k] for i, k in keys(sw_s)])
+            err_lw = field_err([lw_s[i][k] for i, k in keys(lw_s)],
+                               [lw_a[i][k] for i, k in keys(lw_s)])
+            check(all(set(a) == set(s) for a, s in zip(sw_a + lw_a, sw_s + lw_s)),
+                  f"{tag}: the two routes' output fields differ")
+            check(err_sw <= (3e-4 if f32 else 1e-9),
+                  f"{tag}: SW associative vs sequential {err_sw:.3e}")
+            check(err_lw <= (2.5e-3 if f32 else 1e-9),
+                  f"{tag}: LW associative vs sequential {err_lw:.3e}")
+            scale = max(1.0, inputs["lw"].ground_emission.abs().max().item())
+            resid = {route: [solver_residual(f) for f in sw[:2] + lw[:2]]
+                     for route, (sw, lw) in out.items()}
+            bars = ([1e-4] * 2 + [1e-4 * scale] * 2 if f32 else [1e-10, 1e-10, 1e-9, 1e-10])
+            for r, bar, group in zip(resid["associative"], bars, sw_groups + lw_groups):
+                check(r <= bar, f"{tag}: {group} energy budget residual {r:.3e}")
+            emit(phase="assoc", shape=aname, dtype=dname, columns=C, layers=L, nreg=nreg,
+                 nstream=4, sw_field_normalized_err=err_sw, lw_field_normalized_err=err_lw,
+                 budget_residual=resid, launches=launches,
+                 warm_wall_seconds=walls, peak_gib=peaks)
+            del out, inputs, arrays, sw_a, lw_a, sw_s, lw_s
+            torch.cuda.empty_cache()
+
     # ---- roofline: the tool's main path (K6, K7), each probe against its
     # plain version, the measured ceilings, every kernel's bound, and the
     # whole solve against the work model
@@ -978,9 +1216,10 @@ def main(argv=None) -> int:
     # from the profiler
     kernel, library = (lambda: PK.copy_add(x, out=o)), (lambda: torch.add(x, 1.0, out=o))
     turns = {}
+    mean = lambda a, b: None if None in (a, b) else (a + b) / 2  # None: not measured
     for how, timer in (("", RL.event_ms), ("_profiler", profiled_ms)):
         k1, l1, l2, k2 = timer(kernel), timer(library), timer(library), timer(kernel)
-        turns.update({f"ms{how}": (k1 + k2) / 2, f"library_ms{how}": (l1 + l2) / 2})
+        turns.update({f"ms{how}": mean(k1, k2), f"library_ms{how}": mean(l1, l2)})
     probes["K7"] = dict(
         max_abs_err=err, dtype=f32, flops=float(x.numel()), bytes=2.0 * x.nbytes, **turns,
         plain_ms=time_ms(lambda: PK.copy_add_plain(x)),
@@ -1051,6 +1290,16 @@ def main(argv=None) -> int:
             emit(phase="profile", run=sname, dtype=dname,
                  **{f"seconds_{r}_route": w for r, w in walls.items()},
                  **trace_call(lambda: run_radsurf(config, arrays, dev)))
+            torch.cuda.empty_cache()
+        # one gradient step of the grad phase at the headline
+        rep, base, _ = grad_cases["headline"]
+        config = dataclasses.replace(base, column_chunk=GRAD_CHUNK).consolidate()
+        for dname, (np_dt, _) in dtypes.items():
+            arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np_dt, i_representation=rep)
+            veg_ext = torch.as_tensor(arrays["veg_ext"], device=dev)
+            emit(phase="profile", run="grad headline", dtype=dname,
+                 **trace_call(lambda: grad_step(config, arrays, veg_ext)))
+            del arrays, veg_ext
             torch.cuda.empty_cache()
 
     rows = []

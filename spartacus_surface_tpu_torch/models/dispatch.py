@@ -16,7 +16,8 @@ from ..utils.config import Config
 from ..utils.convert import torch_dtype
 from . import flat as flat_mod
 from . import simple_urban as su_mod
-from .solver import CanopyInputs, SolverOptions, spartacus_lw, spartacus_sw
+from .solver import (CanopyInputs, SolverOptions, debug_dump_sw, spartacus_lw,
+                     spartacus_sw)
 
 # Tile representation codes (radsurf/radsurf_canopy_properties.F90:26-33)
 TILE_FLAT = 0
@@ -128,7 +129,10 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
       config: consolidated Config.
       arrays: dict of dense padded numpy arrays in the JAX package's
         read_input format, plus "i_representation" [C] and "nlay" [C].  The working
-        dtype is that of arrays["dz"].
+        dtype is that of arrays["dz"].  A field may be a torch tensor
+        instead: it is indexed on the device, and the outputs keep its
+        autograd graph (gradients through the kernel route are the scan
+        route's, solver._KernelRouteGrad).
       device: the torch device to solve on; CUDA runs the layered solves on
         the CUDA kernels.
       route: "kernel" or "scan" for the layered solves (see spartacus_sw,
@@ -143,13 +147,18 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     rep = np.asarray(arrays["i_representation"])
-    dz = np.asarray(arrays["dz"])
+    dz = arrays["dz"]
     ncol, nlay = dz.shape
-    kw = dict(dtype=torch_dtype(dz.dtype), device=device)
+    kw = dict(dtype=dz.dtype if isinstance(dz, torch.Tensor)
+              else torch_dtype(np.asarray(dz).dtype), device=device)
 
     def get(key, idx):
-        return torch.as_tensor(np.ascontiguousarray(np.asarray(arrays[key])[idx]),
-                               **kw)
+        """The columns idx of arrays[key] on the device: a tensor is indexed
+        there (its autograd graph kept), a numpy array sliced on the host."""
+        x = arrays[key]
+        if isinstance(x, torch.Tensor):
+            return x.to(**kw)[torch.as_tensor(idx, device=device)]
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(x)[idx]), **kw)
 
     bc = {}
     out = {"bc_out": bc}
@@ -193,9 +202,11 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
         if config.do_sw:
             keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
             inp = CanopyInputs(**{f: get(k, idx) for f, k in keys.items()})
+            opt = SolverOptions(nstream=lg_sw.nstream, **opt_kw)
+            debug_dump_sw(inp, opt, lg_sw)  # prints under SPARTACUS_DEBUG_ARRAYS
             ndir, ndiff, sbc = spartacus_sw(
-                inp, SolverOptions(nstream=lg_sw.nstream, **opt_kw), lg_sw,
-                with_profiles=config.do_save_flux_profile, route=route)
+                inp, opt, lg_sw, with_profiles=config.do_save_flux_profile,
+                route=route)
             sun_up = inp.cos_sza > 0.0
             _scatter(out["sw_norm_dir"], ndir, tidx, sun_up)
             _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up)

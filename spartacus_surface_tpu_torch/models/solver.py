@@ -14,12 +14,17 @@ Two routes compute the same fluxes:
       up-sweep K4 and the fused internal+incoming down-sweep K5
       (ops/lw_sweep_kernels.py), then the ground fluxes in closed form.
       CUDA tensors run the hand-written CUDA kernels; CPU tensors run their
-      plain PyTorch versions.  Forward only.
+      plain PyTorch versions.  Reverse-mode differentiable through
+      _KernelRouteGrad, whose backward is the scan route's.
   scan route (``route="scan"``): the reference formulation of the JAX XLA
       path, layer_matrices plus a Python loop per layer for the up and down
       recurrences (radsurf_urban_sw.F90:590-1001, radsurf_urban_lw.F90:
       551-858).  Plain torch on any device; the port's whole-solve
-      reference.
+      reference and the gradient of both routes.
+
+SolverOptions.associative_sweeps replaces the layer loops of the scan route
+(and K2-K5 on the kernel route, whose factory stays K1 / K1d) with the
+log-depth compositions of ops/assoc_adding.py.
 
 The cosine of the solar zenith angle is clamped to >= 1e-6 throughout
 (radsurf_urban_sw.F90:268).
@@ -31,7 +36,16 @@ from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
+from ..ops.assoc_adding import (
+    affine_down_carries,
+    ground_star_element,
+    lw_layer_star_elements,
+    scalar_suffix_carries,
+    star_prefix,
+    sw_layer_star_elements,
+)
 from ..ops.layer_kernel import layer_factory, lw_layer_factory
 from ..ops.layer_matrices import layer_matrices_chunked, lw_layer_matrices_chunked
 from ..ops.legendre_gauss import LegendreGauss
@@ -39,6 +53,7 @@ from ..ops.lw_sweep_kernels import lw_down_sweep_both, lw_out_rows, lw_up_sweep
 from ..ops.matrix import matmul, matvec, solve
 from ..ops.sweep_kernels import sw_down_sweep_both, sw_out_rows, sw_up_sweep
 from ..utils.constants import Pi
+from ..utils.debug import debug_arrays_enabled, maybe_dump
 from . import gamma as G
 from .geometry import (
     norm_perim_urban,
@@ -157,8 +172,16 @@ class SolverOptions:
     # plain version (the CPU route), bounding its temporaries; the kernels
     # (K1, K1d) launch once over every element and need no workspace.
     factory_chunk: int = 65536
-    # Solve in chunks of this many columns (0 = whole batch).
+    # Solve in chunks of this many columns (0 = whole batch).  Under
+    # autograd on the kernel route, each chunk's backward recomputes its own
+    # scan graph, so the chunk also bounds a gradient step's memory.
     column_chunk: int = 0
+    # The O(log L)-depth associative adding and flux recurrences
+    # (ops/assoc_adding.py) in place of the sequential layer loops: ~4-6x
+    # the FLOPs for L / log2(L) less dependency depth, for very deep
+    # canopies at small batch.  On the kernel route the factory stays K1 /
+    # K1d and the sweeps are these plain ones (K2-K5 do not run).
+    associative_sweeps: bool = False
 
 
 # ----------------------------------------------------------------------
@@ -188,6 +211,33 @@ def _prepare_geometry(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     return dict(frac=frac, od_scaling=od_scaling_from_fsd(inp.veg_fsd, nreg),
                 u_ov=u_ov, v_ov=v_ov, norm_perim_wall=norm_perim_wall,
                 f_exchange=f_exchange, f_wall=f_wall)
+
+
+def debug_dump_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss):
+    """PRINT_ARRAYS equivalent: print the geometry and Gamma matrices of the
+    first column, layer and band when SPARTACUS_DEBUG_ARRAYS is set (cf.
+    radsurf_forest_sw.F90:389-403; JAX solver.py:282-321)."""
+    if not debug_arrays_enabled():
+        return
+    zcos, sin0, geo, _, (g0, g1, g2, g3) = _sw_front(inp, opt, lg)
+    ext_reg, ssa_reg = G.region_optics_sw(
+        inp.air_ext, inp.air_ssa, inp.veg_ext, inp.veg_ssa,
+        geo["od_scaling"], opt.nreg)
+    maybe_dump("SW first column, layer 0, band 0", {
+        "frac": geo["frac"][0, 0],
+        "od_scaling": geo["od_scaling"][0, 0],
+        "f_exchange": geo["f_exchange"][0, 0],
+        "f_wall": geo["f_wall"][0, 0],
+        "norm_perim_wall": geo["norm_perim_wall"][0, 0],
+        "u_overlap": geo["u_ov"][0, 0],
+        "v_overlap": geo["v_ov"][0, 0],
+        "ext_reg": ext_reg[0, 0, 0],
+        "ssa_reg": ssa_reg[0, 0, 0],
+        "gamma0": g0[0, 0, 0],
+        "gamma1": g1[0, 0, 0],
+        "gamma2": g2[0, 0, 0],
+        "gamma3": g3[0, 0, 0],
+    })
 
 
 def _itransp(air_ext, dz):
@@ -281,11 +331,99 @@ def _ground_fluxes(outs, dn_dir_fin, dn_diff_fin, up_fin, with_direct, zcos,
 
 
 # ----------------------------------------------------------------------
-# Scan route (the JAX XLA path, radsurf_urban_sw.F90:590-1001)
+# Scan route (the JAX XLA path, radsurf_urban_sw.F90:590-1001), with the
+# log-depth associative sweeps of ops/assoc_adding.py under
+# opt.associative_sweeps (JAX solver.py:499, 769)
 # ----------------------------------------------------------------------
+
+def _to_layers(x):
+    """[C, L, ...] -> [L, C, ...] (a view)."""
+    return x.transpose(0, 1)
+
+
+def _fold(x):
+    """[L, C, ...] -> [L*C, ...]: every layer's columns as one batch."""
+    return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
+
+
+def _down_steps(step, carry, per_layer, per_col, up_names, ups, carry_in=None):
+    """Run a downward flux step over every layer: top-down in sequence from
+    `carry`, or, given the carry-in of every layer (`carry_in`, [L, C, ...]
+    each, from the associative route), once over all layers as one batch of
+    L*C columns.  per_layer: {name: [C, L, ...]}; per_col: {name: [C, ...]};
+    ups: the up-sweep's per-layer results ([L, C, ...] or per-layer
+    sequences) under up_names.  Returns (final carry, {name: [C, L, ...]});
+    with carry_in the final carry is None."""
+    C, L = next(iter(per_layer.values())).shape[:2]
+    if carry_in is None:
+        outs = [None] * L
+        for l in range(L - 1, -1, -1):
+            x = {k: v[:, l] for k, v in per_layer.items()}
+            x.update(per_col)
+            x.update({k: u[l] for k, u in zip(up_names, ups)})
+            carry, outs[l] = step(carry, x)
+        return carry, {k: torch.stack([o[k] for o in outs], dim=1)
+                       for k in outs[0]}
+    x = {k: _fold(_to_layers(v)) for k, v in per_layer.items()}
+    x.update({k: v.repeat((L,) + (1,) * (v.ndim - 1)) for k, v in per_col.items()})
+    x.update({k: _fold(u) for k, u in zip(up_names, ups)})
+    _, out = step(tuple(_fold(c) for c in carry_in), x)
+    return None, {k: v.reshape((L, C) + v.shape[1:]).transpose(0, 1)
+                  for k, v in out.items()}
+
+
+def _diffuse_carry_map(T, v_reg, denom, ns):
+    """denom^-1 T (v_reg (x) I_ns) of every layer: the map of the diffuse
+    downwelling carry across a layer's top interface and through the layer
+    ([L, C, S, nd, nd]; v_reg [L, C, nreg, nreg]), the C slot of the
+    associative route's affine maps."""
+    L, C, S, nd = T.shape[:4]
+    nreg = v_reg.shape[-1]
+    TV = torch.einsum("lcsirn,lcrq->lcsiqn", T.reshape(L, C, S, nd, nreg, ns), v_reg)
+    return solve(denom, TV.reshape(L, C, S, nd, nd))
+
+
+def _sw_up_layer(a_above, d_above, R, T, E, Sup, Sdn, a_roof, d_roof):
+    """One SW adding step short of the overlap into the next interface
+    (radsurf_urban_sw.F90:604-643): (denom, a_below, d_below) with the
+    exposed-roof rows, on any leading batch dims."""
+    nd, nreg = Sup.shape[-2:]
+    eye = torch.eye(nd, dtype=R.dtype, device=R.device)
+    denom = eye - matmul(a_above, R)
+    a_below_reg = R + matmul(T, solve(denom, matmul(a_above, T)))
+    d_rhs = matmul(d_above, E) + matmul(a_above, Sdn)
+    d_below_reg = Sup + matmul(T, solve(denom, d_rhs))
+    nd2 = nd + a_roof.shape[-1]
+    a_below = R.new_zeros(R.shape[:-2] + (nd2, nd2))
+    a_below[..., :nd, :nd] = a_below_reg
+    a_below[..., nd:, nd:] = a_roof
+    d_below = R.new_zeros(R.shape[:-2] + (nd2, nreg + 1))
+    d_below[..., :nd, :nreg] = d_below_reg
+    d_below[..., nd:, nreg] = d_roof
+    return denom, a_below, d_below
+
+
+_SW_UPS = ("a_above", "d_above", "denom", "a_below", "d_below")
+
 
 def _sw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
              with_profiles: bool = False):
+    front = _sw_front(inp, opt, lg)
+    C, L = inp.dz.shape
+    S = inp.air_ext.shape[-1]
+    flat = [g.reshape((C * L * S,) + g.shape[-2:]) for g in front[-1]]
+    lay = layer_matrices_chunked(
+        *flat, inp.dz[:, :, None].expand(C, L, S).reshape(-1),
+        n_double=opt.n_double, chunk=opt.factory_chunk)
+    lay = {k: v.reshape((C, L, S) + v.shape[-2:]) for k, v in lay.items()}
+    return _sw_adding(inp, opt, lg, with_profiles, front, lay)
+
+
+def _sw_adding(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
+               with_profiles, front, lay):
+    """The SW up and down recurrences on the layer operators lay ({name:
+    [C, L, S, n, m]}): sequential, or associative with
+    opt.associative_sweeps."""
     nreg, ns = opt.nreg, lg.nstream
     nd = nreg * ns
     C, L = inp.dz.shape
@@ -293,13 +431,9 @@ def _sw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
     t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
     mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
-
-    zcos, sin0, geo, facets, gammas = _sw_front(inp, opt, lg)
-    flat = [g.reshape((C * L * S,) + g.shape[-2:]) for g in gammas]
-    lay = layer_matrices_chunked(
-        *flat, inp.dz[:, :, None].expand(C, L, S).reshape(-1),
-        n_double=opt.n_double, chunk=opt.factory_chunk)
-    lay = {k: v.reshape((C, L, S) + v.shape[-2:]) for k, v in lay.items()}
+    zcos, sin0, geo, facets, _ = front
+    assoc = opt.associative_sweeps
+    lay_l = {k: _to_layers(v) for k, v in lay.items()}  # [L, C, S, ...] views
 
     # ---- upward adding recurrence (radsurf_urban_sw.F90:590-654)
     galb, galb_dir = inp.ground_albedo, inp.ground_albedo_dir
@@ -307,65 +441,65 @@ def _sw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     a_ground = galb[:, :, None, None] * same_reg  # [C, S, nd, nd]
     dmask = torch.block_diag(*[hw[:, None]] * nreg)  # [nd, nreg]
     d_ground = (zcos[:, None] * galb_dir)[:, :, None, None] * dmask
-    eye = torch.eye(nd, dtype=dtype, device=dev)
-    a_roof_m = hw[:, None].expand(ns, ns)
-    nd2 = (nreg + 1) * ns
-
-    a_above, d_above = a_ground, d_ground
-    ups = []
-    for l in range(L):
-        R, T, E = lay["R"][:, l], lay["T"][:, l], lay["E"][:, l]
-        Sup, Sdn = lay["Sup"][:, l], lay["Sdn"][:, l]
-        denom = eye - matmul(a_above, R)
-        a_below_reg = R + matmul(T, solve(denom, matmul(a_above, T)))
-        d_rhs = matmul(d_above, E) + matmul(a_above, Sdn)
-        d_below_reg = Sup + matmul(T, solve(denom, d_rhs))
-        # exposed-roof rows (radsurf_urban_sw.F90:627-643)
-        a_below = inp.air_ext.new_zeros((C, S, nd2, nd2))
-        a_below[..., :nd, :nd] = a_below_reg
-        a_below[..., nd:, nd:] = (facets["roof_albedo"][:, l, :, None, None]
-                                  * a_roof_m)
-        d_below = inp.air_ext.new_zeros((C, S, nd2, nreg + 1))
-        d_below[..., :nd, :nreg] = d_below_reg
-        d_below[..., nd:, nreg] = (
-            zcos[:, None] * facets["roof_albedo_dir"][:, l])[..., None] * hw
-        ups.append((a_above, d_above, denom, a_below, d_below))
-        a_above = _u_mat_v(geo["u_ov"][:, l], a_below, geo["v_ov"][:, l], ns)
-        d_above = _u_dmat_v(geo["u_ov"][:, l], d_below, geo["v_ov"][:, l], ns)
+    # exposed-roof rows (radsurf_urban_sw.F90:627-643)
+    a_roof = facets["roof_albedo"][..., None, None] * hw[:, None].expand(ns, ns)
+    d_roof = (zcos[:, None, None] * facets["roof_albedo_dir"])[..., None] * hw
+    up_ops = ("R", "T", "E", "Sup", "Sdn")
+    if assoc:
+        # all per-layer carry-ins at once by the Redheffer-star prefix, then
+        # every layer's step at once (without the overlap into the next
+        # interface, which the prefix already holds)
+        uov, vov = _to_layers(geo["u_ov"]), _to_layers(geo["v_ov"])
+        a_roof_l, d_roof_l = _to_layers(a_roof), _to_layers(d_roof)
+        prefix = star_prefix(
+            sw_layer_star_elements(*(lay_l[k] for k in up_ops), uov, vov,
+                                   a_roof_l, d_roof_l, nreg, ns),
+            ground_star_element(a_ground, d_ground, nreg))
+        a_above, d_above = prefix["Rd"][-1], prefix["Su"][-1]
+        carries = (prefix["Rd"][:-1], prefix["Su"][:-1])
+        ups = carries + _sw_up_layer(*carries, *(lay_l[k] for k in up_ops),
+                                     a_roof_l, d_roof_l)
+    else:
+        a_above, d_above = a_ground, d_ground
+        steps = []
+        for l in range(L):
+            ys = _sw_up_layer(a_above, d_above,
+                              *(lay[k][:, l] for k in up_ops),
+                              a_roof[:, l], d_roof[:, l])
+            steps.append((a_above, d_above) + ys)
+            a_above = _u_mat_v(geo["u_ov"][:, l], ys[1], geo["v_ov"][:, l], ns)
+            d_above = _u_dmat_v(geo["u_ov"][:, l], ys[2], geo["v_ov"][:, l], ns)
+        ups = tuple(zip(*steps))  # per name, the L layers' values
 
     top_albedo_diff = (a_above[..., :ns, :ns] @ hw).sum(-1)
     top_albedo_dir = d_above[..., :ns, 0].sum(-1) / zcos[:, None]
     bc = {"top_albedo_diff": top_albedo_diff, "top_albedo_dir": top_albedo_dir}
 
     # ---- downward flux recurrences (radsurf_urban_sw.F90:676-1001)
-    ab_coef = inp.air_ext * (1.0 - inp.air_ssa)  # [C, L, S]
-    vb_coef = inp.veg_ext[..., None] * (1.0 - inp.veg_ssa)
     cs = _clear_sky(inp, opt, geo, zcos)
-    itr = cs["itr"]
-    od = _pad_od(geo["od_scaling"])
     eps = torch.finfo(dtype).eps
-    take = lambda x: _take_spec(x, itr)
+    per_layer = dict(
+        v_ov=geo["v_ov"], fw=geo["f_wall"], od=_pad_od(geo["od_scaling"]),
+        ab=inp.air_ext * (1.0 - inp.air_ssa),
+        vb=inp.veg_ext[..., None] * (1.0 - inp.veg_ssa),
+        wa=facets["wall_albedo"], dz=inp.dz, vfr=inp.veg_fraction,
+        **{k: cs[k] for k in ("roof_fraction", "nbf", "nbf_above", "tdc",
+                              "fwdc", "air_ext_t")},
+        **{k: lay[k] for k in ("R", "T", "E", "Sdn", "int_dir", "int_diff",
+                               "int_dir_diff")})
+    per_col = dict(zcos=zcos, sin0=sin0, itr=cs["itr"])
 
     def sweep(with_direct):
-        dn_dir = inp.air_ext.new_zeros((C, S, nreg))
-        dn_diff = inp.air_ext.new_zeros((C, S, nd))
-        if with_direct:
-            dn_dir[..., 0] = 1.0 / zcos[:, None]
-            dn_dir_clear = 1.0 / zcos
-        else:
-            dn_diff[..., :ns] = hw
-            dn_dir_clear = torch.ones_like(zcos)
-        per_layer = [None] * L
-        for l in range(L - 1, -1, -1):
-            R, T, E = lay["R"][:, l], lay["T"][:, l], lay["E"][:, l]
-            Sdn = lay["Sdn"][:, l]
-            a_above, d_above, denom, a_below, d_below = ups[l]
-            v_ov = geo["v_ov"][:, l]
-            dn_dir_below = _ov_dirvec(v_ov, dn_dir)  # [C, S, nreg+1]
-            dn_diff_below = _ov_vec(v_ov, dn_diff, ns)  # [C, S, nd2]
-            up_below = matvec(a_below, dn_diff_below)
+        def step(carry, x):
+            dn_dir, dn_diff, dn_dir_clear = carry
+            zcos, sin0 = x["zcos"], x["sin0"]
+            take = lambda v: _take_spec(v, x["itr"])
+            c, s = dn_diff.shape[:2]
+            dn_dir_below = _ov_dirvec(x["v_ov"], dn_dir)  # [C, S, nreg+1]
+            dn_diff_below = _ov_vec(x["v_ov"], dn_diff, ns)  # [C, S, nd2]
+            up_below = matvec(x["a_below"], dn_diff_below)
             if with_direct:
-                up_below = up_below + matvec(d_below, dn_dir_below)
+                up_below = up_below + matvec(x["d_below"], dn_dir_below)
             out = {}
             # roof fluxes (radsurf_urban_sw.F90:716-721)
             roof_in_dir = zcos[:, None] * dn_dir_below[..., nreg]
@@ -377,16 +511,18 @@ def _sw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
             out["roof_net"] = roof_in - up_below[..., nd:].sum(-1)
             # fluxes at layer base (radsurf_urban_sw.F90:723-735)
             if with_direct:
-                dn_dir_new = matvec(E, dn_dir_below[..., :nreg])
-                refl_dir = matvec(d_above, dn_dir_new)
-                rhs = (matvec(T, dn_diff_below[..., :nd]) + matvec(R, refl_dir)
-                       + matvec(Sdn, dn_dir_below[..., :nreg]))
-                dn_diff_new = solve(denom, rhs)
-                up_above = matvec(a_above, dn_diff_new) + refl_dir
+                dn_dir_new = matvec(x["E"], dn_dir_below[..., :nreg])
+                refl_dir = matvec(x["d_above"], dn_dir_new)
+                rhs = (matvec(x["T"], dn_diff_below[..., :nd])
+                       + matvec(x["R"], refl_dir)
+                       + matvec(x["Sdn"], dn_dir_below[..., :nreg]))
+                dn_diff_new = solve(x["denom"], rhs)
+                up_above = matvec(x["a_above"], dn_diff_new) + refl_dir
             else:
                 dn_dir_new = dn_dir
-                dn_diff_new = solve(denom, matvec(T, dn_diff_below[..., :nd]))
-                up_above = matvec(a_above, dn_diff_new)
+                dn_diff_new = solve(x["denom"],
+                                    matvec(x["T"], dn_diff_below[..., :nd]))
+                up_above = matvec(x["a_above"], dn_diff_new)
             if with_profiles:  # radsurf_urban_sw.F90:737-751
                 out["flux_dn_layer_top"] = dn_diff_below[..., :nd].sum(-1)
                 out["flux_up_layer_top"] = up_below[..., :nd].sum(-1)
@@ -403,21 +539,20 @@ def _sw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
             # integrated fluxes (radsurf_urban_sw.F90:753-761)
             conv_diff = (dn_diff_below[..., :nd] - dn_diff_new
                          - up_below[..., :nd] + up_above)
-            int_flux_diff = matvec(lay["int_diff"][:, l], conv_diff)
+            int_flux_diff = matvec(x["int_diff"], conv_diff)
             if with_direct:
                 conv_dir = dn_dir_below[..., :nreg] - dn_dir_new
-                int_flux_dir = matvec(lay["int_dir"][:, l], conv_dir)
-                int_flux_diff = int_flux_diff + matvec(lay["int_dir_diff"][:, l],
-                                                       conv_dir)
+                int_flux_dir = matvec(x["int_dir"], conv_dir)
+                int_flux_diff = int_flux_diff + matvec(x["int_dir_diff"], conv_dir)
             else:
-                int_flux_dir = inp.air_ext.new_zeros((C, S, nreg))
+                int_flux_dir = dn_diff.new_zeros((c, s, nreg))
             # absorption (radsurf_urban_sw.F90:763-788)
-            ifd = int_flux_diff.reshape(C, S, nreg, ns)
+            ifd = int_flux_diff.reshape(c, s, nreg, ns)
             ifd_mu = ifd @ (1.0 / mu)
-            ab, vb = ab_coef[:, l], vb_coef[:, l]
+            ab, vb = x["ab"], x["vb"]
             out["clear_air_abs"] = ab * (int_flux_dir[..., 0] + ifd_mu[..., 0])
             if nreg > 1:
-                odl = od[:, l][:, None, :]
+                odl = x["od"][:, None, :]
                 tot = int_flux_dir[..., 1:] + ifd_mu[..., 1:]
                 out["veg_air_abs"] = ab * tot.sum(-1)
                 out["veg_abs"] = vb * (tot * odl).sum(-1)
@@ -425,43 +560,72 @@ def _sw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                     out["veg_abs_dir"] = vb * (int_flux_dir[..., 1:] * odl).sum(-1)
             # walls (radsurf_urban_sw.F90:790-802, 955-963)
             if opt.do_urban:
-                fw = geo["f_wall"][:, l]
-                wall_in = torch.einsum("cr,csr->cs", fw, ifd @ tan_s)
+                wall_in = torch.einsum("cr,csr->cs", x["fw"], ifd @ tan_s)
                 if with_direct:
                     wall_in_dir = sin0[:, None] * torch.einsum(
-                        "cr,csr->cs", fw, int_flux_dir)
+                        "cr,csr->cs", x["fw"], int_flux_dir)
                     out["wall_in_dir"] = wall_in_dir
                     wall_in = wall_in + wall_in_dir
                 out["wall_in"] = wall_in
-                out["wall_net"] = wall_in * (1.0 - facets["wall_albedo"][:, l])
+                out["wall_net"] = wall_in * (1.0 - x["wa"])
             # sunlit fractions (radsurf_urban_sw.F90:804-848)
             if with_direct:
                 out["roof_sunlit_frac"] = _safe_div(
-                    take(roof_in_dir) * cs["nbf_above"][:, l],
+                    take(roof_in_dir) * x["nbf_above"],
                     zcos * dn_dir_clear
-                    * cs["roof_fraction"][:, l].clamp_min(opt.min_building_fraction))
-                dn_dir_clear = dn_dir_clear * cs["nbf"][:, l] / cs["nbf_above"][:, l]
-                aet = cs["air_ext_t"][:, l]
+                    * x["roof_fraction"].clamp_min(opt.min_building_fraction))
+                dn_dir_clear = dn_dir_clear * x["nbf"] / x["nbf_above"]
+                aet = x["air_ext_t"]
                 int_dir_clear = torch.where(
                     aet > 0.0,
-                    dn_dir_clear * (1.0 - cs["tdc"][:, l]) * zcos
+                    dn_dir_clear * (1.0 - x["tdc"]) * zcos
                     / torch.where(aet > 0.0, aet, 1.0),
-                    dn_dir_clear * inp.dz[:, l])
+                    dn_dir_clear * x["dz"])
                 if nreg > 1:
-                    vfr = inp.veg_fraction[:, l]
+                    vfr = x["vfr"]
                     clear = int_dir_clear * take(vb) * vfr
                     out["veg_sunlit_frac"] = torch.where(
                         vfr >= opt.min_vegetation_fraction,
                         take(out["veg_abs_dir"]) / clear.clamp_min(eps), 0.0)
                 if opt.do_urban:
                     out["wall_sunlit_frac"] = 0.5 * take(out["wall_in_dir"]) / (
-                        cs["fwdc"][:, l] * sin0 * int_dir_clear).clamp_min(eps)
-                dn_dir_clear = dn_dir_clear * cs["tdc"][:, l]
-            per_layer[l] = out
-            dn_dir, dn_diff = dn_dir_new, dn_diff_new
+                        x["fwdc"] * sin0 * int_dir_clear).clamp_min(eps)
+                dn_dir_clear = dn_dir_clear * x["tdc"]
+            return (dn_dir_new, dn_diff_new, dn_dir_clear), out
 
-        outs = {k: torch.stack([o[k] for o in per_layer], dim=1)
-                for k in per_layer[0]}
+        # top of canopy (radsurf_urban_sw.F90:687-700)
+        dn_dir = inp.air_ext.new_zeros((C, S, nreg))
+        dn_diff = inp.air_ext.new_zeros((C, S, nd))
+        if with_direct:
+            dn_dir[..., 0] = 1.0 / zcos[:, None]
+            dn_dir_clear = 1.0 / zcos
+        else:
+            dn_diff[..., :ns] = hw
+            dn_dir_clear = torch.ones_like(zcos)
+        carry_in = None
+        if assoc:
+            # the downward recurrence is block-affine in its carry: compose
+            # the per-layer maps by suffix scan, then every layer at once
+            v_reg = _to_layers(geo["v_ov"])[..., :nreg, :]
+            Cmap = _diffuse_carry_map(lay_l["T"], v_reg, ups[2], ns)
+            if with_direct:
+                Amap = torch.einsum("lcspr,lcrw->lcspw", lay_l["E"], v_reg)
+                SdnV = torch.einsum("lcsip,lcpw->lcsiw", lay_l["Sdn"], v_reg)
+                Bmap = solve(ups[2], matmul(lay_l["R"], matmul(ups[1], Amap)) + SdnV)
+                clear = _to_layers(cs["nbf"] / cs["nbf_above"] * cs["tdc"])
+            else:
+                Amap = torch.eye(nreg, dtype=dtype, device=dev).expand(
+                    L, C, S, nreg, nreg)
+                Bmap = inp.air_ext.new_zeros((L, C, S, nd, nreg))
+                clear = inp.air_ext.new_ones((L, C))
+            (dir_in, diff_in), (dn_dir, dn_diff) = affine_down_carries(
+                Amap, Bmap, Cmap, dn_dir, dn_diff)
+            clear_in, dn_dir_clear = scalar_suffix_carries(clear, dn_dir_clear)
+            carry_in = (dir_in, diff_in, clear_in)
+        carry, outs = _down_steps(step, (dn_dir, dn_diff, dn_dir_clear),
+                                  per_layer, per_col, _SW_UPS, ups, carry_in)
+        if carry is not None:
+            dn_dir, dn_diff, dn_dir_clear = carry
         # ground (radsurf_urban_sw.F90:861-876)
         up_fin = matvec(a_ground, dn_diff)
         if with_direct:
@@ -471,7 +635,8 @@ def _sw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                              else top_albedo_diff)
         if with_direct:
             outs["ground_dn_dir"] = gdd
-            outs["ground_sunlit_frac"] = _safe_div(take(gdd), zcos * dn_dir_clear)
+            outs["ground_sunlit_frac"] = _safe_div(_take_spec(gdd, cs["itr"]),
+                                                   zcos * dn_dir_clear)
         return outs
 
     return sweep(True), sweep(False), bc
@@ -494,17 +659,17 @@ def _soa_cls(x):
     return x.permute(1, 0, 2).reshape(L, C * S).contiguous()
 
 
-def _check_no_grad(inp: CanopyInputs):
-    for name, x in inp.tensors():
-        if x.requires_grad:
-            raise NotImplementedError(
-                f"the kernel route is forward-only, but input {name!r}"
-                " requires grad; autograd is not ported yet")
+def _unsoa(x, C, S, n, m=None):
+    """[L, n*m, C*S] -> [C, L, S, n, m] (without m: [L, n, C*S] ->
+    [C, L, S, n]), the inverse of _soa."""
+    L = x.shape[0]
+    if m is None:
+        return x.reshape(L, n, C, S).permute(2, 0, 3, 1)
+    return x.reshape(L, n, m, C, S).permute(3, 0, 4, 1, 2)
 
 
 def _sw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                     with_profiles: bool = False):
-    _check_no_grad(inp)
     nreg, ns = opt.nreg, lg.nstream
     nd = nreg * ns
     C, L = inp.dz.shape
@@ -513,11 +678,18 @@ def _sw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
     hw = torch.as_tensor(lg.hweight, dtype=dtype, device=dev)
 
-    zcos, sin0, geo, facets, (g0, g1, g2, g3) = _sw_front(inp, opt, lg)
+    front = _sw_front(inp, opt, lg)
+    zcos, sin0, geo, facets, (g0, g1, g2, g3) = front
     dz_soa = _soa_cls(inp.dz[:, :, None].expand(C, L, S))
     lay = layer_factory(_soa(g0), _soa(g1), _soa(g2), _soa(g3), dz_soa,
                         nd=nd, ndir=nreg, n_double=opt.n_double,
                         chunk=opt.factory_chunk)
+    if opt.associative_sweeps:  # K1 (or K1d), then the associative sweeps
+        shapes = dict(R=(nd, nd), T=(nd, nd), E=(nreg, nreg), Sup=(nd, nreg),
+                      Sdn=(nd, nreg), int_diff=(nd, nd), int_dir=(nreg, nreg),
+                      int_dir_diff=(nd, nreg))
+        lay = {k: _unsoa(v, C, S, *shapes[k]) for k, v in lay.items()}
+        return _sw_adding(inp, opt, lg, with_profiles, front, lay)
 
     # ---- K2: up-sweep
     ov = lambda x: x.permute(1, 2, 3, 0).reshape(L, -1, C).contiguous()
@@ -699,17 +871,35 @@ def _lw_ground_fluxes(outs, dn_fin, up_fin, with_source, lg, nreg, bc):
     return outs
 
 
+def _lw_up_layer(a_above, source_above, R, T, p, a_roof, source_roof):
+    """One LW adding step short of the overlap into the next interface
+    (radsurf_urban_lw.F90:567-614): (denom, a_below, source_below) with the
+    exposed-roof rows, on any leading batch dims."""
+    nd = R.shape[-1]
+    eye = torch.eye(nd, dtype=R.dtype, device=R.device)
+    denom = eye - matmul(a_above, R)
+    a_below_reg = R + matmul(T, solve(denom, matmul(a_above, T)))
+    # Eq. 34 (radsurf_urban_lw.F90:583-587)
+    src_rhs = solve(denom, source_above + matvec(a_above, p))
+    nd2 = nd + a_roof.shape[-1]
+    a_below = R.new_zeros(R.shape[:-2] + (nd2, nd2))
+    a_below[..., :nd, :nd] = a_below_reg
+    a_below[..., nd:, nd:] = a_roof
+    source_below = torch.cat([p + matvec(T, src_rhs), source_roof], dim=-1)
+    return denom, a_below, source_below
+
+
+_LW_UPS = ("a_above", "source_above", "denom", "a_below", "source_below")
+
+
 def _lw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
              with_profiles: bool = False):
-    nreg, ns = opt.nreg, lg.nstream
-    nd = nreg * ns
+    front = _lw_front(inp, opt, lg)
+    g1, g2 = front[2]
+    em = front[3]
     C, L = inp.dz.shape
     S = inp.air_ext.shape[-1]
-    dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
-    mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
-
-    geo, facets, (g1, g2), em = _lw_front(inp, opt, lg)
+    nd = opt.nreg * lg.nstream
     N = C * L * S
     lay = lw_layer_matrices_chunked(
         g1.reshape(N, nd, nd), g2.reshape(N, nd, nd),
@@ -717,6 +907,24 @@ def _lw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
         inp.dz[:, :, None].expand(C, L, S).reshape(N),
         n_double=opt.n_double, chunk=opt.factory_chunk)
     lay = {k: v.reshape((C, L, S) + v.shape[1:]) for k, v in lay.items()}
+    return _lw_adding(inp, opt, lg, with_profiles, front, lay)
+
+
+def _lw_adding(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
+               with_profiles, front, lay):
+    """The LW up and down recurrences on the layer operators lay ({name:
+    [C, L, S, ...]}): sequential, or associative with
+    opt.associative_sweeps."""
+    nreg, ns = opt.nreg, lg.nstream
+    nd = nreg * ns
+    C, L = inp.dz.shape
+    S = inp.air_ext.shape[-1]
+    dtype, dev = inp.air_ext.dtype, inp.air_ext.device
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
+    geo, facets, _, em = front
+    assoc = opt.associative_sweeps
+    lay_l = {k: _to_layers(v) for k, v in lay.items()}  # [L, C, S, ...] views
 
     # ---- ground operators (radsurf_urban_lw.F90:551-565)
     same_reg = torch.block_diag(*[hw[:, None].expand(ns, ns)] * nreg)
@@ -726,91 +934,114 @@ def _lw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                      * (frac0[:, :, None] * hw).reshape(C, 1, nd))  # [C, S, nd]
 
     # ---- upward adding recurrence (radsurf_urban_lw.F90:567-627)
-    eye = torch.eye(nd, dtype=dtype, device=dev)
-    nd2 = (nreg + 1) * ns
-    a_above, source_above = a_ground, source_ground
-    ups = []
-    for l in range(L):
-        R, T, p = lay["R"][:, l], lay["T"][:, l], lay["p"][:, l]
-        denom = eye - matmul(a_above, R)
-        a_below_reg = R + matmul(T, solve(denom, matmul(a_above, T)))
-        # Eq. 34 (radsurf_urban_lw.F90:583-587)
-        src_rhs = solve(denom, source_above + matvec(a_above, p))
-        a_below = inp.air_ext.new_zeros((C, S, nd2, nd2))
-        a_below[..., :nd, :nd] = a_below_reg
-        a_below[..., nd:, nd:] = ((1.0 - facets["roof_emissivity"][:, l])
-                                  [..., None, None] * hw[:, None])
-        source_below = torch.cat([
-            p + matvec(T, src_rhs),
-            (facets["roof_emission"][:, l]
-             * facets["exposed_roof"][:, l, None])[..., None] * hw], dim=-1)
-        ups.append((a_above, source_above, denom, a_below, source_below))
-        a_above = _u_mat_v(geo["u_ov"][:, l], a_below, geo["v_ov"][:, l], ns)
-        source_above = _ov_vec(geo["u_ov"][:, l], source_below, ns)
+    a_roof = ((1.0 - facets["roof_emissivity"])[..., None, None]
+              * hw[:, None].expand(ns, ns))
+    source_roof = (facets["roof_emission"]
+                   * facets["exposed_roof"][..., None])[..., None] * hw
+    up_ops = ("R", "T", "p")
+    if assoc:
+        # emission rides as a width-1 source channel through the star prefix
+        a_roof_l, source_roof_l = _to_layers(a_roof), _to_layers(source_roof)
+        prefix = star_prefix(
+            lw_layer_star_elements(*(lay_l[k] for k in up_ops),
+                                   _to_layers(geo["u_ov"]),
+                                   _to_layers(geo["v_ov"]), a_roof_l,
+                                   source_roof_l, nreg, ns),
+            ground_star_element(a_ground, source_ground[..., None], 1))
+        a_above, source_above = prefix["Rd"][-1], prefix["Su"][-1][..., 0]
+        carries = (prefix["Rd"][:-1], prefix["Su"][:-1, ..., 0])
+        ups = carries + _lw_up_layer(*carries, *(lay_l[k] for k in up_ops),
+                                     a_roof_l, source_roof_l)
+    else:
+        a_above, source_above = a_ground, source_ground
+        steps = []
+        for l in range(L):
+            ys = _lw_up_layer(a_above, source_above,
+                              *(lay[k][:, l] for k in up_ops),
+                              a_roof[:, l], source_roof[:, l])
+            steps.append((a_above, source_above) + ys)
+            a_above = _u_mat_v(geo["u_ov"][:, l], ys[1], geo["v_ov"][:, l], ns)
+            source_above = _ov_vec(geo["u_ov"][:, l], ys[2], ns)
+        ups = tuple(zip(*steps))  # per name, the L layers' values
     bc = _lw_top_bc(a_above, source_above, hw, ns)
 
     # ---- downward flux recurrences (radsurf_urban_lw.F90:639-858)
-    ab_coef = inp.air_ext * (1.0 - inp.air_ssa)  # [C, L, S]
-    vb_coef = inp.veg_ext[..., None] * (1.0 - inp.veg_ssa)
-    od = _pad_od(geo["od_scaling"])
+    per_layer = dict(
+        v_ov=geo["v_ov"], fw=geo["f_wall"], od=_pad_od(geo["od_scaling"]),
+        ab=inp.air_ext * (1.0 - inp.air_ssa),
+        vb=inp.veg_ext[..., None] * (1.0 - inp.veg_ssa),
+        weps=facets["wall_emissivity"], dz=inp.dz,
+        er=em["emiss_reg"][..., 0], ea=em["emiss_air"].sum(-1),
+        ev=em["emiss_veg"].sum(-1), ew=em["emiss_wall"],
+        **{k: lay[k] for k in ("R", "T", "p", "int_diff", "int_source")})
 
     def sweep(with_source):
-        dn = inp.air_ext.new_zeros((C, S, nd))
-        if not with_source:
-            dn[..., :ns] = hw
-        per_layer = [None] * L
-        for l in range(L - 1, -1, -1):
-            R, T, p = lay["R"][:, l], lay["T"][:, l], lay["p"][:, l]
-            a_above, source_above, denom, a_below, source_below = ups[l]
-            dz_l = inp.dz[:, l, None]
-            dn_below = _ov_vec(geo["v_ov"][:, l], dn, ns)  # [C, S, nd2]
-            up_below = matvec(a_below, dn_below)
+        def step(carry, x):
+            dn, = carry
+            dz_l = x["dz"][:, None]
+            dn_below = _ov_vec(x["v_ov"], dn, ns)  # [C, S, nd2]
+            up_below = matvec(x["a_below"], dn_below)
             if with_source:
-                up_below = up_below + source_below
+                up_below = up_below + x["source_below"]
             out = {"roof_in": dn_below[..., nd:].sum(-1)}
             out["roof_net"] = out["roof_in"] - up_below[..., nd:].sum(-1)
-            rhs = matvec(T, dn_below[..., :nd])
+            rhs = matvec(x["T"], dn_below[..., :nd])
             if with_source:
-                rhs = rhs + matvec(R, source_above) + p
-            dn_new = solve(denom, rhs)
-            up_above = matvec(a_above, dn_new)
+                rhs = rhs + matvec(x["R"], x["source_above"]) + x["p"]
+            dn_new = solve(x["denom"], rhs)
+            up_above = matvec(x["a_above"], dn_new)
             if with_source:
-                up_above = up_above + source_above
+                up_above = up_above + x["source_above"]
             if with_profiles:
                 out["flux_dn_layer_top"] = dn_below[..., :nd].sum(-1)
                 out["flux_up_layer_top"] = up_below[..., :nd].sum(-1)
                 out["flux_dn_layer_base"] = dn_new.sum(-1)
                 out["flux_up_layer_base"] = up_above.sum(-1)
             conv = dn_below[..., :nd] - dn_new - up_below[..., :nd] + up_above
-            int_flux = matvec(lay["int_diff"][:, l], conv)
+            int_flux = matvec(x["int_diff"], conv)
             if with_source:
-                int_flux = int_flux + lay["int_source"][:, l]
-            iflux = int_flux.reshape(C, S, nreg, ns)
+                int_flux = int_flux + x["int_source"]
+            iflux = int_flux.reshape(int_flux.shape[:2] + (nreg, ns))
             if_mu = iflux @ (1.0 / mu)
-            ab, vb = ab_coef[:, l], vb_coef[:, l]
+            ab, vb = x["ab"], x["vb"]
             out["clear_air_abs"] = ab * if_mu[..., 0]
             if nreg > 1:
                 out["veg_air_abs"] = ab * if_mu[..., 1:].sum(-1)
-                out["veg_abs"] = vb * (if_mu[..., 1:] * od[:, l][:, None, :]).sum(-1)
+                out["veg_abs"] = vb * (if_mu[..., 1:] * x["od"][:, None, :]).sum(-1)
             if with_source:
-                out["clear_air_abs"] = (out["clear_air_abs"]
-                                        - em["emiss_reg"][:, l, :, 0] * dz_l)
+                out["clear_air_abs"] = out["clear_air_abs"] - x["er"] * dz_l
                 if nreg > 1:
-                    out["veg_air_abs"] = (out["veg_air_abs"]
-                                          - em["emiss_air"][:, l].sum(-1) * dz_l)
-                    out["veg_abs"] = (out["veg_abs"]
-                                      - em["emiss_veg"][:, l].sum(-1) * dz_l)
+                    out["veg_air_abs"] = out["veg_air_abs"] - x["ea"] * dz_l
+                    out["veg_abs"] = out["veg_abs"] - x["ev"] * dz_l
             if opt.do_urban:
-                out["wall_in"] = torch.einsum("cr,csr->cs", geo["f_wall"][:, l],
+                out["wall_in"] = torch.einsum("cr,csr->cs", x["fw"],
                                               iflux @ tan_s)
-                out["wall_net"] = out["wall_in"] * facets["wall_emissivity"][:, l]
+                out["wall_net"] = out["wall_in"] * x["weps"]
                 if with_source:
-                    out["wall_net"] = (out["wall_net"]
-                                       - em["emiss_wall"][:, l] * dz_l)
-            per_layer[l] = out
-            dn = dn_new
-        outs = {k: torch.stack([o[k] for o in per_layer], dim=1)
-                for k in per_layer[0]}
+                    out["wall_net"] = out["wall_net"] - x["ew"] * dz_l
+            return (dn_new,), out
+
+        dn = inp.air_ext.new_zeros((C, S, nd))
+        if not with_source:
+            dn[..., :ns] = hw
+        carry_in = None
+        if assoc:
+            # affine carry maps with the emission constant in the B slot,
+            # over a frozen width-1 channel pinned at 1
+            Cmap = _diffuse_carry_map(lay_l["T"], _to_layers(geo["v_ov"])[..., :nreg, :],
+                                      ups[2], ns)
+            if with_source:
+                Bmap = solve(ups[2], matvec(lay_l["R"], ups[1]) + lay_l["p"])[..., None]
+            else:
+                Bmap = inp.air_ext.new_zeros((L, C, S, nd, 1))
+            (_, dn_in), (_, dn) = affine_down_carries(
+                inp.air_ext.new_ones((L, C, S, 1, 1)), Bmap, Cmap,
+                inp.air_ext.new_ones((C, S, 1)), dn)
+            carry_in = (dn_in,)
+        carry, outs = _down_steps(step, (dn,), per_layer, {}, _LW_UPS, ups,
+                                  carry_in)
+        if carry is not None:
+            dn, = carry
         up_fin = matvec(a_ground, dn)
         if with_source:
             up_fin = up_fin + source_ground
@@ -822,8 +1053,8 @@ def _lw_scan(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
 def _lw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                     with_profiles: bool = False):
     """K1 (LW mode) -> K4 -> K5 in the [L, rows, B] layout (B = C*S), then
-    the ground fluxes in closed form (cf. JAX _lw_pallas_path)."""
-    _check_no_grad(inp)
+    the ground fluxes in closed form (cf. JAX _lw_pallas_path); with
+    opt.associative_sweeps, K1 then the associative sweeps."""
     nreg, ns = opt.nreg, lg.nstream
     nd = nreg * ns
     C, L = inp.dz.shape
@@ -833,11 +1064,16 @@ def _lw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
     hw = t(lg.hweight)
 
-    geo, facets, (g1, g2), em = _lw_front(inp, opt, lg)
+    front = _lw_front(inp, opt, lg)
+    geo, facets, (g1, g2), em = front
     dz_cls = inp.dz[:, :, None].expand(C, L, S)
     lay = lw_layer_factory(_soa(g1), _soa(g2), _soa(em["emiss_rate"][..., None]),
                            _soa_cls(dz_cls), nd=nd, n_double=opt.n_double,
                            chunk=opt.factory_chunk)
+    if opt.associative_sweeps:
+        lay = {k: _unsoa(v, C, S, nd, nd if k in ("R", "T", "int_diff") else None)
+               for k, v in lay.items()}
+        return _lw_adding(inp, opt, lg, with_profiles, front, lay)
 
     # ---- K4: up-sweep
     ov = lambda x: x.permute(1, 2, 3, 0).reshape(L, -1, C).contiguous()
@@ -926,8 +1162,75 @@ def _sanitize_forest(inp: CanopyInputs, opt: SolverOptions) -> CanopyInputs:
     return replace(inp, building_fraction=torch.zeros_like(inp.building_fraction))
 
 
-_ROUTES = {"kernel": _sw_kernel_path, "scan": _sw_scan}
-_LW_ROUTES = {"kernel": _lw_kernel_path, "scan": _lw_scan}
+class _KernelRouteGrad(torch.autograd.Function):
+    """The kernel route under reverse-mode autograd (JAX _sw_diff /
+    _lw_diff, solver.py:1776-1825): the kernels have no backward of their
+    own, but compute the same function as the scan route, so the scan
+    route's gradient is theirs.  Forward: the kernel route (its CUDA
+    kernels on CUDA tensors), saving only the inputs, as JAX's residual is
+    the input.  Backward: the scan route recomputed on the saved inputs with
+    the same options, associative_sweeps included, differentiated against
+    the cotangents.  Inputs and outputs cross as flat tuples: the set
+    fields `names` of CanopyInputs in, the three output dicts out, whose
+    keys the forward appends to `keys`."""
+
+    @staticmethod
+    def forward(ctx, kernel, scan, opt, lg, with_profiles, names, keys,
+                *tensors):
+        outs = kernel(CanopyInputs(**dict(zip(names, tensors))), opt, lg,
+                      with_profiles)
+        keys.extend(list(d) for d in outs)
+        ctx.save_for_backward(*tensors)
+        ctx.set_materialize_grads(False)
+        ctx.setup = (scan, opt, lg, with_profiles, names, list(keys))
+        return tuple(d[k] for d in outs for k in d)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        scan, opt, lg, with_profiles, names, keys = ctx.setup
+        need = ctx.needs_input_grad[7:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, need)]
+            outs = scan(CanopyInputs(**dict(zip(names, xs))), opt, lg,
+                        with_profiles)
+            flat = [d[k] for d, ks in zip(outs, keys) for k in ks]
+            pairs = [(o, c) for o, c in zip(flat, cts)
+                     if c is not None and o.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [x for x in xs if x.requires_grad],
+                [c for _, c in pairs], allow_unused=True) if pairs else ())
+        return (None,) * 7 + tuple(next(grads, None) if n else None
+                                   for n in need)
+
+
+def _needs_grad(x) -> bool:
+    """Whether autograd must see through a solve with input x: reverse mode
+    (grad mode on and x requires grad), or a forward-mode dual tensor, which
+    _KernelRouteGrad refuses (no jvp, as JAX's custom_vjp has none)."""
+    return ((torch.is_grad_enabled() and x.requires_grad)
+            or fwAD.unpack_dual(x).tangent is not None)
+
+
+def _with_grad(kernel, scan):
+    """The kernel route `kernel` as a solve: called directly, or, where an
+    input needs a gradient, through _KernelRouteGrad with `scan` as its
+    backward (one Function per column chunk, so a backward recomputes one
+    chunk's scan graph at a time)."""
+    def impl(inp, opt, lg, with_profiles):
+        named = inp.tensors()
+        if not any(_needs_grad(x) for _, x in named):
+            return kernel(inp, opt, lg, with_profiles)
+        keys = []
+        flat = iter(_KernelRouteGrad.apply(
+            kernel, scan, opt, lg, with_profiles, [n for n, _ in named], keys,
+            *(x for _, x in named)))
+        return tuple({k: next(flat) for k in ks} for ks in keys)
+    return impl
+
+
+_ROUTES = {"kernel": _with_grad(_sw_kernel_path, _sw_scan), "scan": _sw_scan}
+_LW_ROUTES = {"kernel": _with_grad(_lw_kernel_path, _lw_scan), "scan": _lw_scan}
 
 
 def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,

@@ -37,6 +37,8 @@ def to_canopy_inputs(src, device, dtype=None) -> CanopyInputs:
     for f in fields(CanopyInputs):
         x = getattr(src, f.name, None)
         if x is not None:
-            kw[f.name] = torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+            # a copy: a [C, 1] view may be "contiguous" with a negative
+            # stride, which torch refuses
+            kw[f.name] = torch.as_tensor(np.array(x, order="C"), dtype=dtype,
                                          device=device)
     return CanopyInputs(**kw)

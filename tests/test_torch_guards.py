@@ -1,18 +1,20 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
 package, never moves work to the CPU when a device is missing, refuses
-gradients on the forward-only kernel route, needs no nvcc to import, and
+forward-mode gradients on the kernel route, needs no nvcc to import, and
 chip_smoke.py fails without a GPU."""
 
 import os
 import shutil
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from spartacus_surface_tpu_torch.models import solver
 from spartacus_surface_tpu_torch.models.dispatch import run_radsurf
@@ -33,6 +35,8 @@ import spartacus_surface_tpu_torch.utils.convert
 import spartacus_surface_tpu_torch.driver.duplicate_profiles
 import spartacus_surface_tpu_torch.driver.main
 import spartacus_surface_tpu_torch.driver.test_kernels
+import spartacus_surface_tpu_torch.examples.retrieval
+import spartacus_surface_tpu_torch.ops.assoc_adding
 import spartacus_surface_tpu_torch.ops.probe_kernels
 import spartacus_surface_tpu_torch.tools.roofline
 from spartacus_surface_tpu_torch.utils.config import Config
@@ -93,12 +97,20 @@ def test_kernel_demo_defaults_to_the_card(capsys):
 
 
 def test_kernel_route_refuses_gradients():
+    """Forward-mode gradients are refused on the kernel route (no jvp, as
+    the JAX package's custom_vjp has none), not silently dropped by the
+    kernels; reverse mode goes through the route's autograd Function."""
     src = SimpleNamespace(**example_inputs(C=3, L=2, S=1, dtype=np.float64))
     inp = to_canopy_inputs(src, "cpu")
-    inp.veg_ext.requires_grad_(True)
     opt = solver.SolverOptions(nreg=2, nstream=4, do_urban=True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        solver.spartacus_sw(inp, opt, LegendreGauss(4))
+    with fwAD.dual_level():
+        dual = replace(inp, veg_ext=fwAD.make_dual(
+            inp.veg_ext, torch.ones_like(inp.veg_ext)))
+        with pytest.raises(NotImplementedError, match="jvp"):
+            solver.spartacus_sw(dual, opt, LegendreGauss(4))
+    inp.veg_ext.requires_grad_(True)
+    _, _, bc = solver.spartacus_sw(inp, opt, LegendreGauss(4))
+    assert bc["top_albedo_dir"].grad_fn.name() == "_KernelRouteGradBackward"
 
 
 def test_nvcc_absence_is_reported():

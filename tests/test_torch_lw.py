@@ -17,6 +17,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from spartacus_surface_tpu.models import flat as JF
 from spartacus_surface_tpu.models import flux_utils as JFU
@@ -338,7 +339,20 @@ def test_run_radsurf_lw_on_missing_cuda_raises():
 
 
 def test_lw_kernel_route_refuses_gradients():
+    """The kernel route refuses forward-mode gradients (its autograd
+    Function has no jvp, as the JAX package's custom_vjp has none); its
+    reverse-mode gradient is the scan route's."""
+    def grad(route):
+        inp = to_canopy_inputs(inputs(), "cpu")
+        inp.veg_planck.requires_grad_(True)
+        internal, _, bc = port(2, 4, True, route, inp=inp)
+        (internal["veg_abs"].sum() + bc["top_emission"].sum()).backward()
+        return inp.veg_planck.grad
+
+    torch.testing.assert_close(grad("kernel"), grad("scan"), rtol=1e-12, atol=0.0)
     inp = to_canopy_inputs(inputs(), "cpu")
-    inp.veg_planck.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        port(2, 4, True, "kernel", inp=inp)
+    with fwAD.dual_level():
+        inp.veg_planck = fwAD.make_dual(inp.veg_planck,
+                                        torch.ones_like(inp.veg_planck))
+        with pytest.raises(NotImplementedError, match="jvp"):
+            port(2, 4, True, "kernel", inp=inp)
