@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # build, check, run the paths
     python3 chip_smoke.py --profile    # ... then time and trace the slice
+    python3 chip_smoke.py --parallel-only   # build, then the parallel phase alone
 
 Phases, one JSON line each (failures make the script exit nonzero before the
 final line):
@@ -57,6 +58,43 @@ final line):
      field-normalized <= 3e-4 (SW) / 2.5e-3 (LW) in f32, 1e-9 in f64; the
      energy budgets of the run as in phase 3.  Prints the CLI's region
      walls (read_input / radsurf / save).
+  parallel - streamed, meshed and multi-process runs (parallel/), each with
+     the launch counters set to 0 just before it and read just after (K1-K5
+     must launch on every path), every line with the card's name and power
+     limit:
+       stream_equal: parallel.streaming.stream_columns(run_radsurf, chunk
+         65,536, depth 2) on the headline's tile mix repeated 16 times
+         (278,528 columns: every chunk holds every tile type; 4 chunks and a
+         16,384-column tail), float32 and float64, against one run_radsurf
+         call on the same arrays: field-normalized <= 1e-5 (float32; cuBLAS
+         picks its algorithms by batch size) / 1e-12 (float64); the energy
+         budgets reduced on the card per chunk within phase 3's bars; no
+         synchronizing CUDA operation in the streamed run
+         (torch.cuda.set_sync_debug_mode("warn"): each one's Python frames
+         are printed); one shot's warm wall (median of 3, its outputs
+         fetched to the host as the stream's are) and columns/s.
+       stream_scale: the headline's mix repeated 64 times (1,114,112
+         columns: 17 chunks; in float64 beyond one shot's memory on an
+         80 GB card), float32 and float64: finite outputs of the expected
+         shape, the budgets of every column, the peak device memory of the
+         run (<= 3 x that of one one-shot call on the first 65,536 columns),
+         the warm wall (float32 median of 3, float64 one warm run) and
+         columns/s against stream_equal's one shot; in float32 one
+         torch.profiler trace: the copies' device ms and the share of it
+         that overlaps kernel time (must be > 0).
+       mesh: run_radsurf(mesh=[cuda:0, cuda:0]) at the headline against the
+         unsharded call, float32 and float64, at stream_equal's bars; each
+         shard launches K1-K5, so every count doubles; both warm walls.
+       multiprocess: the CLI (cli_ns4 input and namelist of the cli phase)
+         as 2 processes on the one card (gloo on a free port of 127.0.0.1),
+         single precision with --keep-shards, then double, then double with
+         --stream-chunk 4096: exit codes, each process's slice and the merge
+         line, the merged file against the cli phase's single-process file
+         (field-normalized <= 1e-5 in float32, every variable rtol / atol
+         1e-12 in float64), the shards gone (kept with --keep-shards, and
+         then merged again by `python -m
+         spartacus_surface_tpu_torch.driver.merge` to the same file), each
+         process's K1-K5 launches, its wall and its radsurf line.
   demo - driver.test_kernels.main(["all", "--device", "cuda"]): the
      1-stream, 2-region SW operators on K1d and the LW ones on K1; exit code
      0 (its Schur-vs-brute-force self-check at 1e-10 in f64), K1d and K1
@@ -172,6 +210,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -230,6 +269,12 @@ PATH_R5_1 = PATH_4 + ("K1d",)  # rami5_ns1: SW on K1d (nd = 3), LW on K1
 LAYERED = (1, 2, 3)
 SOLVE_MODELS = {"headline": (2, 4, 8, 1), "rami5_shape": (3, 4, 62, 14)}
 CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+# (tile code, columns) of the headline and of the cli phase's input file;
+# the headline's configuration
+HEADLINE_TILES = ((3, 16384), (0, 512), (4, 256), (5, 256))
+CLI_TILES = ((3, 8192), (1, 4096), (2, 4096), (0, 512), (4, 256), (5, 256))
+HEADLINE_CONFIG = dict(n_vegetation_region_urban=1, n_stream_sw_urban=4,
+                       n_stream_lw_urban=4, nsw=1, nlw=1)
 CLI_NAMELIST = """&radsurf
   n_stream_sw_forest = {ns}, n_stream_sw_urban = {ns},
   n_stream_lw_forest = {ns}, n_stream_lw_urban = {ns},
@@ -257,6 +302,32 @@ ASSOC_SHAPES = {"deep_canopy": (8, 1024, 1, 3, False, 0.005),  # Forest
                 "headline": (16384, 8, 3, 2, True, 1.0)}  # VegetatedUrban
 SWEEP_TOL_F32 = {"sw_up_sweep": 3e-5, "sw_down_sweep_both": 3e-5,
                  "lw_up_sweep": 3e-5, "lw_down_sweep_both": 2e-4}
+# parallel phase: the column chunk and in-flight depth of the streamed runs,
+# the headline's tile mix repeated for stream_equal and stream_scale, the
+# bars of a streamed (or meshed) run against one shot (field-normalized;
+# float32 allows for cuBLAS choosing its algorithms by batch size), the
+# multi-process runs' input chunk and their time limits
+PAR_CHUNK, PAR_DEPTH = 65536, 2
+PAR_REPEATS = {"stream_equal": 16, "stream_scale": 64}
+PAR_TOL = {"float32": 1e-5, "float64": 1e-12}
+PAR_MP_STREAM_CHUNK = 4096
+PAR_MP_TIMEOUT = 600  # seconds a CLI process may take; barriers: 300
+# a CLI process of the multi-process runs: driver.main.main, then the launch
+# counts of K1-K5 in that process on a line of its own
+PAR_CHILD = """
+import json, sys
+from spartacus_surface_tpu_torch.driver import main
+from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
+from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+rc = main.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({
+    "K1": LK.layer_factory.launches, "K2": SK.sw_up_sweep.launches,
+    "K3": SK.sw_down_sweep_both.launches, "K4": LSK.lw_up_sweep.launches,
+    "K5": LSK.lw_down_sweep_both.launches,
+    "K1 LW mode": LK.lw_layer_factory.launches}), flush=True)
+sys.exit(rc)
+"""
 FAILURES = []
 
 
@@ -559,11 +630,438 @@ def nc_field_err(ref, got, names):
     return worst
 
 
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def sync_sites(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): (its result, for
+    each synchronizing CUDA operation it issued the file:line of its
+    Python frames, innermost first)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # PyTorch's own warning on entering the mode is not a sync
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            sites.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in frames[:-9:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, sites
+
+
+def copy_overlap(fn):
+    """One torch.profiler trace of fn(): the device ms of the host<->device
+    copies (by direction) and of the kernels, and the share of the copies'
+    time that overlaps kernel time (None: the trace caught no copy)."""
+    import bisect
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    copies = [(n, t0, t1) for n, t0, t1 in spans if n.startswith("Memcpy")]
+    union = []  # the kernels' busy intervals, merged
+    for t0, t1 in sorted((t0, t1) for n, t0, t1 in spans
+                         if not n.startswith(("Memcpy", "Memset"))):
+        if union and t0 <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], t1)
+        else:
+            union.append([t0, t1])
+    starts = [a for a, _ in union]
+    overlaps = []  # each copy's us under kernel time
+    for _, t0, t1 in copies:
+        k, o = max(0, bisect.bisect_right(starts, t0) - 1), 0.0
+        while k < len(union) and union[k][0] < t1:
+            o += max(0.0, min(t1, union[k][1]) - max(t0, union[k][0]))
+            k += 1
+        overlaps.append(o)
+    copy_us = sum(t1 - t0 for _, t0, t1 in copies)
+    by_dir = {d: sum(t1 - t0 for n, t0, t1 in copies if d in n) / 1e3
+              for d in ("HtoD", "DtoH", "DtoD")}
+    overlap_by_dir = {d: sum(o for (n, _, _), o in zip(copies, overlaps) if d in n)
+                      / 1e3 / by_dir[d] if by_dir[d] else None for d in by_dir}
+    return dict(copy_ms=copy_us / 1e3, copy_ms_by_direction=by_dir,
+                copies=len(copies), kernel_busy_ms=sum(b - a for a, b in union) / 1e3,
+                device_events=len(spans),
+                copy_overlap_share=sum(overlaps) / copy_us if copy_us else None,
+                copy_overlap_share_by_direction=overlap_by_dir)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cli_processes(nproc, argv):
+    """The CLI as nproc processes of PAR_CHILD on a free port of 127.0.0.1:
+    [(exit code, stdout, stderr, wall seconds, K1-K5 launches)] by rank."""
+    repo = Path(__file__).resolve().parent
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = []
+    for pid in range(nproc):
+        t0 = time.perf_counter()
+        procs.append((t0, subprocess.Popen(
+            [sys.executable, "-c", PAR_CHILD, *map(str, argv),
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(nproc),
+             "--process-id", str(pid), "--barrier-timeout", "300"],
+            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    out = []
+    for t0, p in procs:
+        try:
+            so, se = p.communicate(timeout=PAR_MP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        wall = time.perf_counter() - t0
+        line = next((ln for ln in so.splitlines() if ln.startswith("LAUNCHES ")), None)
+        out.append((p.returncode, so, se, wall,
+                    json.loads(line.split(" ", 1)[1]) if line else {}))
+    return out
+
+
+def parallel_phase(dev, counters, headline, cli_files):
+    """The parallel phase: stream_equal, stream_scale, mesh, multiprocess
+    (see the module docstring).  headline: (tile codes, Config kwargs) of
+    the slice phase's headline; cli_files: {"input", "columns", "namelist",
+    "single", "double"}: the cli phase's input file and its column count, its
+    cli_ns4 namelist and the single-process CLI's output file at each
+    precision."""
+    import numpy as np
+    import torch
+
+    from spartacus_surface_tpu_torch.models.dispatch import (
+        TILE_INFINITE_STREET, TILE_SIMPLE_URBAN, TILE_URBAN, TILE_VEGETATED_URBAN,
+        run_radsurf)
+    from spartacus_surface_tpu_torch.models.flux_utils import (
+        budget_residual, budget_with_masks, representation_masks)
+    from spartacus_surface_tpu_torch.parallel.mesh import make_mesh
+    from spartacus_surface_tpu_torch.parallel.streaming import stream_columns
+    from spartacus_surface_tpu_torch.utils.config import Config
+    from spartacus_surface_tpu_torch.utils.inputs import example_arrays
+
+    card = card_line()
+    groups = ("sw_norm_dir", "sw_norm_diff", "lw_internal", "lw_norm")
+    dtypes = {"float32": np.float32, "float64": np.float64}
+    rep_head, cfg_head = headline
+    config = Config(do_lw=True, **cfg_head).consolidate()
+
+    def reset():
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
+
+    def counts():
+        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+
+    def launched(c, tag):
+        check(all(c[k] > 0 for k in PATH_4), f"{tag}: a kernel of the path was not launched {c}")
+
+    def solve(a):
+        """run_radsurf on the card, with each group's per-column budget
+        residual reduced there."""
+        out = run_radsurf(config, a, dev)
+        masks = representation_masks(a["i_representation"], dev)
+        out["resid"] = {g: budget_residual(budget_with_masks(out[g], masks)) for g in groups}
+        return out
+
+    def streamed(arrays):
+        return stream_columns(solve, arrays, PAR_CHUNK, PAR_DEPTH, device=dev)
+
+    def host(out):
+        """A run_radsurf result's leaves as CPU tensors, {(group, key): t}."""
+        return {(g, k): (v.cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(v))
+                for g in (*groups, "bc_out") for k, v in out[g].items()}
+
+    def budget_check(out, arrays, f32, scale, tag):
+        """The per-column residuals of a streamed result against the slice
+        phase's bars (LW on the columns that conserve).  An urban column
+        whose building fraction changes by less than min_building_fraction
+        between two layers has a roof (or overhang) of that area, which the
+        reference leaves out of its budget: it leaks O(area) of the flux by
+        design, so such a column is held to 1e-6 of the flux scale instead
+        (their count and worst residuals are printed)."""
+        rep = arrays["i_representation"]
+        conserving = ~np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET])
+        step = np.abs(np.diff(np.asarray(arrays["building_fraction"], np.float64), axis=1))
+        leaky = np.isin(rep, [TILE_URBAN, TILE_VEGETATED_URBAN]) & (
+            step.min(1) < config.min_building_fraction)
+        bars = {"sw_norm_dir": 1e-4 if f32 else 1e-10, "sw_norm_diff": 1e-4 if f32 else 1e-10,
+                "lw_internal": 1e-4 * scale if f32 else 1e-9,
+                "lw_norm": 1e-4 * scale if f32 else 1e-10}
+        worst = {}
+        for g in groups:
+            r = np.abs(np.asarray(out["resid"][g], np.float64))
+            if g.startswith("lw"):
+                r = r * conserving
+            leak_bar = max(bars[g], 1e-6 * (scale if g.startswith("lw") else 1.0))
+            worst[g] = float(r[~leaky].max())
+            worst[f"{g} leaky"] = float(r[leaky].max()) if leaky.any() else None
+            check(worst[g] <= bars[g], f"{tag}: {g} energy budget residual {worst[g]:.3e}")
+            check(not leaky.any() or worst[f"{g} leaky"] <= leak_bar,
+                  f"{tag}: {g} energy budget residual {worst[f'{g} leaky']}"
+                  " on a column with a sub-threshold roof")
+        worst["leaky_columns"] = int(leaky.sum())
+        return worst
+
+    def wall(fn, reps=3):
+        """Median host seconds of reps calls of fn (already called once),
+        each ending in a synchronize."""
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls)
+
+    # ---- stream_equal: streamed == one shot, every tile type in every chunk
+    rep = np.tile(rep_head, PAR_REPEATS["stream_equal"])
+    one_shot_rate = {}
+    for dname, np_dt in dtypes.items():
+        f32, tag = dname == "float32", f"stream_equal {dname}"
+        arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np_dt, i_representation=rep)
+        scale = max(1.0, float(np.abs(arrays["ground_emission"]).max()))
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, syncs = sync_sites(lambda: streamed(arrays))
+        t_stream = time.perf_counter() - t0
+        c = counts()
+        launched(c, tag)
+        check(not syncs, f"{tag}: the streamed run synchronized the device at {syncs[:10]}")
+        ref = run_radsurf(config, arrays, dev)
+        ref_h = host(ref)
+        del ref
+        got_h = host(got)
+        err = field_err(list(ref_h.values()), [got_h[k] for k in ref_h])
+        check(err <= PAR_TOL[dname], f"{tag}: streamed vs one shot {err:.3e}")
+        resid = budget_check(got, arrays, f32, scale, tag)
+        del got, got_h, ref_h
+        # one shot's rate, its outputs fetched to the host as the stream's are
+        fetch = lambda: [t.cpu() for t in host(run_radsurf(config, arrays, dev)).values()]
+        w_one = wall(fetch)
+        one_shot_rate[dname] = len(rep) / w_one
+        emit(phase="parallel", item="stream_equal", dtype=dname, columns=len(rep),
+             chunk=PAR_CHUNK, depth=PAR_DEPTH, chunks=-(-len(rep) // PAR_CHUNK),
+             field_normalized_err=err, tol=PAR_TOL[dname], max_budget_residual=resid,
+             launches=c, sync_sites=syncs, seconds_streamed_first=t_stream,
+             one_shot_warm_wall_seconds=w_one, one_shot_cols_per_sec=one_shot_rate[dname],
+             torch=torch.__version__, card=card)
+        del arrays
+        torch.cuda.empty_cache()
+
+    # ---- stream_scale: 64 x the headline, beyond one shot's memory in f64
+    rep = np.tile(rep_head, PAR_REPEATS["stream_scale"])
+    for dname, np_dt in dtypes.items():
+        f32, tag = dname == "float32", f"stream_scale {dname}"
+        arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np_dt, i_representation=rep)
+        scale = max(1.0, float(np.abs(arrays["ground_emission"]).max()))
+        # the peak of one one-shot call at the chunk's width
+        first = {k: v[:PAR_CHUNK] for k, v in arrays.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solve(first)
+        torch.cuda.synchronize()
+        peak_chunk = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = streamed(arrays)
+        t_first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        c = counts()
+        launched(c, tag)
+        finite = all(np.isfinite(v).all() for g in groups for v in got[g].values())
+        shapes = got["sw_norm_dir"]["flux_dn_layer_top"].shape == (len(rep), 8, 1)
+        check(finite and shapes, f"{tag}: non-finite or misshapen output")
+        resid = budget_check(got, arrays, f32, scale, tag)
+        check(peak <= 3 * peak_chunk, f"{tag}: peak {peak:.2f} GiB over 3 x {peak_chunk:.2f}")
+        del got
+        w = wall(lambda: streamed(arrays), reps=3 if f32 else 1)
+        record = dict(phase="parallel", item="stream_scale", dtype=dname, columns=len(rep),
+                      chunk=PAR_CHUNK, depth=PAR_DEPTH, chunks=-(-len(rep) // PAR_CHUNK),
+                      max_budget_residual=resid, launches=c, finite=finite,
+                      seconds_first=t_first, warm_wall_seconds=w,
+                      cols_per_sec=len(rep) / w,
+                      one_shot_cols_per_sec_stream_equal=one_shot_rate[dname],
+                      streamed_over_one_shot=len(rep) / w / one_shot_rate[dname],
+                      peak_gib=peak, peak_gib_one_shot_chunk=peak_chunk, card=card)
+        if f32:  # one traced run, each chunk's solve issue timed on the host
+            issue = []  # (host ms issuing a chunk's solve, its kernels done by then)
+
+            def timed_solve(a):
+                t0 = time.perf_counter()
+                out = solve(a)
+                done = torch.cuda.Event()
+                done.record()
+                issue.append(((time.perf_counter() - t0) * 1e3, done.query()))
+                return out
+
+            record.update(copy_overlap(lambda: stream_columns(
+                timed_solve, arrays, PAR_CHUNK, PAR_DEPTH, device=dev)))
+            record.update(issue_ms_per_chunk=statistics.median(ms for ms, _ in issue),
+                          card_drained_at_issue_end=sum(d for _, d in issue) / len(issue))
+            check((record["copy_overlap_share"] or 0) > 0,
+                  f"{tag}: no copy overlapped a kernel {record['copy_overlap_share']}")
+        emit(**record)
+        del arrays, first
+        torch.cuda.empty_cache()
+
+    # ---- mesh: two shards on the one card against the unsharded call
+    mesh = make_mesh(devices=[dev, dev])
+    for dname, np_dt in dtypes.items():
+        tag = f"mesh {dname}"
+        arrays = example_arrays(C=len(rep_head), L=8, S=1, dtype=np_dt,
+                                i_representation=rep_head)
+        runs = {}
+        for name, m in (("unsharded", None), ("mesh", mesh)):
+            reset()
+            out = run_radsurf(config, arrays, dev, mesh=m)
+            torch.cuda.synchronize()
+            runs[name] = (host(out), counts(),
+                          wall(lambda: run_radsurf(config, arrays, dev, mesh=m)))
+            del out
+        (ref_h, c1, w1), (got_h, c2, w2) = runs["unsharded"], runs["mesh"]
+        err = field_err(list(ref_h.values()), [got_h[k] for k in ref_h])
+        check(err <= PAR_TOL[dname], f"{tag}: meshed vs unsharded {err:.3e}")
+        launched(c2, tag)
+        check(all(c2[k] == 2 * c1[k] for k in PATH_4),
+              f"{tag}: the shards' launches {c2} are not twice {c1}")
+        emit(phase="parallel", item="mesh", dtype=dname, columns=len(rep_head),
+             mesh=[str(d) for d in mesh], field_normalized_err=err, tol=PAR_TOL[dname],
+             launches_unsharded=c1, launches_mesh=c2, warm_wall_seconds_unsharded=w1,
+             warm_wall_seconds_mesh=w2, card=card)
+        del arrays, runs, ref_h, got_h
+        torch.cuda.empty_cache()
+
+    # ---- multiprocess: the CLI as 2 processes on the one card, merged
+    out_dir = Path(cli_files["input"]).parent
+    mp_runs = {"single_keep_shards": ("single", ["--keep-shards"]),
+               "double": ("double", []),
+               "double_stream": ("double", ["--stream-chunk", str(PAR_MP_STREAM_CHUNK)])}
+    for mname, (prec, extra) in mp_runs.items():
+        tag = f"multiprocess {mname}"
+        out_nc = out_dir / f"mp_{mname}.nc"
+        procs = run_cli_processes(2, [cli_files["namelist"], cli_files["input"], out_nc,
+                                      "--device", dev.type, "--precision", prec, *extra])
+        for rc, so, se, _, c in procs:
+            check(rc == 0, f"{tag}: exit code {rc}: {se[-2000:]}")
+            launched(c or {k: 0 for k in PATH_4}, tag)
+        logs = [so for _, so, _, _, _ in procs]
+        half = -(-cli_files["columns"] // 2)
+        check(f"Process 0/2: columns 1 to {half}" in logs[0]
+              and f"Process 1/2: columns {half + 1} to {cli_files['columns']}" in logs[1]
+              and "Merged 2 output shards" in logs[0], f"{tag}: the process log lines")
+        ref = nc_vars(cli_files[prec])
+        got = nc_vars(out_nc) if out_nc.exists() else {}
+        shards = [Path(f"{out_nc}.p{pid:02d}") for pid in range(2)]
+        keep = "--keep-shards" in extra
+        check(all(s.exists() == keep for s in shards), f"{tag}: shards left {shards}")
+        record = {}
+        if prec == "double":
+            ok = set(ref) == set(got) and all(
+                ref[k].shape == got[k].shape
+                and np.allclose(got[k], ref[k], rtol=1e-12, atol=1e-12) for k in ref)
+            record["max_abs_diff"] = max((float(np.abs(got[k] - ref[k]).max())
+                                          for k in ref if k in got
+                                          and got[k].shape == ref[k].shape), default=None)
+        else:
+            err = nc_field_err(ref, got, list(ref))
+            ok = set(ref) == set(got) and err <= PAR_TOL["float32"]
+            record["field_normalized_err"] = err
+        check(ok, f"{tag}: the merged file differs from the single-process file {record}")
+        if keep:  # the standalone merge of the kept shards
+            remerged = out_dir / f"mp_{mname}_remerged.nc"
+            for pid, s in enumerate(shards):
+                Path(f"{remerged}.p{pid:02d}").unlink(missing_ok=True)
+                os.link(s, f"{remerged}.p{pid:02d}")
+            res = subprocess.run([sys.executable, "-m",
+                                  "spartacus_surface_tpu_torch.driver.merge", str(remerged)],
+                                 cwd=Path(__file__).resolve().parent, capture_output=True,
+                                 text=True, timeout=PAR_MP_TIMEOUT,
+                                 env=dict(os.environ, PYTHONPATH=str(
+                                     Path(__file__).resolve().parent)))
+            again = nc_vars(remerged) if remerged.exists() else {}
+            same = res.returncode == 0 and set(again) == set(got) and all(
+                np.array_equal(again[k], got[k]) for k in got)
+            check(same, f"{tag}: the standalone merge {res.returncode} {res.stderr[-500:]}")
+            record["standalone_merge_equal"] = same
+        emit(phase="parallel", item="multiprocess", run=mname, processes=2,
+             precision=prec, extra=extra, exit_codes=[p[0] for p in procs],
+             wall_seconds=[p[3] for p in procs], launches=[p[4] for p in procs],
+             elapsed_lines=[next((ln for ln in so.splitlines()
+                                  if ln.startswith("Time elapsed")), None) for so in logs],
+             shards_left=[s.exists() for s in shards], **record, card=card)
+
+
+def tiles(spec):
+    """The tile codes of a (code, columns) list, in order."""
+    import numpy as np
+
+    return np.concatenate([np.full(n, code) for code, n in spec])
+
+
+def parallel_only(dev, counters):
+    """The parallel phase alone: the cli phase's input, cli_ns4 namelist and
+    single-process files (written here, unchecked), then parallel_phase."""
+    import contextlib
+
+    from spartacus_surface_tpu_torch.driver import main as cli
+    from spartacus_surface_tpu_torch.utils.inputs import write_example_input
+
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    rep_cli, nam = tiles(CLI_TILES), CLI_DIR / "cli_ns4.nam"
+    write_example_input(CLI_DIR / "input.nc", rep_cli, L=8, S=1, seed=1)
+    nam.write_text(CLI_NAMELIST.format(ns=4, extra=""))
+    files = {"input": CLI_DIR / "input.nc", "columns": len(rep_cli), "namelist": nam}
+    for prec in ("single", "double"):
+        files[prec] = CLI_DIR / f"cli_ns4_{prec}.nc"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main([str(nam), str(files["input"]), str(files[prec]),
+                           "--precision", prec])
+        check(rc == 0, f"parallel: the single-process CLI's exit code {rc}")
+    t0 = time.perf_counter()
+    parallel_phase(dev, counters, (tiles(HEADLINE_TILES), HEADLINE_CONFIG), files)
+    emit(phase="parallel", item="seconds", seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true",
                       help="also time both routes warm and trace the kernel route")
-    profile = args.parse_args(argv).profile
+    args.add_argument("--parallel-only", action="store_true",
+                      help="build, then run the parallel phase alone (no kernels line)")
+    args = args.parse_args(argv)
+    profile = args.profile
     import torch
 
     if not torch.cuda.is_available():
@@ -668,6 +1166,12 @@ def main(argv=None) -> int:
          nvcc_seconds=cuda_build.build_seconds,
          part_seconds={f"{n}:{m or 'main'}": t for (n, m), t in cuda_build.part_seconds.items()},
          ptxas=ptxas)
+    if args.parallel_only:
+        parallel_only(dev, counters)
+        print(card_line(), flush=True)
+        for f in FAILURES:
+            print(f"chip_smoke FAILED: {f}", file=sys.stderr)
+        return 1 if FAILURES else 0
 
     # ---- 2. each kernel against its plain version, 1024 columns x 8 layers
     C2, L2, S2 = 1024, 8, 2
@@ -697,12 +1201,8 @@ def main(argv=None) -> int:
                 del cap
 
     # ---- 3. the slice through run_radsurf at realistic size, SW + LW
-    C_head = 16384
     slices = {
-        "headline": (
-            np.array([3] * C_head + [0] * 512 + [4] * 256 + [5] * 256), 8, 1,
-            dict(n_vegetation_region_urban=1, n_stream_sw_urban=4,
-                 n_stream_lw_urban=4, nsw=1, nlw=1)),
+        "headline": (tiles(HEADLINE_TILES), 8, 1, HEADLINE_CONFIG),
         "rami5_shape": (
             np.array([1] * 1024), 62, 14,
             dict(n_vegetation_region_forest=2, n_stream_sw_forest=4,
@@ -872,8 +1372,7 @@ def main(argv=None) -> int:
 
     # ---- cli: the offline CLI on a seeded input file, two namelists
     CLI_DIR.mkdir(parents=True, exist_ok=True)
-    rep_cli = np.array([3] * 8192 + [1] * 4096 + [2] * 4096 + [0] * 512
-                       + [4] * 256 + [5] * 256)
+    rep_cli = tiles(CLI_TILES)
     input_nc = CLI_DIR / "input.nc"
     write_example_input(input_nc, rep_cli, L=8, S=1, seed=1)
     namelists = {
@@ -953,6 +1452,15 @@ def main(argv=None) -> int:
             del cap
             torch.cuda.empty_cache()
     cli.run_radsurf = run_radsurf
+
+    # ---- parallel: streamed, meshed and multi-process runs
+    t0 = time.perf_counter()
+    parallel_phase(dev, counters, (slices["headline"][0], slices["headline"][3]),
+                   {"input": input_nc, "columns": len(rep_cli),
+                    "namelist": CLI_DIR / "cli_ns4.nam",
+                    "single": CLI_DIR / "cli_ns4_single.nc",
+                    "double": CLI_DIR / "cli_ns4_double.nc"})
+    emit(phase="parallel", item="seconds", seconds=time.perf_counter() - t0)
 
     # ---- demo: the kernel demonstration on the card
     reset_counts()

@@ -4,22 +4,30 @@ Port of spartacus_surface_tpu/driver/main.py (program
 spartacus_surface_driver, driver/spartacus_surface_driver.F90:20-302): the
 same three arguments, namelist handling, benchmark repetition (nrepeat),
 column-range selection, simple longwave spectrum, flux scaling and
-summation, optional conservation check and output writing.  The whole
-column batch is solved on one device: ``--device cuda`` (the default) runs
-the layered tiles on the port's CUDA kernels and fails when CUDA is not
-available; ``--device cpu`` runs their plain PyTorch versions.
+summation, optional conservation check and output writing.  ``--device
+cuda`` (the default) runs the layered tiles on the port's CUDA kernels and
+fails when CUDA is not available; ``--device cpu`` runs their plain PyTorch
+versions.  Where the reference parallelizes over OpenMP column blocks
+(spartacus_surface_driver.F90:199-234), this driver can
+
+* stream the solve over column chunks (``--stream-chunk N``,
+  parallel/streaming.py): the copies to and from the device overlap the
+  solve, and the scaling, summing and budget reductions run on the device
+  per chunk;
+* split each layered tile group over a mesh of devices (``--mesh``,
+  parallel/mesh.py);
+* run as several processes (``--coordinator``, ``--num-processes``,
+  ``--process-id``, parallel/distributed.py), each solving its own
+  contiguous column slice on cuda:{rank % device_count} and writing
+  OUTPUT.pNN; process 0 merges the shards into OUTPUT after a barrier
+  (driver/merge.py).
 
 Precision: double by default to match the reference's jprb;
 ``--precision single`` solves in float32 (the reference's
 -DSINGLE_PRECISION, Makefile:42-44).  The input arrays are read in float64
-and cast to the working precision for the solve.
-
-Not ported yet (ROADMAP A10): device meshes over several GPUs, the streamed
-solve and multi-process runs.  ``--mesh N`` with N > 1, ``--stream-chunk N``
-with N > 0, ``--coordinator``, ``--num-processes``, ``--process-id`` and
-``--keep-shards`` exit nonzero.  The JAX driver's automatic stream chunking
-models a TPU's DMA addressing and x64 memory limits and has no counterpart
-here.
+and cast to the working precision for the solve.  The JAX driver's
+automatic stream chunk models a TPU's DMA addressing and x64 memory limits
+and has no counterpart here: ``--stream-chunk`` defaults to 0.
 """
 
 from __future__ import annotations
@@ -35,13 +43,29 @@ import torch
 from ..models import flux_utils
 from ..models.dispatch import TILE_NAMES, run_radsurf
 from ..models.simple_spectrum import calc_simple_spectrum_lw
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh
+from ..parallel.streaming import stream_columns
 from ..utils import profiling
 from ..utils.config import Config, DriverConfig
+from ..utils.transfer import to_device
+from .merge import merge_shards
 from .read_input import read_input
 from .save import save_canopy_fluxes
 
-_A10 = "ROADMAP A10: multi-device, streaming and multi-process runs are not ported yet"
-_A10_FLAGS = ("--coordinator", "--num-processes", "--process-id", "--keep-shards")
+# (budget table, run_radsurf flux group), in the order the tables print
+BUDGETS = (("sw_dir", "sw_norm_dir"), ("sw_diff", "sw_norm_diff"),
+           ("lw_int", "lw_internal"), ("lw_norm", "lw_norm"))
+BUDGET_HEADERS = {
+    "sw_dir": "Direct shortwave budget: radiation originating"
+              " from direct solar at canopy top",
+    "sw_diff": "Diffuse shortwave budget: radiation originating"
+               " from downward diffuse solar at canopy top",
+    "lw_int": "Internal longwave budget: radiation originating"
+              " from emission within canopy",
+    "lw_norm": "Incoming longwave budget: radiation originating"
+               " from downward longwave at canopy top",
+}
 
 
 def build_argparser():
@@ -82,7 +106,13 @@ def build_argparser():
     )
     p.add_argument(
         "--stream-chunk", type=int, default=0, metavar="N",
-        help=f"Streamed solve over column chunks; only 0 (off) is accepted ({_A10})",
+        help="Stream the solve over column chunks of N: pinned host buffers"
+             " and copy streams overlap the transfers with the solve, the"
+             " scaling and the budget reductions run on the device per chunk,"
+             " and only a few chunks are on the device at once (for inputs"
+             " larger than device memory).  Differs from --column-chunk, which"
+             " keeps every column on the device.  0 (the default) solves in"
+             " one shot.",
     )
     p.add_argument(
         "--netcdf4", action="store_true",
@@ -90,40 +120,67 @@ def build_argparser():
              " backend (default: NetCDF3 classic, as the reference driver)",
     )
     p.add_argument(
-        "--mesh", default="auto", metavar="auto|off|1",
-        help=f"Device mesh over columns; one device only here ({_A10})",
+        "--mesh", default="auto", metavar="auto|off|N",
+        help="Device mesh over columns: 'auto' (the default) splits each"
+             " layered tile group over all visible CUDA devices when more"
+             " than one is visible (one process), 'off' solves on one device,"
+             " an integer N uses the first N CUDA devices (with --device cpu,"
+             " N CPU entries).  The equivalent of the reference's OpenMP"
+             " column blocks (spartacus_surface_driver.F90:199-234).",
+    )
+    p.add_argument(
+        "--coordinator", default=None, metavar="HOST:PORT",
+        help="Address of the process group for multi-process runs (gloo over"
+             " TCP; process 0 listens there).  Each process solves its own"
+             " contiguous column slice and writes OUTPUT.pNN",
+    )
+    p.add_argument(
+        "--num-processes", type=int, default=None, metavar="N",
+        help="Total process count for --coordinator runs",
+    )
+    p.add_argument(
+        "--process-id", type=int, default=None, metavar="I",
+        help="This process's rank (0-based) for --coordinator runs",
+    )
+    p.add_argument(
+        "--keep-shards", action="store_true",
+        help="Multi-process runs: keep the per-process OUTPUT.pNN shards"
+             " after process 0 merges them into the single OUTPUT file",
+    )
+    p.add_argument(
+        "--barrier-timeout", type=int, default=600, metavar="SECONDS",
+        help="Multi-process runs: how long a process waits for its peers to"
+             " join the group and to reach the barrier before the merge",
     )
     return p
 
 
-def _unported_flags(args, unknown: list) -> list:
-    """The flags of this run that need ROADMAP A10: a mesh or a streamed
-    solve, and the multi-process flags of the JAX CLI (left undeclared
-    here, so they arrive among parse_known_args' unknown arguments)."""
-    bad = [a.split("=")[0] for a in unknown if a.split("=")[0] in _A10_FLAGS]
-    if args.mesh not in ("auto", "off", "1"):
-        bad.append(f"--mesh {args.mesh}")
-    if args.stream_chunk:
-        bad.append(f"--stream-chunk {args.stream_chunk}")
-    return bad
+def top_fluxes(config, data: dict, dtype) -> dict:
+    """The top-of-canopy scale factors ("sw_dir", "sw_diff", "lw"), [C, S]
+    host arrays of dtype."""
+    top = {}
+    if config.do_sw:
+        top["sw_dir"] = np.asarray(data["top_flux_dn_direct_sw"], dtype)
+        top["sw_diff"] = np.asarray(data["top_flux_dn_sw"]
+                                    - data["top_flux_dn_direct_sw"], dtype)
+    if config.do_lw:
+        top["lw"] = np.asarray(data["top_flux_dn_lw"], dtype)
+    return top
+
+
+def working_arrays(data: dict, dtype) -> dict:
+    """read_input's arrays (after the simple spectrum) with the float fields
+    cast to the working dtype, host numpy."""
+    return {k: v.astype(dtype) if v.dtype.kind == "f" else v
+            for k, v in data["arrays"].items()}
 
 
 def prepare(config, data: dict, dtype, device):
-    """(solve_arrays, top) for a run at working dtype on device:
-    solve_arrays are read_input's arrays (after the simple spectrum) with
-    the float fields cast to dtype; top holds the top-of-canopy scale
-    factors ("sw_dir", "sw_diff", "lw"), moved to the device once."""
-    solve_arrays = {k: v.astype(dtype) if v.dtype.kind == "f" else v
-                    for k, v in data["arrays"].items()}
-    to_dev = lambda x: torch.as_tensor(np.asarray(x, dtype), device=device)
-    top = {}
-    if config.do_sw:
-        top["sw_dir"] = to_dev(data["top_flux_dn_direct_sw"])
-        top["sw_diff"] = to_dev(data["top_flux_dn_sw"]
-                                - data["top_flux_dn_direct_sw"])
-    if config.do_lw:
-        top["lw"] = to_dev(data["top_flux_dn_lw"])
-    return solve_arrays, top
+    """(working_arrays, top) for a one-shot run at working dtype on device;
+    top holds the top-of-canopy scale factors (top_fluxes), moved to the
+    device once."""
+    top = {k: to_device(v, device) for k, v in top_fluxes(config, data, dtype).items()}
+    return working_arrays(data, dtype), top
 
 
 def scale_and_sum(config, result: dict, top: dict):
@@ -142,15 +199,36 @@ def scale_and_sum(config, result: dict, top: dict):
     return sw_flux, lw_flux
 
 
+def stream_solve(config, data: dict, dtype, device, chunk: int, mesh=None,
+                 want_budgets: bool = True):
+    """The solve streamed over column chunks (parallel/streaming.py), each
+    chunk's post-processing on the device: the normalized fluxes scaled by
+    the top-of-canopy fluxes and summed, and (want_budgets) the budget
+    reduced to per-column components, so that a chunk fetches one summed
+    flux container per band and [C] vectors.
+
+    Returns (sw_flux, lw_flux, budgets), host numpy; budgets maps the
+    BUDGETS tables to budget_with_masks dicts (empty without want_budgets)."""
+    top = top_fluxes(config, data, dtype)
+    inputs = {**working_arrays(data, dtype), **{f"__top_{k}": v for k, v in top.items()}}
+
+    def solve_chunk(a):
+        sc = {k: a.pop(f"__top_{k}") for k in top}
+        res = run_radsurf(config, a, device, mesh=mesh)
+        out = {"budget": {}}
+        out["sw_flux"], out["lw_flux"] = scale_and_sum(config, res, sc)
+        if want_budgets:
+            masks = flux_utils.representation_masks(a["i_representation"], device)
+            out["budget"] = {name: flux_utils.budget_with_masks(res[key], masks)
+                             for name, key in BUDGETS if key in res}
+        return out
+
+    streamed = stream_columns(solve_chunk, inputs, chunk, device=device)
+    return streamed["sw_flux"], streamed["lw_flux"], streamed["budget"]
+
+
 def main(argv=None):
-    parser = build_argparser()
-    args, unknown = parser.parse_known_args(argv)
-    bad = _unported_flags(args, unknown)
-    if bad:
-        print(f"*** Error: {', '.join(bad)}: {_A10}", file=sys.stderr)
-        return 1
-    if unknown:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = build_argparser().parse_args(argv)
     saved = profiling.enabled
     if args.profile or args.timings:
         profiling.enabled = True
@@ -159,17 +237,29 @@ def main(argv=None):
         return _run(args)
     finally:
         profiling.enabled = saved
+        distributed.shutdown()
 
 
 def _run(args) -> int:
     def fail(msg: str) -> int:
+        """Error exit; the process group is torn down, so that peers waiting
+        at the barrier fail fast."""
         print(msg, file=sys.stderr)
+        distributed.shutdown()
         return 1
 
     if args.device == "cuda" and not torch.cuda.is_available():
         return fail("*** Error: --device cuda but torch.cuda.is_available() is"
                     " false; use --device cpu for the plain PyTorch versions")
-    device = torch.device(args.device)
+    # Multi-process bootstrap: the gloo group at --coordinator
+    if args.num_processes is not None and args.num_processes > 1:
+        try:
+            distributed.initialize(args.coordinator, args.num_processes,
+                                   args.process_id, timeout_s=args.barrier_timeout)
+        except (RuntimeError, ValueError) as exc:
+            return fail(f"*** Error joining the process group: {exc}")
+    nproc, pid = distributed.process_count(), distributed.process_index()
+    device = distributed.local_device(args.device)
     dtype = np.float64 if args.precision == "double" else np.float32
     if not os.path.exists(args.namelist):
         return fail(f'*** Error: namelist file "{args.namelist}" not found')
@@ -211,6 +301,46 @@ def _run(args) -> int:
     arrays = data["arrays"]
     ncol = data["ncol"]
 
+    if nproc > ncol:
+        # Every process reads the same input, so all of them take this
+        # error exit (none is left at the barrier with no columns).
+        return fail(f"*** Error: {nproc} processes for only {ncol} input"
+                    " columns; use at most one process per column")
+
+    # Multi-process execution: each process handles its own contiguous
+    # slice of columns end to end (the reference's OpenMP loop has no
+    # inter-column coupling) and writes OUTPUT.pNN.
+    proc_suffix = ""
+    if nproc > 1:
+        hsl = distributed.host_column_slice(ncol)
+        for key, val in list(arrays.items()):
+            arrays[key] = val[hsl]
+        for key in ("top_flux_dn_sw", "top_flux_dn_direct_sw",
+                    "top_flux_dn_lw"):
+            if data[key] is not None:
+                data[key] = data[key][hsl]
+        ncol = hsl.stop - hsl.start
+        proc_suffix = f".p{pid:02d}"
+        log(f"Process {pid}/{nproc}: columns {hsl.start + 1} to {hsl.stop}")
+
+    # Device mesh over the column axis (parallel/mesh.py)
+    mesh = None
+    if args.mesh == "auto":
+        if device.type == "cuda" and nproc == 1 and torch.cuda.device_count() > 1:
+            mesh = make_mesh()
+    elif args.mesh != "off":
+        try:
+            n_mesh = int(args.mesh)
+            if n_mesh < 1:
+                raise ValueError(f"a mesh needs at least one device, not {n_mesh}")
+            mesh = (make_mesh(devices=[device] * n_mesh) if device.type == "cpu"
+                    else make_mesh(n_mesh))
+        except ValueError as exc:
+            return fail(f"*** Error: --mesh {args.mesh}: {exc}")
+    if mesh is not None:
+        log(f"Parallel: sharding columns over {len(mesh)} devices"
+            f" ({', '.join(map(str, mesh))})")
+
     # Column-range selection (spartacus_surface_driver.F90:153-164)
     icol1 = driver_config.istartcol
     icol2 = driver_config.iendcol
@@ -242,39 +372,49 @@ def _run(args) -> int:
             print(f"{jcol:5d}: {TILE_NAMES.get(int(code), '?')},"
                   f" {int(arrays['nlay'][jcol - 1])} layers")
 
-    solve_arrays, top = prepare(config, data, dtype, device)
+    if args.stream_chunk > 0:
+        log(f"Streaming the solve in {args.stream_chunk}-column chunks")
+    else:
+        solve_arrays, top = prepare(config, data, dtype, device)
     sync()
     tstart = time.perf_counter()
     for _ in range(max(1, driver_config.nrepeat)):
         with profiling.hook("radsurf"):
-            result = run_radsurf(config, solve_arrays, device)
-            sw_flux, lw_flux = scale_and_sum(config, result, top)
+            if args.stream_chunk > 0:
+                sw_flux, lw_flux, budgets = stream_solve(
+                    config, data, dtype, device, args.stream_chunk, mesh,
+                    want_budgets=driver_config.do_conservation_check)
+            else:
+                result = run_radsurf(config, solve_arrays, device, mesh=mesh)
+                sw_flux, lw_flux = scale_and_sum(config, result, top)
             sync()
     elapsed = time.perf_counter() - tstart
     log(f"Time elapsed in radiative transfer: {elapsed:g} seconds")
 
     if driver_config.do_conservation_check:
-        headers = {
-            "sw_dir": "Direct shortwave budget: radiation originating"
-                      " from direct solar at canopy top",
-            "sw_diff": "Diffuse shortwave budget: radiation originating"
-                       " from downward diffuse solar at canopy top",
-            "lw_int": "Internal longwave budget: radiation originating"
-                      " from emission within canopy",
-            "lw_norm": "Incoming longwave budget: radiation originating"
-                       " from downward longwave at canopy top",
-        }
-        for name, key in (("sw_dir", "sw_norm_dir"),
-                          ("sw_diff", "sw_norm_diff"),
-                          ("lw_int", "lw_internal"),
-                          ("lw_norm", "lw_norm")):
-            if key in result:
-                print(headers[name])
-                flux_utils.check_flux(result[key], arrays, name)
+        if args.stream_chunk <= 0:  # reduced on the device here
+            budgets = {name: flux_utils.budget_components(
+                result[key], arrays["i_representation"])
+                for name, key in BUDGETS if key in result}
+        for name, _ in BUDGETS:
+            if name in budgets:
+                print(BUDGET_HEADERS[name])
+                flux_utils.print_budget(budgets[name])
 
     with profiling.hook("save"):
-        save_canopy_fluxes(args.output, config, arrays, sw_flux, lw_flux,
-                           iverbose=iverbose, is_hdf5_file=args.netcdf4)
+        save_canopy_fluxes(args.output + proc_suffix, config, arrays, sw_flux,
+                           lw_flux, iverbose=iverbose, is_hdf5_file=args.netcdf4)
+    if nproc > 1:
+        # One output file, always (radsurf_save.F90:26): wait until every
+        # process has written its shard, then process 0 merges them.
+        try:
+            distributed.barrier("spartacus_shards_written", args.barrier_timeout)
+        except RuntimeError as exc:
+            return fail(f"*** Error: not every process wrote its shard: {exc}")
+        if pid == 0:
+            merge_shards(args.output, n_processes=nproc,
+                         delete=not args.keep_shards, is_hdf5_file=args.netcdf4)
+            log(f"Merged {nproc} output shards into {args.output}")
     if args.profile:
         profiling.stop_trace()
     if args.profile or args.timings:

@@ -42,17 +42,20 @@ def _mask_layers(var, nlay):
 
 
 def _to_host(flux):
-    """{name: tensor} -> {name: numpy array}, one device->host copy each."""
+    """{name: tensor or numpy array} -> {name: numpy array}, one
+    device->host copy for each tensor."""
     if flux is None:
         return None
-    return {k: v.detach().cpu().numpy() for k, v in flux.items()}
+    return {k: v if isinstance(v, np.ndarray) else v.detach().cpu().numpy()
+            for k, v in flux.items()}
 
 
 def save_canopy_fluxes(path, config, arrays, flux_sw, flux_lw, iverbose=None,
                        is_hdf5_file=False):
     """Write the output file (cf. save_canopy_fluxes,
     radsurf/radsurf_save.F90:26-166).  flux_sw / flux_lw: the scaled and
-    summed flux dicts of tensors, or None; arrays: the host input arrays."""
+    summed flux dicts of tensors or host arrays, or None; arrays: the host
+    input arrays."""
     flux_sw, flux_lw = _to_host(flux_sw), _to_host(flux_lw)
     nlay = arrays["nlay"]
     ncol = nlay.shape[0]
@@ -387,7 +390,8 @@ def _define_and_write(out, band, long_band, flux, nlay, do_bb, do_spec,
 
     if do_spec:
         def put_spec_lay(name, var):
-            v = np.array(var, np.float64)
+            # truncated to the file's layer dimension, as _mask_layers does
+            v = np.array(var, np.float64)[:, :max(int(nlay.max()), 1)]
             mask = np.arange(v.shape[1])[None, :, None] >= nlay[:, None, None]
             v = np.where(mask, FILL, v)
             out.put(name, v)

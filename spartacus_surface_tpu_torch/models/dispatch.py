@@ -2,9 +2,18 @@
 and scatters its outputs into dense [C, ...] tensors on the device.
 
 Port of spartacus_surface_tpu/models/dispatch.py ``run_radsurf`` /
-``_radsurf_core`` (shortwave and longwave) on one device.
+``_radsurf_core`` (shortwave and longwave).
 Parity: the per-column ``select case (i_representation)`` loop of
 radsurf/radsurf_interface.F90:105-313.
+
+Device meshes: pass ``mesh=`` (a list of devices, parallel/mesh.py) and each
+layered group's columns are split over its entries, each shard solved on its
+own device (``column_chunk`` applying per shard, as under JAX's
+``shard_map``), then gathered on ``device``.  Every shard's work is issued
+before any result is moved, so several cards overlap.  The closed-form flat
+and simple-urban tiles run on ``device`` unsharded, as in JAX.  The shards
+may be unequal, so no group is padded to a device multiple (JAX
+``_pad_group``); the outputs are the same.
 """
 
 from __future__ import annotations
@@ -12,8 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.mesh import column_sharding, tree_map
 from ..utils.config import Config
 from ..utils.convert import torch_dtype
+from ..utils.transfer import to_device
 from . import flat as flat_mod
 from . import simple_urban as su_mod
 from .solver import (CanopyInputs, SolverOptions, debug_dump_sw, spartacus_lw,
@@ -122,7 +133,8 @@ _LW_KEYS = dict(
             "clear_air_planck", "veg_planck", "veg_air_planck"))
 
 
-def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
+def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
+                mesh=None):
     """Run the surface radiation scheme on dense padded arrays.
 
     Args:
@@ -137,6 +149,8 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
         the CUDA kernels.
       route: "kernel" or "scan" for the layered solves (see spartacus_sw,
         spartacus_lw).
+      mesh: optional list of devices (parallel/mesh.make_mesh): the layered
+        groups' columns are split over it, each shard solved on its entry.
 
     Returns {"sw_norm_dir", "sw_norm_diff"} (with do_sw) and {"lw_internal",
     "lw_norm"} (with do_lw) flux dicts, and "bc_out": {"sw_albedo",
@@ -152,13 +166,13 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
     kw = dict(dtype=dz.dtype if isinstance(dz, torch.Tensor)
               else torch_dtype(np.asarray(dz).dtype), device=device)
 
-    def get(key, idx):
-        """The columns idx of arrays[key] on the device: a tensor is indexed
-        there (its autograd graph kept), a numpy array sliced on the host."""
+    def get(key, idx, dev=device):
+        """The columns idx of arrays[key] on dev: a tensor is indexed there
+        (its autograd graph kept), a numpy array sliced on the host."""
         x = arrays[key]
         if isinstance(x, torch.Tensor):
-            return x.to(**kw)[torch.as_tensor(idx, device=device)]
-        return torch.as_tensor(np.ascontiguousarray(np.asarray(x)[idx]), **kw)
+            return x.to(device=dev, dtype=kw["dtype"])[to_device(idx, dev)]
+        return to_device(np.asarray(x)[idx], dev, kw["dtype"])
 
     bc = {}
     out = {"bc_out": bc}
@@ -178,7 +192,7 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
     # ---- flat tiles (radsurf_interface.F90:122-173)
     idx = np.nonzero(rep == TILE_FLAT)[0]
     if idx.size:
-        tidx = torch.as_tensor(idx, device=device)
+        tidx = to_device(idx, device)
         if config.do_sw:
             nd, nf, fbc = flat_mod.flat_sw(get("ground_albedo", idx), get(gdir, idx))
             _scatter(out["sw_norm_dir"], nd, tidx)
@@ -193,30 +207,43 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
             for key in ("lw_emissivity", "lw_emission"):
                 bc[key][tidx] = fbc[key]
 
-    # ---- layered SPARTACUS tiles
+    # ---- layered SPARTACUS tiles: every shard's solves are issued first,
+    # then their results gathered on `device` and scattered
+    solved = []
     for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
         idx = np.nonzero(rep == code)[0]
         if not idx.size:
             continue
-        tidx = torch.as_tensor(idx, device=device)
-        if config.do_sw:
-            keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
-            inp = CanopyInputs(**{f: get(k, idx) for f, k in keys.items()})
-            opt = SolverOptions(nstream=lg_sw.nstream, **opt_kw)
-            debug_dump_sw(inp, opt, lg_sw)  # prints under SPARTACUS_DEBUG_ARRAYS
-            ndir, ndiff, sbc = spartacus_sw(
-                inp, opt, lg_sw, with_profiles=config.do_save_flux_profile,
-                route=route)
-            sun_up = inp.cos_sza > 0.0
+        shards = ([(dev, idx[sl]) for dev, sl in column_sharding(idx.size, mesh)
+                   if sl.stop > sl.start] if mesh else [(device, idx)])
+        for k, (dev, sidx) in enumerate(shards):
+            sw = lw = None
+            if config.do_sw:
+                keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
+                inp = CanopyInputs(**{f: get(key, sidx, dev) for f, key in keys.items()})
+                opt = SolverOptions(nstream=lg_sw.nstream, **opt_kw)
+                if k == 0:  # prints the group's first column under SPARTACUS_DEBUG_ARRAYS
+                    debug_dump_sw(inp, opt, lg_sw)
+                sw = (inp.cos_sza > 0.0, spartacus_sw(
+                    inp, opt, lg_sw, with_profiles=config.do_save_flux_profile,
+                    route=route))
+            if config.do_lw:  # not masked by sun_up
+                inp = CanopyInputs(**{f: get(key, sidx, dev) for f, key in _LW_KEYS.items()})
+                lw = spartacus_lw(
+                    inp, SolverOptions(nstream=lg_lw.nstream, **opt_kw), lg_lw,
+                    with_profiles=config.do_save_flux_profile, route=route)
+            solved.append((sidx, sw, lw))
+    for sidx, sw, lw in solved:
+        tidx = to_device(sidx, device)
+        sw, lw = tree_map(lambda t: t.to(device), (sw, lw))
+        if sw is not None:
+            sun_up, (ndir, ndiff, sbc) = sw
             _scatter(out["sw_norm_dir"], ndir, tidx, sun_up)
             _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up)
             bc["sw_albedo"][tidx] = sbc["top_albedo_diff"]
             bc["sw_albedo_dir"][tidx] = sbc["top_albedo_dir"]
-        if config.do_lw:  # not masked by sun_up
-            inp = CanopyInputs(**{f: get(k, idx) for f, k in _LW_KEYS.items()})
-            lint, lnorm, lbc = spartacus_lw(
-                inp, SolverOptions(nstream=lg_lw.nstream, **opt_kw), lg_lw,
-                with_profiles=config.do_save_flux_profile, route=route)
+        if lw is not None:
+            lint, lnorm, lbc = lw
             _scatter(out["lw_internal"], lint, tidx)
             _scatter(out["lw_norm"], lnorm, tidx)
             bc["lw_emissivity"][tidx] = lbc["top_emissivity"]
@@ -230,8 +257,8 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel"):
                 "simple urban representations must have only one layer")
         lay0 = lambda key: get(key, idx)[:, 0]
         geom = (lay0("dz"), lay0("building_fraction"), lay0("building_scale"))
-        is_inf = torch.as_tensor(rep[idx] == TILE_INFINITE_STREET, device=device)
-        tidx = torch.as_tensor(idx, device=device)
+        is_inf = to_device(rep[idx] == TILE_INFINITE_STREET, device)
+        tidx = to_device(idx, device)
         opts = dict(min_building_fraction=config.min_building_fraction,
                     with_profiles=config.do_save_flux_profile)
         if config.do_sw:

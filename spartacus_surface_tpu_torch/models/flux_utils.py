@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.transfer import to_device
 from .dispatch import (
     _COL_FIELDS,
     _LAY_FIELDS,
@@ -48,23 +49,30 @@ def representation_masks(i_representation, device) -> dict:
              TILE_INFINITE_STREET]
     masks = {"canopy": rep != TILE_FLAT, "urban": np.isin(rep, urban),
              "veg": np.isin(rep, [TILE_FOREST, TILE_VEGETATED_URBAN])}
-    return {k: torch.as_tensor(v, device=device) for k, v in masks.items()}
+    return {k: to_device(v, device) for k, v in masks.items()}
 
 
-def budget_components(flux: dict, i_representation) -> dict:
+def budget_with_masks(flux: dict, masks: dict) -> dict:
     """Per-column energy-budget components ground/air/wall/roof/veg/veg_air/
-    top, [C] tensors (radsurf_canopy_flux.F90:465-500)."""
-    m = representation_masks(i_representation, flux["ground_net"].device)
+    top, [C] tensors, from the tile masks of representation_masks
+    (radsurf_canopy_flux.F90:465-500): reductions on the flux tensors' own
+    device, so only [C] vectors need fetching."""
     lay = lambda key: flux[key].sum((-1, -2))
     return {
         "ground": flux["ground_net"].sum(-1),
         "top": flux["top_net"].sum(-1),
-        "air": lay("clear_air_abs") * m["canopy"],
-        "wall": lay("wall_net") * m["urban"],
-        "roof": lay("roof_net") * m["urban"],
-        "veg": lay("veg_abs") * m["veg"],
-        "veg_air": lay("veg_air_abs") * m["veg"],
+        "air": lay("clear_air_abs") * masks["canopy"],
+        "wall": lay("wall_net") * masks["urban"],
+        "roof": lay("roof_net") * masks["urban"],
+        "veg": lay("veg_abs") * masks["veg"],
+        "veg_air": lay("veg_air_abs") * masks["veg"],
     }
+
+
+def budget_components(flux: dict, i_representation) -> dict:
+    """budget_with_masks with the masks of i_representation."""
+    return budget_with_masks(
+        flux, representation_masks(i_representation, flux["ground_net"].device))
 
 
 def budget_residual(comp: dict):
@@ -75,8 +83,10 @@ def budget_residual(comp: dict):
 
 def print_budget(comp: dict, printer=print, max_table_columns: int = 1000):
     """Print the reference-format budget table (a one-line summary beyond
-    max_table_columns); returns the residual [C] as numpy."""
-    comp = {k: v.detach().cpu().numpy() for k, v in comp.items()}
+    max_table_columns); returns the residual [C] as numpy.  comp holds [C]
+    tensors or host numpy arrays."""
+    comp = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in comp.items()}
     residual = budget_residual(comp)
     ncol = len(residual)
     if ncol > max_table_columns:

@@ -54,6 +54,7 @@ from ..ops.matrix import matmul, matvec, solve
 from ..ops.sweep_kernels import sw_down_sweep_both, sw_out_rows, sw_up_sweep
 from ..utils.constants import Pi
 from ..utils.debug import debug_arrays_enabled, maybe_dump
+from ..utils.transfer import to_device
 from . import gamma as G
 from .geometry import (
     norm_perim_urban,
@@ -320,8 +321,7 @@ def _ground_fluxes(outs, dn_dir_fin, dn_diff_fin, up_fin, with_direct, zcos,
         ground_dn = ground_dn + ground_dn_dir
     outs["ground_dn"] = ground_dn
     outs["ground_net"] = ground_dn - up_fin.sum(-1)
-    tan_over_pi = torch.as_tensor(np.tile(lg.tan_ang, nreg) / Pi,
-                                  dtype=zcos.dtype, device=zcos.device)
+    tan_over_pi = to_device(np.tile(lg.tan_ang, nreg) / Pi, zcos.device, zcos.dtype)
     outs["ground_vertical_diff"] = (dn_diff_fin + up_fin) @ tan_over_pi
     one = torch.ones_like(ground_dn)
     outs["top_dn_dir"] = one if with_direct else torch.zeros_like(one)
@@ -429,7 +429,7 @@ def _sw_adding(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     C, L = inp.dz.shape
     S = inp.air_ext.shape[-1]
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    t = lambda x: to_device(x, dev, dtype)
     mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
     zcos, sin0, geo, facets, _ = front
     assoc = opt.associative_sweeps
@@ -676,7 +676,7 @@ def _sw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     S = inp.air_ext.shape[-1]
     B = C * S
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    hw = torch.as_tensor(lg.hweight, dtype=dtype, device=dev)
+    hw = to_device(lg.hweight, dev, dtype)
 
     front = _sw_front(inp, opt, lg)
     zcos, sin0, geo, facets, (g0, g1, g2, g3) = front
@@ -717,8 +717,8 @@ def _sw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
         torch.stack([_soa_cls(ab_coef), _soa_cls(vb_coef),
                      _soa_cls(facets["wall_albedo"])], dim=1),
     ], dim=1)
-    rmu = torch.as_tensor(1.0 / lg.mu, dtype=dtype, device=dev)
-    rtan = torch.as_tensor(lg.tan_ang, dtype=dtype, device=dev)
+    rmu = to_device(1.0 / lg.mu, dev, dtype)
+    rtan = to_device(lg.tan_ang, dev, dtype)
     outs, fin = sw_down_sweep_both(
         lay["R"], lay["T"], lay["E"], lay["Sdn"], lay["int_dir"],
         lay["int_diff"], lay["int_dir_diff"], stacks, vov, aux, zcos_b, hw,
@@ -859,8 +859,7 @@ def _lw_ground_fluxes(outs, dn_fin, up_fin, with_source, lg, nreg, bc):
     dtype, dev = dn_fin.dtype, dn_fin.device
     outs["ground_dn"] = dn_fin.sum(-1)
     outs["ground_net"] = outs["ground_dn"] - up_fin.sum(-1)
-    tan_over_pi = torch.as_tensor(np.tile(lg.tan_ang, nreg) / Pi, dtype=dtype,
-                                  device=dev)
+    tan_over_pi = to_device(np.tile(lg.tan_ang, nreg) / Pi, dev, dtype)
     outs["ground_vertical_diff"] = (dn_fin + up_fin) @ tan_over_pi
     if with_source:
         outs["top_dn"] = torch.zeros_like(outs["ground_dn"])
@@ -920,7 +919,7 @@ def _lw_adding(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     C, L = inp.dz.shape
     S = inp.air_ext.shape[-1]
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    t = lambda x: to_device(x, dev, dtype)
     mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
     geo, facets, _, em = front
     assoc = opt.associative_sweeps
@@ -1061,7 +1060,7 @@ def _lw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     S = inp.air_ext.shape[-1]
     B = C * S
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+    t = lambda x: to_device(x, dev, dtype)
     hw = t(lg.hweight)
 
     front = _lw_front(inp, opt, lg)

@@ -29,7 +29,8 @@ NC_GLOBAL = -1
 
 # NetCDF external data types
 NC_BYTE, NC_CHAR, NC_SHORT, NC_INT, NC_FLOAT, NC_DOUBLE = 1, 2, 3, 4, 5, 6
-NC_UBYTE, NC_USHORT, NC_UINT, NC_INT64, NC_UINT64 = 7, 8, 9, 10, 11
+NC_UBYTE, NC_USHORT, NC_UINT, NC_INT64, NC_UINT64, NC_STRING = (
+    7, 8, 9, 10, 11, 12)
 
 _DTYPES = {
     NC_BYTE: np.int8, NC_CHAR: np.uint8, NC_SHORT: np.int16,
@@ -102,6 +103,28 @@ class NativeFile:
 
     # ---------------- read ----------------
 
+    def variables(self) -> list[str]:
+        nvars = ctypes.c_int()
+        _check(self._lib.nc_inq_nvars(self._ncid, ctypes.byref(nvars)))
+        names = []
+        buf = ctypes.create_string_buffer(256)
+        for varid in range(nvars.value):
+            _check(self._lib.nc_inq_varname(self._ncid, varid, buf))
+            names.append(buf.value.decode())
+        return names
+
+    def dimensions(self) -> dict[str, int]:
+        ndims = ctypes.c_int()
+        _check(self._lib.nc_inq_ndims(self._ncid, ctypes.byref(ndims)))
+        out = {}
+        buf = ctypes.create_string_buffer(256)
+        size = ctypes.c_size_t()
+        for dimid in range(ndims.value):
+            _check(self._lib.nc_inq_dim(self._ncid, dimid, buf,
+                                        ctypes.byref(size)))
+            out[buf.value.decode()] = size.value
+        return out
+
     def _varid(self, name: str) -> int:
         varid = ctypes.c_int()
         _check(self._lib.nc_inq_varid(self._ncid, name.encode(),
@@ -132,6 +155,61 @@ class NativeFile:
             shape.append(size.value)
             dims.append(buf.value.decode())
         return varid, xtype.value, tuple(shape), tuple(dims)
+
+    def attributes(self, varname: Optional[str] = None) -> dict:
+        """Attributes of a variable (or global when varname is None)."""
+        natts = ctypes.c_int()
+        if varname is None:
+            varid = NC_GLOBAL
+            _check(self._lib.nc_inq_natts(self._ncid, ctypes.byref(natts)))
+        else:
+            varid = self._varid(varname)
+            _check(self._lib.nc_inq_varnatts(self._ncid, varid,
+                                             ctypes.byref(natts)))
+        out = {}
+        buf = ctypes.create_string_buffer(256)
+        for i in range(natts.value):
+            _check(self._lib.nc_inq_attname(self._ncid, varid, i, buf))
+            name = buf.value.decode()
+            xtype = ctypes.c_int()
+            alen = ctypes.c_size_t()
+            _check(self._lib.nc_inq_att(self._ncid, varid, name.encode(),
+                                        ctypes.byref(xtype),
+                                        ctypes.byref(alen)))
+            if xtype.value == NC_CHAR:
+                sbuf = ctypes.create_string_buffer(alen.value + 1)
+                _check(self._lib.nc_get_att_text(
+                    self._ncid, varid, name.encode(), sbuf))
+                out[name] = sbuf.raw[: alen.value].decode(errors="replace")
+            elif xtype.value == NC_STRING:
+                # Variable-length strings: nc_get_att_string fills an
+                # array of library-owned char* (freed via nc_free_string)
+                # — nc_get_att_text on these would return pointer bytes.
+                ptrs = (ctypes.c_char_p * alen.value)()
+                _check(self._lib.nc_get_att_string(
+                    self._ncid, varid, name.encode(), ptrs))
+                vals = [
+                    (p or b"").decode(errors="replace")
+                    for p in ptrs
+                ]
+                self._lib.nc_free_string(alen.value, ptrs)
+                out[name] = vals[0] if alen.value == 1 else vals
+            elif np.issubdtype(_DTYPES.get(xtype.value, np.float64),
+                               np.integer):
+                # Integer-typed attributes keep integer identity so a
+                # merge re-writes them with the same type.
+                arr = np.empty(alen.value, np.int64)
+                _check(self._lib.nc_get_att_longlong(
+                    self._ncid, varid, name.encode(),
+                    arr.ctypes.data_as(ctypes.c_void_p)))
+                out[name] = arr if arr.size > 1 else int(arr[0])
+            else:
+                arr = np.empty(alen.value, np.float64)
+                _check(self._lib.nc_get_att_double(
+                    self._ncid, varid, name.encode(),
+                    arr.ctypes.data_as(ctypes.c_void_p)))
+                out[name] = arr if arr.size > 1 else float(arr[0])
+        return out
 
     def get(self, name: str, dtype=np.float64) -> np.ndarray:
         varid, xtype, shape, _ = self.var_info(name)

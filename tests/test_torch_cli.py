@@ -21,8 +21,11 @@ SimpleUrban, InfiniteStreet) by 3 layers.  Held to the JAX package:
 * the kernel demo: the same printed matrices, operators at 1e-12, the
   Schur self-check passed.
 
-Also: the refusals (``--device cuda`` without CUDA, the multi-device flags
-of ROADMAP A10), column range and nrepeat, single precision, --profile.
+Also: the refusals (``--device cuda`` without CUDA, a CUDA mesh wider than
+the visible cards), column range and nrepeat, single precision, --profile.
+The streamed, meshed and multi-process runs are held in
+tests/test_torch_streaming.py, test_torch_parallel.py and
+test_torch_multiprocess.py.
 """
 
 import contextlib
@@ -387,21 +390,23 @@ def test_cuda_device_is_refused_without_cuda(files, tmp_path):
     assert not (tmp_path / "o.nc").exists()
 
 
-@pytest.mark.parametrize("flags", [
-    ("--mesh", "2"), ("--stream-chunk", "64"), ("--coordinator", "localhost:1234"),
-    ("--num-processes", "2"), ("--process-id", "1"), ("--keep-shards",)])
-def test_multi_device_flags_are_refused(files, tmp_path, flags):
-    rc, _, err = run_port(files["ns4"], files["input"], tmp_path / "o.nc",
-                          "--device", "cpu", *flags)
-    assert rc != 0 and "ROADMAP A10" in err and flags[0] in err
-    assert not (tmp_path / "o.nc").exists()
-
-
 def test_one_device_mesh_values_are_accepted(files, tmp_path):
     for mesh in ("off", "1"):
         rc, _, err = run_port(files["ns1"], files["input"], tmp_path / "o.nc",
                               "--device", "cpu", "--mesh", mesh, "--stream-chunk", "0")
         assert rc == 0, err
+
+
+def test_cuda_mesh_wider_than_the_cards_is_refused(files, tmp_path):
+    """--mesh 2 --device cuda exits nonzero where fewer than 2 cards are
+    visible (without CUDA: the device refusal; with one card: make_mesh's)."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two cards are visible: the mesh would run")
+    rc, _, err = run_port(files["ns1"], files["input"], tmp_path / "o.nc",
+                          "--device", "cuda", "--mesh", "2")
+    assert rc != 0 and ("is_available() is false" in err
+                        or "2-device mesh but only" in err), err
+    assert not (tmp_path / "o.nc").exists()
 
 
 # ----------------------------------------------------------------------

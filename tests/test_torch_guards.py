@@ -34,10 +34,14 @@ import spartacus_surface_tpu_torch.ops.cuda_build as cb
 import spartacus_surface_tpu_torch.utils.convert
 import spartacus_surface_tpu_torch.driver.duplicate_profiles
 import spartacus_surface_tpu_torch.driver.main
+import spartacus_surface_tpu_torch.driver.merge
 import spartacus_surface_tpu_torch.driver.test_kernels
 import spartacus_surface_tpu_torch.examples.retrieval
 import spartacus_surface_tpu_torch.ops.assoc_adding
 import spartacus_surface_tpu_torch.ops.probe_kernels
+import spartacus_surface_tpu_torch.parallel.distributed
+import spartacus_surface_tpu_torch.parallel.mesh
+import spartacus_surface_tpu_torch.parallel.streaming
 import spartacus_surface_tpu_torch.tools.roofline
 from spartacus_surface_tpu_torch.utils.config import Config
 from spartacus_surface_tpu_torch.utils.inputs import example_arrays
@@ -53,7 +57,8 @@ print("clean")
 
 
 def test_port_imports_no_jax_and_needs_no_nvcc(tmp_path):
-    """Import every module (the CLI's and the roofline tool's too) and run run_radsurf on the CPU
+    """Import every module (the CLI's, the merge's, parallel/'s and the
+    roofline tool's too) and run run_radsurf on the CPU
     with no nvcc on PATH: no JAX (nor JAX-package) module is loaded and
     nothing is built."""
     bin_dir = tmp_path / "bin"
