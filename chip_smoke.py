@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # build, check, run the paths
     python3 chip_smoke.py --profile    # ... then time and trace the slice
     python3 chip_smoke.py --parallel-only   # build, then the parallel phase alone
+    python3 chip_smoke.py --auto-only   # build, then the auto and corners phases
 
 Phases, one JSON line each (failures make the script exit nonzero before the
 final line):
@@ -74,8 +75,7 @@ final line):
          are printed); one shot's warm wall (median of 3, its outputs
          fetched to the host as the stream's are) and columns/s.
        stream_scale: the headline's mix repeated 64 times (1,114,112
-         columns: 17 chunks; in float64 beyond one shot's memory on an
-         80 GB card), float32 and float64: finite outputs of the expected
+         columns: 17 chunks), float32 and float64: finite outputs of the expected
          shape, the budgets of every column, the peak device memory of the
          run (<= 3 x that of one one-shot call on the first 65,536 columns),
          the warm wall (float32 median of 3, float64 one warm run) and
@@ -95,6 +95,58 @@ final line):
          then merged again by `python -m
          spartacus_surface_tpu_torch.driver.merge` to the same file), each
          process's K1-K5 launches, its wall and its radsurf line.
+  auto - the automatic chunks (column_chunk = -1, the CLI's automatic
+     --stream-chunk), sized from the card by the working-set model
+     (utils/device_memory.py, dispatch.working_set_bytes), every line with
+     the card's name and power limit:
+       model: the model's one-shot prediction against the measured
+         max_memory_allocated of one warm kernel-route run_radsurf call
+         (column_chunk 0; above what was allocated before it) at the
+         headline, rami5_shape and rami5_ns1, float32 and float64: each
+         measured / predicted within AUTO_RATIO.
+       sweep: warm walls (median, min, max of 5) and peaks of the kernel
+         route at the AUTO_SWEEP column chunks, float32 and float64, and
+         whether a chunk beats the whole batch by more than both walls'
+         spread (printed, not held: it decides whether AUTO gets a
+         throughput target).
+       auto_equal: column_chunk -1 against 0 at the headline, at
+         stream_equal's bars, with the chunks AUTO picked.
+       squeeze: a ballast tensor leaves a budget (device_budget) of
+         AUTO_SQUEEZE of the model's one-shot prediction for the cli phase's
+         input (cli_ns4, float64), the allocator's reserve growth of each
+         run printed; then driver.main.main with no
+         --stream-chunk: exit code 0, the automatic stream line in its log,
+         its peak less the ballast within the budget, the output file equal
+         to the cli phase's double file (every variable rtol / atol 1e-12),
+         K1-K5 launched; then run_radsurf(column_chunk=-1) on the headline
+         in float64: every chunk picked > 0, the peak less the ballast within
+         the budget, equal to the unsqueezed call at auto_equal's bar, K1-K5
+         launched.  With the ballast freed, both paths run again at the
+         chunks picked under it, every kernel call captured and held
+         against its plain version at the phase-2 bars.
+       production: stream_scale's 1,114,112 columns in float64 on the free
+         card: the CLI's automatic stream chunk for them (printed), and one
+         run_radsurf call at column_chunk -1: finite, K1-K5 launched, its
+         peak against the model's prediction within AUTO_RATIO.
+  corners - utils/inputs.corner_grid (the JAX package's fuzz corner values
+     as 500 columns x 2 layers of 5 m) through spartacus_sw and
+     spartacus_lw, kernel route against scan route, float32 and float64,
+     for CORNER_CONFIGS (nreg 3 urban, 2 urban, 2 forest, 1); the kernels
+     of the path launched.  Budget-only columns: those the scan route
+     cannot resolve in float32 (its float32 answer departs from its float64
+     one by more than phase 3's float32 bar) and those whose layer factory
+     takes CORNER_MAX_DOUBLINGS doubling steps or more (low sun through
+     thick layers: rounding grows 2x a step).  On every other column the
+     per-column field-normalized error is held to phase 3's bars: in
+     float64 the kernel route against the scan route, in float32 the
+     kernel route's distance from the float64 scan route less the float32
+     scan route's own.  Budgets, every column: the kernel route's residual
+     within phase 3's bar wherever the scan route's is within half of it,
+     and in float64 within the bar of the scan route's everywhere (both
+     leak where a region sits at or below its minimum fraction, as the JAX
+     package does).  Each kernel's captured calls against their plain
+     versions are printed, not held: the budget-only elements' doubling
+     steps amplify rounding past the phase-2 bars.
   demo - driver.test_kernels.main(["all", "--device", "cuda"]): the
      1-stream, 2-region SW operators on K1d and the LW ones on K1; exit code
      0 (its Schur-vs-brute-force self-check at 1e-10 in f64), K1d and K1
@@ -328,6 +380,17 @@ print("LAUNCHES " + json.dumps({
     "K1 LW mode": LK.lw_layer_factory.launches}), flush=True)
 sys.exit(rc)
 """
+# auto phase: the working-set model's bounds on measured / predicted peak,
+# the column chunks of the sweep, the ballast's target budget as a share of
+# the cli_ns4 float64 input's one-shot prediction; corners: the grid's
+# (nreg, nstream, urban) configurations
+AUTO_RATIO = (0.67, 1.10)
+AUTO_SWEEP = {"headline": (0, 2048, 8192), "rami5_shape": (0, 256, 512)}
+AUTO_SQUEEZE = 0.5
+CORNER_CONFIGS = ((3, 4, True), (2, 4, True), (2, 4, False), (1, 4, True))
+# corner columns whose layer factory takes this many doubling steps or more
+# (tools.roofline.doubling_steps) are held to their budgets only
+CORNER_MAX_DOUBLINGS = 16
 FAILURES = []
 
 
@@ -877,7 +940,7 @@ def parallel_phase(dev, counters, headline, cli_files):
         del arrays
         torch.cuda.empty_cache()
 
-    # ---- stream_scale: 64 x the headline, beyond one shot's memory in f64
+    # ---- stream_scale: 64 x the headline
     rep = np.tile(rep_head, PAR_REPEATS["stream_scale"])
     for dname, np_dt in dtypes.items():
         f32, tag = dname == "float32", f"stream_scale {dname}"
@@ -1030,9 +1093,27 @@ def tiles(spec):
     return np.concatenate([np.full(n, code) for code, n in spec])
 
 
-def parallel_only(dev, counters):
-    """The parallel phase alone: the cli phase's input, cli_ns4 namelist and
-    single-process files (written here, unchecked), then parallel_phase."""
+def slice_shapes():
+    """{run: (tile codes, layers, bands, Config kwargs)} of phase 3."""
+    import numpy as np
+
+    return {
+        "headline": (tiles(HEADLINE_TILES), 8, 1, HEADLINE_CONFIG),
+        "rami5_shape": (
+            np.array([1] * 1024), 62, 14,
+            dict(n_vegetation_region_forest=2, n_stream_sw_forest=4,
+                 n_stream_lw_forest=4, nsw=14, nlw=14)),
+        "rami5_ns1": (
+            np.array([1] * 1024), 62, 14,
+            dict(n_vegetation_region_forest=2, n_stream_sw_forest=1,
+                 n_stream_lw_forest=1, nsw=14, nlw=14)),
+    }
+
+
+def cli_files_unchecked():
+    """The cli phase's input, cli_ns4 namelist and single-process output
+    files at both precisions, written here without the cli phase's checks
+    (--parallel-only, --auto-only): the cli_files of parallel_phase."""
     import contextlib
 
     from spartacus_surface_tpu_torch.driver import main as cli
@@ -1047,11 +1128,407 @@ def parallel_only(dev, counters):
         files[prec] = CLI_DIR / f"cli_ns4_{prec}.nc"
         with contextlib.redirect_stdout(io.StringIO()):
             rc = cli.main([str(nam), str(files["input"]), str(files[prec]),
-                           "--precision", prec])
-        check(rc == 0, f"parallel: the single-process CLI's exit code {rc}")
+                           "--precision", prec, "--stream-chunk", "0"])
+        check(rc == 0, f"the single-process CLI's exit code {rc}")
+    return files
+
+
+def parallel_only(dev, counters):
+    """The parallel phase alone: cli_files_unchecked, then parallel_phase."""
+    files = cli_files_unchecked()
     t0 = time.perf_counter()
     parallel_phase(dev, counters, (tiles(HEADLINE_TILES), HEADLINE_CONFIG), files)
     emit(phase="parallel", item="seconds", seconds=time.perf_counter() - t0)
+
+
+def auto_phase(dev, counters, slices, cli_files):
+    """The auto phase: model, sweep, auto_equal, squeeze (see the module
+    docstring).  slices: slice_shapes(); cli_files: as for parallel_phase."""
+    import numpy as np
+    import torch
+
+    from spartacus_surface_tpu_torch.driver import main as cli
+    from spartacus_surface_tpu_torch.models import dispatch, solver
+    from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+    from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
+    from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+    from spartacus_surface_tpu_torch.utils.config import Config
+    from spartacus_surface_tpu_torch.utils.device_memory import (
+        BUDGET_RESERVE, BUDGET_SHARE, device_budget)
+    from spartacus_surface_tpu_torch.utils.inputs import example_arrays
+
+    card = card_line()
+    GiB = 2**30
+    dtypes = {"float32": np.float32, "float64": np.float64}
+    groups = ("sw_norm_dir", "sw_norm_diff", "lw_internal", "lw_norm", "bc_out")
+
+    def reset():
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
+
+    def counts():
+        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+
+    def launched(c, tag):
+        check(all(c[k] > 0 for k in PATH_4), f"{tag}: a kernel of the path was not launched {c}")
+
+    def arrays_of(sname, dname):
+        rep, L, S, _ = slices[sname]
+        return example_arrays(C=len(rep), L=L, S=S, dtype=dtypes[dname], i_representation=rep)
+
+    def config_of(sname, chunk):
+        return Config(do_lw=True, column_chunk=chunk, **slices[sname][3]).consolidate()
+
+    def host(out):
+        return [v.cpu() for g in groups for _, v in sorted(out[g].items())]
+
+    def peak_of(fn):
+        """(fn(), the peak bytes allocated during it above those before)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def walls(fn, reps=5):
+        """Warm host seconds of reps calls (after one), each synchronized."""
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    class Picks:
+        """The column chunks _resolve_column_chunk returns while on."""
+
+        def __enter__(self):
+            self.fn, self.chunks = solver._resolve_column_chunk, []
+
+            def rec(*a, **k):
+                self.chunks.append(self.fn(*a, **k))
+                return self.chunks[-1]
+            solver._resolve_column_chunk = rec
+            return self
+
+        def __exit__(self, *exc):
+            solver._resolve_column_chunk = self.fn
+
+    # ---- model: predicted against measured one-shot peaks
+    for sname in slices:
+        for dname, np_dt in dtypes.items():
+            arrays, config = arrays_of(sname, dname), config_of(sname, 0)
+            dispatch.run_radsurf(config, arrays, dev)  # warm: workspaces, caches
+            torch.cuda.empty_cache()
+            peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))[1]
+            rep, L = slices[sname][0], slices[sname][1]
+            predicted = dispatch.working_set_bytes(config, rep, L, np.dtype(np_dt).itemsize)
+            ratio = peak / predicted
+            check(AUTO_RATIO[0] <= ratio <= AUTO_RATIO[1],
+                  f"auto model {sname} {dname}: measured / predicted {ratio:.3f}")
+            emit(phase="auto", item="model", run=sname, dtype=dname,
+                 predicted_gib=predicted / GiB, measured_gib=peak / GiB, ratio=ratio,
+                 bounds=AUTO_RATIO, card=card)
+            del arrays
+            torch.cuda.empty_cache()
+
+    # ---- sweep: warm walls and peaks of the kernel route by column chunk
+    for sname, chunks in AUTO_SWEEP.items():
+        for dname in dtypes:
+            arrays, rows = arrays_of(sname, dname), {}
+            for ck in chunks:
+                config = config_of(sname, ck)
+                w = walls(lambda: dispatch.run_radsurf(config, arrays, dev))
+                peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))[1]
+                rows[ck] = dict(median_s=statistics.median(w), min_s=min(w), max_s=max(w),
+                                spread_s=max(w) - min(w), peak_gib=peak / GiB)
+            whole = rows[0]
+            beats = {ck: whole["median_s"] - r["median_s"] > max(whole["spread_s"], r["spread_s"])
+                     for ck, r in rows.items() if ck}
+            emit(phase="auto", item="sweep", run=sname, dtype=dname, walls=rows,
+                 chunk_beats_whole_batch=beats, card=card)
+            del arrays
+            torch.cuda.empty_cache()
+
+    # ---- auto_equal: column_chunk -1 against 0 at the headline
+    unsqueezed = {}
+    for dname in dtypes:
+        arrays = arrays_of("headline", dname)
+        with Picks() as picks:
+            got = host(dispatch.run_radsurf(config_of("headline", -1), arrays, dev))
+        ref = host(dispatch.run_radsurf(config_of("headline", 0), arrays, dev))
+        err = field_err(ref, got)
+        check(err <= PAR_TOL[dname], f"auto_equal {dname}: -1 vs 0 {err:.3e}")
+        emit(phase="auto", item="auto_equal", run="headline", dtype=dname,
+             field_normalized_err=err, tol=PAR_TOL[dname], chunks_picked=picks.chunks,
+             card=card)
+        unsqueezed[dname] = ref
+        del arrays, got
+    torch.cuda.empty_cache()
+
+    # ---- squeeze: a ballast leaves about AUTO_SQUEEZE of the cli_ns4
+    # float64 input's one-shot prediction; the CLI with no --stream-chunk,
+    # then run_radsurf(column_chunk=-1) at the headline in float64
+    nam = cli_files["namelist"]
+    cfg_cli = Config.from_namelist(nam).consolidate()
+    predicted_cli = dispatch.working_set_bytes(cfg_cli, tiles(CLI_TILES), 8, 8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    device_gib = dict(total=total / GiB, free=free / GiB, cached=cached / GiB,
+                      outside_pytorch=(total - free - torch.cuda.memory_reserved(dev)) / GiB)
+    ballast = torch.empty(
+        int(free + cached - (AUTO_SQUEEZE * predicted_cli + BUDGET_RESERVE) / BUDGET_SHARE),
+        dtype=torch.uint8, device=dev)
+    held = torch.cuda.memory_allocated()  # the ballast and whatever else is live
+
+    def squeezed(fn):
+        """(fn(), the budget before it, its peak less `held`); the growth of
+        the allocator's reserve is kept in `reserved`."""
+        budget = device_budget(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_reserved()
+        out = fn()
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.max_memory_reserved() - before)
+        return out, budget, torch.cuda.max_memory_allocated() - held
+
+    reserved = []
+
+    out_nc = Path(cli_files["input"]).parent / "auto_squeeze_double.nc"
+    argv = [str(nam), str(cli_files["input"]), str(out_nc), "--precision", "double"]
+    stdout = io.StringIO()
+    reset()
+    with contextlib.redirect_stdout(stdout):
+        rc, budget, peak = squeezed(lambda: cli.main(argv))
+    c = counts()
+    line = next((ln for ln in stdout.getvalue().splitlines()
+                 if ln.endswith("-column chunks (host pipeline; see --stream-chunk)")), None)
+    stream_chunk = int(line.split()[4].split("-")[0]) if line else None
+    ref, got = nc_vars(cli_files["double"]), nc_vars(out_nc) if out_nc.exists() else {}
+    same = set(ref) == set(got) and all(
+        ref[k].shape == got[k].shape and np.allclose(got[k], ref[k], rtol=1e-12, atol=1e-12)
+        for k in ref)
+    check(rc == 0, f"auto squeeze cli: exit code {rc}")
+    check(line is not None, "auto squeeze cli: no automatic stream line in the log")
+    check(peak <= budget, f"auto squeeze cli: peak {peak / GiB:.3f} over the budget"
+          f" {budget / GiB:.3f} GiB")
+    check(same, "auto squeeze cli: the file differs from the cli phase's double file")
+    launched(c, "auto squeeze cli")
+    emit(phase="auto", item="squeeze_cli", exit_code=rc, stream_line=line,
+         stream_chunk=stream_chunk, budget_gib=budget / GiB,
+         one_shot_predicted_gib=predicted_cli / GiB, peak_less_ballast_gib=peak / GiB,
+         reserve_growth_gib=reserved[-1] / GiB, before_ballast_gib=device_gib,
+         ballast_gib=ballast.numel() / GiB, same_file_1e12=same, launches=c,
+         max_abs_diff=max((float(np.abs(got[k] - ref[k]).max()) for k in ref
+                           if k in got and got[k].shape == ref[k].shape), default=None),
+         card=card)
+
+    arrays = arrays_of("headline", "float64")
+    reset()
+    with Picks() as picks:
+        out, budget, peak = squeezed(
+            lambda: host(dispatch.run_radsurf(config_of("headline", -1), arrays, dev)))
+    c = counts()
+    err = field_err(unsqueezed["float64"], out)
+    check(picks.chunks and all(ck > 0 for ck in picks.chunks),
+          f"auto squeeze run_radsurf: chunks {picks.chunks}")
+    check(peak <= budget, f"auto squeeze run_radsurf: peak {peak / GiB:.3f} over the"
+          f" budget {budget / GiB:.3f} GiB")
+    check(err <= PAR_TOL["float64"], f"auto squeeze run_radsurf: vs unsqueezed {err:.3e}")
+    launched(c, "auto squeeze run_radsurf")
+    emit(phase="auto", item="squeeze_run_radsurf", run="headline", dtype="float64",
+         chunks_picked=picks.chunks, budget_gib=budget / GiB, peak_less_ballast_gib=peak / GiB,
+         reserve_growth_gib=reserved[-1] / GiB,
+         field_normalized_err=err, tol=PAR_TOL["float64"], launches=c, card=card)
+    del ballast, out
+    torch.cuda.empty_cache()
+
+    # ---- the squeezed paths' kernel calls against their plain versions
+    # (captured in reruns without the ballast, with the chunks picked
+    # under it: a capture keeps every operand alive)
+    kernel_errs = {}
+    with Capture(solver) as cap:
+        dispatch.run_radsurf(config_of("headline", picks.chunks[0]), arrays, dev)
+    kernel_errs["run_radsurf"] = compare_kernels(cap.calls, torch.float64, LK, SK, LSK)
+    del cap
+    if stream_chunk:
+        with Capture(solver) as cap, contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv[:2] + [str(out_nc) + ".capture", "--precision", "double",
+                                 "--stream-chunk", str(stream_chunk)])
+        kernel_errs["cli"] = compare_kernels(cap.calls, torch.float64, LK, SK, LSK)
+        del cap
+    for tag, res in kernel_errs.items():
+        for kern, (e, ok) in zip(KERNELS, res):
+            check(ok is not False, f"auto squeeze {tag}: {kern[0]} vs plain {e}")
+    emit(phase="auto", item="squeeze_kernels_vs_plain",
+         max_abs_err={t: [e for e, _ in r] for t, r in kernel_errs.items()},
+         passed={t: [ok for _, ok in r] for t, r in kernel_errs.items()}, card=card)
+    del arrays
+    torch.cuda.empty_cache()
+
+    # ---- production: the headline's mix x 64 (stream_scale's 1,114,112
+    # columns) in float64 on the free card: the CLI's automatic stream
+    # chunk, and one run_radsurf call at column_chunk -1 against the model
+    rep = np.tile(slices["headline"][0], PAR_REPEATS["stream_scale"])
+    arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np.float64, i_representation=rep)
+    config = config_of("headline", -1)
+    budget = device_budget(dev)
+    chunk = cli.auto_stream_chunk(config, arrays, len(rep), 1, budget)
+    predicted = dispatch.working_set_bytes(config, rep, 8, 8)
+    reset()
+    with Picks() as picks:
+        t0 = time.perf_counter()
+        out, peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))
+        seconds = time.perf_counter() - t0
+    c = counts()
+    finite = all(bool(torch.isfinite(v).all()) for g in groups for v in out[g].values())
+    del out
+    check(finite, "auto production: non-finite output")
+    check(AUTO_RATIO[0] <= peak / predicted <= AUTO_RATIO[1],
+          f"auto production: measured / predicted {peak / predicted:.3f}")
+    launched(c, "auto production")
+    emit(phase="auto", item="production", columns=len(rep), dtype="float64",
+         budget_gib=budget / GiB, auto_stream_chunk=chunk, chunks_picked=picks.chunks,
+         predicted_gib=predicted / GiB, measured_gib=peak / GiB, ratio=peak / predicted,
+         seconds_first=seconds, finite=finite, launches=c, card=card)
+    del arrays
+    torch.cuda.empty_cache()
+
+
+def corners_phase(dev, counters):
+    """The corners phase: the kernel route against the scan route on
+    utils/inputs.corner_grid (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from spartacus_surface_tpu_torch.models import solver
+    from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+    from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
+    from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+    from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
+    from spartacus_surface_tpu_torch.tools import roofline as RL
+    from spartacus_surface_tpu_torch.utils.inputs import corner_grid
+
+    card = card_line()
+    fields, _ = corner_grid()
+    scale = max(1.0, float(fields["ground_emission"].max()), float(fields["wall_emission"].max()))
+    dtypes = {"float32": torch.float32, "float64": torch.float64}
+
+    def solve(dt, lw, route, nreg, ns, urban):
+        x = {k: torch.as_tensor(v, dtype=dt, device=dev) for k, v in fields.items()}
+        if lw:
+            x["air_ssa"] = torch.zeros_like(x["air_ssa"])
+        f = solver.spartacus_lw if lw else solver.spartacus_sw
+        return f(solver.CanopyInputs(**x), solver.SolverOptions(
+            nreg=nreg, nstream=ns, do_urban=urban), LegendreGauss(ns), route=route)
+
+    def column_err(ref, got):
+        """Per column, the worst field-normalized error (phase 3's metric,
+        each field's scale over all columns); inf where got is not finite."""
+        worst = 0.0
+        for rd, gd in zip(ref, got):
+            for k in rd:
+                r, g = rd[k].double(), gd[k].double()
+                col = (g - r).abs().reshape(len(r), -1).amax(1) / max(1.0, r.abs().max().item())
+                worst = torch.maximum(torch.as_tensor(worst, device=dev),
+                                      col.nan_to_num(nan=math.inf))
+        return worst
+
+    def residual(out):
+        """Per column: absorbed + net out - net in (tests/
+        test_solver_conservation.py residual_sw)."""
+        r = out["ground_net"].sum(-1) - out["top_net"].sum(-1)
+        for k in ("clear_air_abs", "veg_abs", "veg_air_abs", "wall_net", "roof_net"):
+            if k in out:
+                r = r + out[k].sum((-1, -2))
+        return r.double()
+
+    for nreg, ns, urban in CORNER_CONFIGS:
+        for lw in (False, True):
+            bar32 = 2.5e-3 if lw else 3e-4
+            scans = {d: solve(dt, lw, "scan", nreg, ns, urban) for d, dt in dtypes.items()}
+            truth = scans["float64"]
+            # budget-only: the columns the plain route cannot resolve in
+            # float32, and those whose factory doubles CORNER_MAX_DOUBLINGS
+            # times or more (rounding grows 2x a step; set below)
+            unresolved = column_err(truth, scans["float32"]) > bar32
+            budget_only = unresolved
+            for dname in ("float64", "float32"):
+                dt = dtypes[dname]
+                f32 = dt == torch.float32
+                tag = (f"corners nreg={nreg} ns={ns} {'urban' if urban else 'forest'}"
+                       f" {dname} {'LW' if lw else 'SW'}")
+                for w, attr in counters.values():
+                    setattr(w, attr, 0)
+                with Capture(solver) as cap:
+                    got = solve(dt, lw, "kernel", nreg, ns, urban)
+                torch.cuda.synchronize()
+                c = {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+                ref = scans[dname]
+                if not f32:  # each column's most doubling steps, float64 operands
+                    factory = "lw_layer_factory" if lw else "layer_factory"
+                    a, k, _ = cap.calls[factory][0]
+                    doublings = RL.doubling_steps(factory, *a, **k).amax(0)
+                    budget_only = unresolved | (doublings >= CORNER_MAX_DOUBLINGS)
+                # float32: the kernel route within the bar of the plain
+                # route's own distance from float64 (a column's float32 answer
+                # is rounding noise where the plain route's is); float64: within
+                # the bar of the plain route
+                err = column_err(truth, got) - (column_err(truth, ref) if f32 else 0.0)
+                bar = bar32 if f32 else 1e-9
+                held = err[~budget_only].max().item()
+                worst = {}
+                for k, (rd, gd) in enumerate(zip(ref[:2], got[:2])):
+                    s = scale if lw and k == 0 else 1.0
+                    b = (1e-4 if f32 else (1e-9 if lw else 1e-10)) * s
+                    rs, rk = residual(rd), residual(gd)
+                    clear = rs.abs() <= b / 2  # closed in the scan route, with margin
+                    worst[k] = dict(
+                        kernel_vs_scan=(rk - rs).nan_to_num(nan=math.inf).abs().max().item(),
+                        where_scan_closes=(rk[clear].nan_to_num(nan=math.inf).abs().max().item()
+                                           if clear.any() else 0.0),
+                        scan_open_columns=int((~clear).sum()))
+                    # float32: a leaking column's leak is rounding noise in
+                    # both routes (at most 9 of 500 columns), so only the
+                    # closure is held there
+                    check((f32 or worst[k]["kernel_vs_scan"] <= b)
+                          and worst[k]["where_scan_closes"] <= b,
+                          f"{tag}: budget residuals {worst[k]} (bar {b:.1e})")
+                # printed, not held: the budget-only elements' doubling steps
+                # amplify rounding past the phase-2 bars (ROADMAP.md Queue C)
+                res = compare_kernels(cap.calls, dt, LK, SK, LSK)
+                del cap
+                path = ("K1 LW mode", "K4", "K5") if lw else ("K1", "K2", "K3")
+                check(all(c[k] > 0 for k in path), f"{tag}: launches {c}")
+                check(held <= bar, f"{tag}: kernel vs scan route {held:.3e}")
+                emit(phase="corners", nreg=nreg, nstream=ns, urban=urban, dtype=dname,
+                     band="LW" if lw else "SW", columns=len(fields["cos_sza"]),
+                     budget_only_columns=int(budget_only.sum()),
+                     f32_unresolved_columns=int(unresolved.sum()),
+                     doubling_steps_max=int(doublings.max()),
+                     field_normalized_err=held, tol=bar,
+                     field_normalized_err_budget_only=err[budget_only].max().item()
+                     if budget_only.any() else None,
+                     budget_residuals=list(worst.values()),
+                     launches={k: c[k] for k in path},
+                     kernel_vs_plain_max_abs_err=[e for e, _ in res], card=card)
+            del scans
+
+
+def auto_only(dev, counters):
+    """The auto and corners phases alone: cli_files_unchecked, then both."""
+    files = cli_files_unchecked()
+    t0 = time.perf_counter()
+    auto_phase(dev, counters, slice_shapes(), files)
+    corners_phase(dev, counters)
+    emit(phase="auto", item="seconds", seconds=time.perf_counter() - t0)
 
 
 def main(argv=None) -> int:
@@ -1060,6 +1537,8 @@ def main(argv=None) -> int:
                       help="also time both routes warm and trace the kernel route")
     args.add_argument("--parallel-only", action="store_true",
                       help="build, then run the parallel phase alone (no kernels line)")
+    args.add_argument("--auto-only", action="store_true",
+                      help="build, then run the auto and corners phases alone (no kernels line)")
     args = args.parse_args(argv)
     profile = args.profile
     import torch
@@ -1166,8 +1645,8 @@ def main(argv=None) -> int:
          nvcc_seconds=cuda_build.build_seconds,
          part_seconds={f"{n}:{m or 'main'}": t for (n, m), t in cuda_build.part_seconds.items()},
          ptxas=ptxas)
-    if args.parallel_only:
-        parallel_only(dev, counters)
+    if args.parallel_only or args.auto_only:
+        (parallel_only if args.parallel_only else auto_only)(dev, counters)
         print(card_line(), flush=True)
         for f in FAILURES:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
@@ -1201,17 +1680,7 @@ def main(argv=None) -> int:
                 del cap
 
     # ---- 3. the slice through run_radsurf at realistic size, SW + LW
-    slices = {
-        "headline": (tiles(HEADLINE_TILES), 8, 1, HEADLINE_CONFIG),
-        "rami5_shape": (
-            np.array([1] * 1024), 62, 14,
-            dict(n_vegetation_region_forest=2, n_stream_sw_forest=4,
-                 n_stream_lw_forest=4, nsw=14, nlw=14)),
-        "rami5_ns1": (
-            np.array([1] * 1024), 62, 14,
-            dict(n_vegetation_region_forest=2, n_stream_sw_forest=1,
-                 n_stream_lw_forest=1, nsw=14, nlw=14)),
-    }
+    slices = slice_shapes()
     slice_paths = {"headline": PATH_4, "rami5_shape": PATH_4, "rami5_ns1": PATH_R5_1}
     runs = [(sname, dname, Config(do_lw=True, **cfg).consolidate(), rep, L, S)
             for sname, (rep, L, S, cfg) in slices.items() for dname in dtypes]
@@ -1461,6 +1930,15 @@ def main(argv=None) -> int:
                     "single": CLI_DIR / "cli_ns4_single.nc",
                     "double": CLI_DIR / "cli_ns4_double.nc"})
     emit(phase="parallel", item="seconds", seconds=time.perf_counter() - t0)
+
+    # ---- auto: the automatic chunks sized from the card; corners: the
+    # degenerate corner grid, kernel route against scan route
+    t0 = time.perf_counter()
+    auto_phase(dev, counters, slices, {
+        "input": input_nc, "columns": len(rep_cli), "namelist": CLI_DIR / "cli_ns4.nam",
+        "single": CLI_DIR / "cli_ns4_single.nc", "double": CLI_DIR / "cli_ns4_double.nc"})
+    corners_phase(dev, counters)
+    emit(phase="auto", item="seconds", seconds=time.perf_counter() - t0)
 
     # ---- demo: the kernel demonstration on the card
     reset_counts()

@@ -13,7 +13,9 @@ versions.  Where the reference parallelizes over OpenMP column blocks
 * stream the solve over column chunks (``--stream-chunk N``,
   parallel/streaming.py): the copies to and from the device overlap the
   solve, and the scaling, summing and budget reductions run on the device
-  per chunk;
+  per chunk.  Without the flag the chunk is automatic (auto_stream_chunk):
+  the run streams only where the working-set model of its layered tiles
+  (utils/device_memory.py) exceeds what the device has free;
 * split each layered tile group over a mesh of devices (``--mesh``,
   parallel/mesh.py);
 * run as several processes (``--coordinator``, ``--num-processes``,
@@ -25,14 +27,16 @@ versions.  Where the reference parallelizes over OpenMP column blocks
 Precision: double by default to match the reference's jprb;
 ``--precision single`` solves in float32 (the reference's
 -DSINGLE_PRECISION, Makefile:42-44).  The input arrays are read in float64
-and cast to the working precision for the solve.  The JAX driver's
-automatic stream chunk models a TPU's DMA addressing and x64 memory limits
-and has no counterpart here: ``--stream-chunk`` defaults to 0.
+and cast to the working precision for the solve.  The automatic column
+chunk of the solves (``column_chunk = -1``, the default) and the automatic
+stream chunk are both sized from the card's free memory, never from a
+constant.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import time
@@ -41,12 +45,13 @@ import numpy as np
 import torch
 
 from ..models import flux_utils
-from ..models.dispatch import TILE_NAMES, run_radsurf
+from ..models.dispatch import TILE_NAMES, run_radsurf, working_set_bytes
 from ..models.simple_spectrum import calc_simple_spectrum_lw
 from ..parallel import distributed
 from ..parallel.mesh import make_mesh
 from ..parallel.streaming import stream_columns
 from ..utils import profiling
+from ..utils.device_memory import CONTAINER_WORDS, class_bytes, device_budget
 from ..utils.config import Config, DriverConfig
 from ..utils.transfer import to_device
 from .merge import merge_shards
@@ -100,19 +105,22 @@ def build_argparser():
     p.add_argument(
         "--column-chunk", type=int, default=None, metavar="N",
         help="Solve the layered tiles in column chunks of N (bounds the"
-             " device working set); 0 = whole batch.  Overrides the"
-             " `column_chunk` namelist extension.  The port has no AUTO"
-             " chunk: -1 solves the whole batch.",
+             " device working set); 0 = whole batch, -1 = AUTO (the default:"
+             " the whole batch where it fits the device's free memory, else"
+             " the fewest equal chunks that fit; per shard under a mesh)."
+             "  Overrides the `column_chunk` namelist extension.",
     )
     p.add_argument(
-        "--stream-chunk", type=int, default=0, metavar="N",
+        "--stream-chunk", type=int, default=None, metavar="N",
         help="Stream the solve over column chunks of N: pinned host buffers"
              " and copy streams overlap the transfers with the solve, the"
              " scaling and the budget reductions run on the device per chunk,"
              " and only a few chunks are on the device at once (for inputs"
              " larger than device memory).  Differs from --column-chunk, which"
-             " keeps every column on the device.  0 (the default) solves in"
-             " one shot.",
+             " keeps every column on the device.  Default: auto, streaming"
+             " only where the one-shot working set of the layered tiles"
+             " exceeds the device's free memory (per process, per device of"
+             " a mesh); 0 solves in one shot.",
     )
     p.add_argument(
         "--netcdf4", action="store_true",
@@ -153,6 +161,43 @@ def build_argparser():
              " join the group and to reach the barrier before the merge",
     )
     return p
+
+
+# chunks a streamed solve keeps in flight (parallel/streaming.py depth)
+STREAM_DEPTH = 2
+
+
+def auto_stream_chunk(config, arrays: dict, ncol: int, n_devices: int = 1,
+                      budget: float = math.inf, itemsize: int | None = None) -> int:
+    """The automatic --stream-chunk: 0 (one shot) where the working-set
+    model of one run_radsurf call over `arrays` (dispatch.working_set_bytes)
+    fits `budget` bytes per device (device_budget) times n_devices, else
+    the column chunk of the fewest slices that fit, preferring a chunk that
+    divides ncol (a slice count in [n_min, 2 n_min]), else a ceiling split.
+    A slice's columns are costed as the dearest layered tile type present,
+    plus what the stream keeps on the device besides the solve: the inputs
+    of the next slice (on their way) and of the last one (until the solve
+    is done with them), and the summed fluxes of the slice and of the
+    STREAM_DEPTH slices travelling back.  itemsize: bytes of the working
+    precision (default: that of arrays["dz"])."""
+    rep = np.asarray(arrays["i_representation"])
+    nlay = arrays["dz"].shape[1]
+    itemsize = itemsize or arrays["dz"].dtype.itemsize
+    total = budget * max(1, n_devices)
+    if working_set_bytes(config, rep, nlay, itemsize) <= total:
+        return 0
+    solve_col = max(working_set_bytes(config, [code], nlay, itemsize)
+                    for code in np.unique(rep))
+    inputs_col = itemsize * sum(v[0].size for v in arrays.values()
+                                if v.dtype.kind == "f")
+    fluxes_col = sum(class_bytes(CONTAINER_WORDS, 1, nlay, S, itemsize)
+                     for on, S in ((config.do_sw, config.nswinternal),
+                                   (config.do_lw, config.nlwinternal)) if on)
+    per_col = solve_col + 3 * inputs_col + (STREAM_DEPTH + 1) * fluxes_col
+    n_min = math.ceil(ncol * per_col / total)
+    n_slices = next((n for n in range(n_min, min(2 * n_min, ncol) + 1)
+                     if ncol % n == 0), n_min)
+    return -(-ncol // n_slices)
 
 
 def top_fluxes(config, data: dict, dtype) -> dict:
@@ -223,7 +268,8 @@ def stream_solve(config, data: dict, dtype, device, chunk: int, mesh=None,
                              for name, key in BUDGETS if key in res}
         return out
 
-    streamed = stream_columns(solve_chunk, inputs, chunk, device=device)
+    streamed = stream_columns(solve_chunk, inputs, chunk, depth=STREAM_DEPTH,
+                              device=device)
     return streamed["sw_flux"], streamed["lw_flux"], streamed["budget"]
 
 
@@ -269,7 +315,6 @@ def _run(args) -> int:
     config = Config.from_namelist(args.namelist)
     if args.column_chunk is not None:
         config.column_chunk = args.column_chunk
-    config.column_chunk = max(config.column_chunk, 0)  # no AUTO chunk here
     driver_config = DriverConfig.from_namelist(args.namelist)
     iverbose = driver_config.iverbose
     if args.profile:
@@ -372,9 +417,17 @@ def _run(args) -> int:
             print(f"{jcol:5d}: {TILE_NAMES.get(int(code), '?')},"
                   f" {int(arrays['nlay'][jcol - 1])} layers")
 
-    if args.stream_chunk > 0:
+    if args.stream_chunk is None:
+        budget = min(device_budget(d) for d in (mesh or [device]))
+        args.stream_chunk = auto_stream_chunk(
+            config, arrays, ncol, len(mesh) if mesh else 1, budget,
+            np.dtype(dtype).itemsize)
+        if args.stream_chunk:
+            log(f"Streaming the solve in {args.stream_chunk}-column"
+                " chunks (host pipeline; see --stream-chunk)")
+    elif args.stream_chunk > 0:
         log(f"Streaming the solve in {args.stream_chunk}-column chunks")
-    else:
+    if args.stream_chunk <= 0:
         solve_arrays, top = prepare(config, data, dtype, device)
     sync()
     tstart = time.perf_counter()

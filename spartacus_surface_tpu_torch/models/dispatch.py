@@ -9,7 +9,8 @@ radsurf/radsurf_interface.F90:105-313.
 Device meshes: pass ``mesh=`` (a list of devices, parallel/mesh.py) and each
 layered group's columns are split over its entries, each shard solved on its
 own device (``column_chunk`` applying per shard, as under JAX's
-``shard_map``), then gathered on ``device``.  Every shard's work is issued
+``shard_map``: AUTO reads the budget of the shard's own device), then
+gathered on ``device``.  Every shard's work is issued
 before any result is moved, so several cards overlap.  The closed-form flat
 and simple-urban tiles run on ``device`` unsharded, as in JAX.  The shards
 may be unequal, so no group is padded to a device multiple (JAX
@@ -23,6 +24,7 @@ import torch
 
 from ..parallel.mesh import column_sharding, tree_map
 from ..utils.config import Config
+from ..utils import device_memory as DM
 from ..utils.convert import torch_dtype
 from ..utils.transfer import to_device
 from . import flat as flat_mod
@@ -112,6 +114,35 @@ def _solver_groups(config: Config):
     }
 
 
+def working_set_bytes(config: Config, i_representation, nlay: int,
+                      itemsize: int) -> int:
+    """The working-set model (utils/device_memory.py) of one one-shot
+    run_radsurf call on the kernel route: columns of the tile codes
+    i_representation [ncol] with nlay layers, a consolidated Config, words of
+    itemsize bytes.  The layered groups are solved one after another and
+    every group's outputs are kept until all are scattered, so the peak is
+    the flux containers of every column, the outputs kept so far, and one
+    solve's inputs and transient, the largest of them."""
+    rep = np.asarray(i_representation)
+    ncol = rep.size
+    bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
+        [(True, config.nlwinternal)] if config.do_lw else [])
+    fixed = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
+                for _, S in bands)
+    kept = peak = 0
+    for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
+        C = int((rep == code).sum())
+        for lw, S in bands if C else ():
+            t, k = DM.solve_bytes(C, nlay, S, opt_kw["nreg"],
+                                  (lg_lw if lw else lg_sw).nstream, itemsize,
+                                  lw=lw, do_urban=opt_kw["do_urban"],
+                                  with_profiles=config.do_save_flux_profile)
+            inputs = DM.class_bytes(DM.INPUT_WORDS[lw], C, nlay, S, itemsize)
+            peak = max(peak, kept + inputs + t)
+            kept += k
+    return fixed + peak
+
+
 def _same(*names):
     return {k: k for k in names}
 
@@ -174,6 +205,20 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
             return x.to(device=dev, dtype=kw["dtype"])[to_device(idx, dev)]
         return to_device(np.asarray(x)[idx], dev, kw["dtype"])
 
+    # AUTO column chunks: each solve may plan for the budget its device had
+    # when the run began, less what the run has allocated there since (the
+    # flux containers, earlier groups' outputs), so that the run as a whole
+    # stays within that budget
+    start = {d: (DM.device_budget(d), torch.cuda.memory_allocated(d))
+             for d in {device, *(mesh or ())}
+             if d.type == "cuda" and config.column_chunk == -1}
+
+    def budget_left(dev):
+        if dev not in start:
+            return None
+        budget, allocated = start[dev]
+        return budget - (torch.cuda.memory_allocated(dev) - allocated)
+
     bc = {}
     out = {"bc_out": bc}
     nsw, nlw = config.nswinternal, config.nlwinternal
@@ -226,12 +271,13 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
                     debug_dump_sw(inp, opt, lg_sw)
                 sw = (inp.cos_sza > 0.0, spartacus_sw(
                     inp, opt, lg_sw, with_profiles=config.do_save_flux_profile,
-                    route=route))
+                    route=route, budget=budget_left(dev)))
             if config.do_lw:  # not masked by sun_up
                 inp = CanopyInputs(**{f: get(key, sidx, dev) for f, key in _LW_KEYS.items()})
                 lw = spartacus_lw(
                     inp, SolverOptions(nstream=lg_lw.nstream, **opt_kw), lg_lw,
-                    with_profiles=config.do_save_flux_profile, route=route)
+                    with_profiles=config.do_save_flux_profile, route=route,
+                    budget=budget_left(dev))
             solved.append((sidx, sw, lw))
     for sidx, sw, lw in solved:
         tidx = to_device(sidx, device)

@@ -142,16 +142,24 @@ def _overlap_matrix_urban(fu, fl, nreg: int):
     raise ValueError(f"nreg={nreg} not supported (must be 1, 2 or 3)")
 
 
-def overlap_matrices_urban(frac, nreg: int, frac_threshold: float):
+def overlap_matrices_urban(frac, nreg: int, frac_threshold: float,
+                           building_fraction):
     """Directional overlap matrices at the top of every layer:
     (u_overlap [..., nlay, nreg, nreg+1], v_overlap [..., nlay, nreg+1, nreg]).
+
+    The exposed roof at the top of layer l is building_fraction[l] minus
+    that of the layer above (0 above the top), not the difference of the
+    two layers' region-fraction sums: at a building fraction equal to the
+    threshold, the rounding of those sums would decide whether the roof
+    reflects (the JAX function keeps it under jit and drops it op by op).
     Parity: radsurf_overlap.F90:289-394."""
     free_atm = torch.zeros_like(frac[..., :1, :])
     free_atm[..., 0] = 1.0
     frac_up = torch.cat([frac[..., 1:, :], free_atm], dim=-2)
     sum_lower = frac.sum(-1)
     sum_upper = frac_up.sum(-1)
-    roof = sum_upper - sum_lower
+    bf = building_fraction
+    roof = bf - torch.cat([bf[..., 1:], torch.zeros_like(bf[..., :1])], dim=-1)
     one = torch.ones_like(sum_lower)
     scale = torch.where(
         roof < 0.0, sum_upper / torch.where(sum_lower > 0.0, sum_lower, one), one)

@@ -32,6 +32,7 @@ The cosine of the solar zenith angle is clamped to >= 1e-6 throughout
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, fields, replace
 
 import numpy as np
@@ -52,6 +53,7 @@ from ..ops.legendre_gauss import LegendreGauss
 from ..ops.lw_sweep_kernels import lw_down_sweep_both, lw_out_rows, lw_up_sweep
 from ..ops.matrix import matmul, matvec, solve
 from ..ops.sweep_kernels import sw_down_sweep_both, sw_out_rows, sw_up_sweep
+from ..utils import device_memory as DM
 from ..utils.constants import Pi
 from ..utils.debug import debug_arrays_enabled, maybe_dump
 from ..utils.transfer import to_device
@@ -173,7 +175,9 @@ class SolverOptions:
     # plain version (the CPU route), bounding its temporaries; the kernels
     # (K1, K1d) launch once over every element and need no workspace.
     factory_chunk: int = 65536
-    # Solve in chunks of this many columns (0 = whole batch).  Under
+    # Solve in chunks of this many columns (0 = whole batch, -1 = AUTO:
+    # the whole batch where the working-set model says it fits the device,
+    # else the fewest equal chunks that fit; _resolve_column_chunk).  Under
     # autograd on the kernel route, each chunk's backward recomputes its own
     # scan graph, so the chunk also bounds a gradient step's memory.
     column_chunk: int = 0
@@ -193,7 +197,8 @@ def _prepare_geometry(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                       lw: bool):
     nreg = opt.nreg
     frac = region_fracs(inp.veg_fraction, inp.building_fraction, nreg)
-    u_ov, v_ov = overlap_matrices_urban(frac, nreg, opt.min_vegetation_fraction)
+    u_ov, v_ov = overlap_matrices_urban(frac, nreg, opt.min_vegetation_fraction,
+                                        inp.building_fraction)
     norm_perim, norm_perim_wall = norm_perim_urban(
         inp.building_fraction, inp.building_scale, inp.veg_fraction,
         inp.veg_scale, inp.veg_contact_fraction, nreg=nreg,
@@ -1133,11 +1138,51 @@ def _lw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
 # Public entry point
 # ----------------------------------------------------------------------
 
-def _chunked_solve(impl, inp: CanopyInputs, opt: SolverOptions, lg,
-                   with_profiles):
-    """Solve in chunks of opt.column_chunk columns (0: the whole batch)."""
-    C = inp.dz.shape[0]
+def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
+                          dtype, device, *, lw: bool, route: str,
+                          with_profiles: bool = False, budget=None) -> int:
+    """Resolve the column_chunk sentinel: -1 = AUTO.  On the kernel route
+    (K1-K5; not under associative_sweeps, whose sweeps are plain torch)
+    AUTO takes the whole batch where the working-set model
+    (utils/device_memory.py) says that one solve of the C columns fits the
+    device's budget (device_budget, or `budget` bytes where given), else
+    the fewest equal chunks that fit; elsewhere, and on the CPU, whose
+    budget is unbounded, 0.  Explicit values pass through.  Chunked, every
+    chunk's outputs are kept and then concatenated: that takes twice the
+    outputs of the C columns besides one chunk's transient."""
     ck = opt.column_chunk
+    if ck != -1:
+        return ck
+    if route != "kernel" or opt.associative_sweeps:
+        return 0
+    if budget is None:
+        budget = DM.device_budget(device)
+    itemsize = torch.finfo(dtype).bits // 8
+    words = DM.solve_words(opt.nreg, lg.nstream, lw=lw, do_urban=opt.do_urban,
+                           with_profiles=with_profiles)
+    transient, kept = (DM.class_bytes(w, C, L, S, itemsize) for w in words)
+    if transient <= budget:
+        return 0
+    room = budget - 2 * kept
+    if room <= 0 or transient / C > room:
+        raise RuntimeError(
+            f"column_chunk=-1: not one column fits the device budget of"
+            f" {budget / 2**30:.3g} GiB ({C} columns x {L} layers x {S} bands"
+            f" hold {2 * kept / 2**30:.3g} GiB of outputs); stream the"
+            " columns instead (parallel/streaming.py)")
+    n_chunks = math.ceil(transient / room)
+    return -(-C // n_chunks)
+
+
+def _chunked_solve(impl, inp: CanopyInputs, opt: SolverOptions, lg,
+                   with_profiles, *, lw: bool, route: str, budget=None):
+    """Solve in chunks of opt.column_chunk columns (0: the whole batch, -1:
+    AUTO, _resolve_column_chunk)."""
+    C, L = inp.dz.shape
+    ck = _resolve_column_chunk(opt, lg, C, L, inp.air_ext.shape[-1],
+                               inp.air_ext.dtype, inp.air_ext.device, lw=lw,
+                               route=route, with_profiles=with_profiles,
+                               budget=budget)
     if not ck or C <= ck:
         return impl(inp, opt, lg, with_profiles)
     parts = [impl(replace(inp, **{k: x[i:i + ck] for k, x in inp.tensors()}),
@@ -1233,7 +1278,8 @@ _LW_ROUTES = {"kernel": _with_grad(_lw_kernel_path, _lw_scan), "scan": _lw_scan}
 
 
 def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
-                 with_profiles: bool = False, route: str = "kernel"):
+                 with_profiles: bool = False, route: str = "kernel",
+                 budget=None):
     """Shortwave solve for one column group.
 
     Returns (norm_dir, norm_diff, bc): flux dicts normalized by the
@@ -1241,15 +1287,18 @@ def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     bc = {"top_albedo_diff", "top_albedo_dir"} [C, S].
     route: "kernel" (K1 -> K2 -> K3; CUDA kernels on CUDA tensors, their
     plain versions on CPU tensors) or "scan" (the plain reference).
-    Parity: radsurf_urban_sw.F90:35-1007.
+    budget: the bytes an AUTO column chunk may plan for (default: the
+    inputs' device_budget).  Parity: radsurf_urban_sw.F90:35-1007.
     """
     return _chunked_solve(_ROUTES[route],
                           _coerce_dtype(_sanitize_forest(inp, opt)),
-                          opt, lg, with_profiles)
+                          opt, lg, with_profiles, lw=False, route=route,
+                          budget=budget)
 
 
 def spartacus_lw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
-                 with_profiles: bool = False, route: str = "kernel"):
+                 with_profiles: bool = False, route: str = "kernel",
+                 budget=None):
     """Longwave solve for one column group.
 
     Returns (internal, norm, bc): `internal` holds the fluxes from emission
@@ -1257,8 +1306,10 @@ def spartacus_lw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     downwelling, and bc = {"top_emissivity", "top_emission"} [C, S].
     route: "kernel" (K1 in LW mode -> K4 -> K5; CUDA kernels on CUDA
     tensors, their plain versions on CPU tensors) or "scan" (the plain
-    reference).  Parity: radsurf_urban_lw.F90:35-883.
+    reference).  budget: as for spartacus_sw.  Parity:
+    radsurf_urban_lw.F90:35-883.
     """
     return _chunked_solve(_LW_ROUTES[route],
                           _coerce_dtype(_sanitize_forest(inp, opt)),
-                          opt, lg, with_profiles)
+                          opt, lg, with_profiles, lw=True, route=route,
+                          budget=budget)

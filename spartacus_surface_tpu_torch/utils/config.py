@@ -63,8 +63,10 @@ class Config:
 
     # Doubling-step cap of the layer factory (see SolverOptions.n_double).
     n_double: int = 30
-    # Column chunk of the layered solve: 0 = whole batch, N > 0 = N columns.
-    column_chunk: int = 0
+    # Column chunk of the layered solves: N > 0 columns at a time, 0 the
+    # whole group at once, -1 (the default, as in the JAX Config) AUTO:
+    # sized per solve from the card's free memory (SolverOptions.column_chunk).
+    column_chunk: int = -1
     # Per-band Planck weights for nlw > 1 (normalized in consolidate()).
     lw_band_fraction: object = None
 

@@ -4,7 +4,9 @@ a seeded input file for the CLI.
 ``example_inputs`` follows ``__graft_entry__._example_inputs`` and
 ``example_arrays`` follows ``__graft_entry__._example_arrays`` draw for draw
 (numpy default_rng, same seeds and order), so the tests and chip_smoke.py
-give both packages identical arrays.  Both return host numpy.
+give both packages identical arrays.  Both return host numpy, as does
+``corner_grid``, the degenerate corner values of the JAX package's fuzz test
+as one batch.
 ``write_example_input`` writes a NetCDF3 input file under the reference's
 variable names, which both packages' ``driver.read_input`` read.
 """
@@ -128,6 +130,67 @@ def example_arrays(C=12, L=3, S=1, dtype=np.float32, seed=1,
         lw_veg_ssa=f(C, L, S),
         **_lw_fields(C, L, S, dtype),
     )
+
+
+# the corner values of the JAX package's fuzz test
+# (tests/test_property_fuzz.py:32-37; contact and ssa: :108-109)
+CORNER_FRACTIONS = (0.0, 1e-9, 1e-7, 1e-6, 2e-6, 1e-3, 0.3, 0.7, 0.97, 0.999)
+CORNER_COS_SZA = (1e-7, 1e-3, 0.05, 0.5, 1.0)
+CORNER_FSD = (0.0, 1e-4, 0.5, 1.0, 3.0, 10.0)
+CORNER_EXT = (0.0, 1e-6, 0.1, 2.0, 20.0)
+CORNER_CONTACT = (0.0, 0.5, 1.0)
+CORNER_SSA = (0.0, 0.5, 0.9999)
+
+
+def corner_columns(vf, bf, cos_sza, fsd, ext, contact, ssa, L=2, S=1,
+                   dz=5.0) -> dict:
+    """CanopyInputs fields ({name: float64 numpy}) of one column per entry
+    of the per-column values, L layers of dz, S bands, with the fixed
+    fields of the fuzz test's _build_inputs and _add_lw (SW and LW fields
+    together; the LW solve takes air_ssa = 0)."""
+    C = len(cos_sza)
+    cl = lambda x: np.repeat(np.asarray(x, np.float64)[:, None], L, 1)
+    full = lambda shape, v: np.full(shape, v, np.float64)
+    lay, spec = (C, L), (C, L, S)
+    return dict(
+        dz=full(lay, dz), cos_sza=np.asarray(cos_sza, np.float64),
+        veg_fraction=cl(vf), veg_scale=full(lay, 120.0), veg_ext=cl(ext),
+        veg_fsd=cl(fsd), veg_contact_fraction=cl(contact),
+        building_fraction=cl(bf), building_scale=full(lay, 40.0),
+        air_ext=full(spec, 1e-5), air_ssa=full(spec, 0.999),
+        veg_ssa=np.repeat(cl(ssa)[:, :, None], S, 2),
+        ground_albedo=full((C, S), 0.2), ground_albedo_dir=full((C, S), 0.25),
+        roof_albedo=full(spec, 0.3), roof_albedo_dir=full(spec, 0.3),
+        wall_albedo=full(spec, 0.35), wall_specular_frac=full(spec, 0.2),
+        ground_emissivity=full((C, S), 0.95),
+        ground_emission=full((C, S), SB * 0.95 * 290.0**4),
+        roof_emissivity=full(spec, 0.9), roof_emission=full(spec, SB * 0.9 * 285.0**4),
+        wall_emissivity=full(spec, 0.9), wall_emission=full(spec, SB * 0.9 * 288.0**4),
+        clear_air_planck=full(spec, SB * 283.0**4),
+        veg_planck=full(spec, SB * 284.0**4),
+        veg_air_planck=full(spec, SB * 283.0**4))
+
+
+def corner_grid(seed=0) -> tuple:
+    """The fuzz test's corner values as one deterministic batch: every
+    (veg_fraction, building_fraction) pair of CORNER_FRACTIONS, scaled to a
+    sum <= 0.99 as _build_inputs does, times every CORNER_COS_SZA, one
+    column each (500); fsd, ext, contact and ssa drawn per column from
+    default_rng(seed).  Returns (corner_columns fields, mask of the
+    horizon-sun columns through thick, bright layers: cos_sza < 1e-6, ssa >
+    0.99, ext >= 2)."""
+    vals = []
+    for vf in CORNER_FRACTIONS:
+        for bf in CORNER_FRACTIONS:
+            s = 0.99 / (vf + bf) if vf + bf > 0.99 else 1.0
+            vals += [(vf * s, bf * s, cz) for cz in CORNER_COS_SZA]
+    vf, bf, cz = map(np.array, zip(*vals))
+    rng = np.random.default_rng(seed)
+    draw = lambda choices: rng.choice(choices, len(cz))
+    fsd, ext = draw(CORNER_FSD), draw(CORNER_EXT)
+    contact, ssa = draw(CORNER_CONTACT), draw(CORNER_SSA)
+    horizon = (cz < 1e-6) & (ssa > 0.99) & (ext >= 2.0)
+    return corner_columns(vf, bf, cz, fsd, ext, contact, ssa), horizon
 
 
 def write_example_input(path, i_representation, L=8, S=1, seed=0) -> None:

@@ -146,8 +146,8 @@ def test_config_from_namelist_and_print_config_match_jax(tmp_path):
         assert ([f.name for f in dataclasses.fields(tcls)]
                 == [f.name for f in dataclasses.fields(jcls)])
         t, j = (dataclasses.asdict(c.from_namelist(nam)) for c in (tcls, jcls))
-        # the port's column_chunk default is 0 (whole batch), JAX's -1 (AUTO)
-        assert t.pop("column_chunk", 0) == 0 and j.pop("column_chunk", -1) == -1
+        # both column_chunk defaults are -1 (AUTO)
+        assert t.get("column_chunk", -1) == j.get("column_chunk", -1) == -1
         assert t == j
     assert TC.DriverConfig.from_namelist(nam).cos_sza_override == pytest.approx(
         np.cos(np.pi / 6))

@@ -63,7 +63,7 @@ def test_geometry(nreg, symmetric, iso):
     close(tfrac, frac)
     close(TGeo.od_scaling_from_fsd(T(g["fsd"]), nreg),
           JGeo.od_scaling_from_fsd(g["fsd"], nreg))
-    for x, y in zip(TGeo.overlap_matrices_urban(tfrac, nreg, 1e-6),
+    for x, y in zip(TGeo.overlap_matrices_urban(tfrac, nreg, 1e-6, T(g["bf"])),
                     JGeo.overlap_matrices_urban(frac, nreg, 1e-6)):
         close(x, y)
 
