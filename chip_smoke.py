@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile    # ... then time and trace the slice
     python3 chip_smoke.py --parallel-only   # build, then the parallel phase alone
     python3 chip_smoke.py --auto-only   # build, then the auto and corners phases
+    python3 chip_smoke.py --bench-only  # build, then the bench phase alone
 
 Phases, one JSON line each (failures make the script exit nonzero before the
 final line):
@@ -213,6 +214,25 @@ final line):
      calls) of the float32 headline and rami5_shape kernel routes as
      layered columns/s against solve_work_model's ceiling at the run's own
      mean doubling counts.
+  bench - the port's benchmark in this process, one
+     spartacus_surface_tpu_torch.bench.main(["--reps", str(BENCH_REPS),
+     "--block", name]) per block, in bench.py's order at its full shapes
+     (the build check, kernel-vs-scan parity on the four configs in float32
+     and float64, mesh parity, nreg 3, rami5 and its float64 twin, the CLI
+     on 50,048 columns, a gradient step, 1,048,576 columns, the headline in
+     float64 and float32), with the launch counters set to 0 just before
+     each and read just after (K1-K5 must launch in each block; the CLI
+     block's own launches are those its subprocess prints under
+     --timings), and the first step of each throughput block (nreg3,
+     rami5, grad, capacity, headline) captured and every kernel call in it
+     held against its plain version on the same operands at phase 2's bars;
+     then main(["--trace", "--block", "headline"]): per-layer device ms of
+     the headline.  Fails on an exit code other than 0, a block's line
+     missing or holding "error", a gate line with "ok": false, a kernel not
+     launched or one that disagrees.  Its lines are printed as the bench
+     prints them (a throughput line's first_call_s and peak_gib here
+     include the plain versions' run), then one line with each block's
+     launches and kernel errors.
   4. profile (--profile only) - for each slice run: warm wall seconds of
      both routes (median, min, max of 5 calls), and one torch.profiler trace
      of a warm kernel-route call: device launches, device busy ms (union of
@@ -304,6 +324,8 @@ PROBES = (("K6 fma_chain", "spartacus_surface_tpu_torch/csrc/roofline_probes.cu"
 WRAPPERS = ("layer_factory", "lw_layer_factory", "sw_up_sweep",
             "sw_down_sweep_both", "lw_up_sweep", "lw_down_sweep_both")
 SWEEPS = WRAPPERS[2:]  # K2-K5
+# {kernel: the device symbol a trace names it with}
+TRACED = {kname: sym for kname, _, _, sym, _, _ in KERNELS}
 UP_SWEEPS = {"sw_up_sweep": "sw_sweeps", "lw_up_sweep": "lw_sweeps"}  # K2, K4
 DOWN_SWEEPS = {"sw_down_sweep_both": "sw_sweeps", "lw_down_sweep_both": "lw_sweeps"}  # K3, K5
 # a team kernel's launch shape as printed (cuda_build.team_config's fields)
@@ -387,6 +409,10 @@ sys.exit(rc)
 AUTO_RATIO = (0.67, 1.10)
 AUTO_SWEEP = {"headline": (0, 2048, 8192), "rami5_shape": (0, 256, 512)}
 AUTO_SQUEEZE = 0.5
+# bench phase: the timed calls of each of its throughput blocks, and the
+# first steps each throughput block runs (one per precision)
+BENCH_REPS = 5
+THROUGHPUT_BLOCKS = {"nreg3": 1, "rami5": 2, "grad": 1, "capacity": 1, "headline": 2}
 CORNER_CONFIGS = ((3, 4, True), (2, 4, True), (2, 4, False), (1, 4, True))
 # corner columns whose layer factory takes this many doubling steps or more
 # (tools.roofline.doubling_steps) are held to their budgets only
@@ -404,16 +430,32 @@ def check(ok, what):
     return bool(ok)
 
 
+def pieces(r, g, double=True, n=1 << 27):
+    """Two fields in matching pieces of at most n elements (flattened where
+    their shapes agree, whole where they broadcast), float64 unless
+    double is false, so that comparing fields of 10 GiB (a 1M-column
+    call's) takes temporaries of 1 GiB."""
+    if r.shape != g.shape or r.numel() <= n:
+        yield (r.double(), g.double()) if double else (r, g)
+        return
+    r, g = r.reshape(-1), g.reshape(-1)
+    for i in range(0, r.numel(), n):
+        rs, gs = r[i:i + n], g[i:i + n]
+        yield (rs.double(), gs.double()) if double else (rs, gs)
+
+
 def field_err(ref, got):
     """Worst per-field max|got - ref| / max(1, max|ref|, max|got|); inf if
     either side holds a non-finite value."""
     worst = 0.0
     for r, g in zip(ref, got):
-        r, g = r.double(), g.double()
-        if not (r.isfinite().all() and g.isfinite().all()):
-            return math.inf
-        scale = max(1.0, r.abs().max().item(), g.abs().max().item())
-        worst = max(worst, (r - g).abs().max().item() / scale)
+        top, diff = 1.0, 0.0
+        for rs, gs in pieces(r, g):
+            if not (rs.isfinite().all() and gs.isfinite().all()):
+                return math.inf
+            top = max(top, rs.abs().max().item(), gs.abs().max().item())
+            diff = max(diff, (rs - gs).abs().max().item())
+        worst = max(worst, diff / top)
     return worst
 
 
@@ -432,20 +474,41 @@ class Capture:
         for name, fn in self.saved.items():
             def rec(*a, _n=name, _fn=fn, **k):
                 out = _fn(*a, **k)
-                self.calls[_n].append((a, k, out))
+                self.record(_n, a, k, out)
                 return out
             setattr(self.module, name, rec)
         return self
+
+    def record(self, name, a, k, out):
+        self.calls[name].append((a, k, out))
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.module, name, fn)
 
 
+class CompareEach(Capture):
+    """A Capture that holds each call against its plain version as it
+    returns (compare_call) and keeps only {wrapper name: [(kwargs,
+    max_abs_err, passed, the first operand's shape, its dtype)]}, so that a call's
+    operands and results go when the solve lets them go."""
+
+    def __init__(self, module, plains):
+        super().__init__(module)
+        self.plains = plains
+
+    def record(self, name, a, k, out):
+        import torch
+
+        err, ok = compare_call(name, self.plains[name], a, k, out, a[0].dtype == torch.float32)
+        self.calls[name].append((k, err, ok, list(a[0].shape),
+                                 str(a[0].dtype).removeprefix("torch.")))
+
+
 def max_abs_diff(ref, got):
     """max|got - ref| over the fields; NaN counts as inf."""
-    return max((g - r).abs().nan_to_num(nan=math.inf).max().item()
-               for r, g in zip(ref, got))
+    return max((gs - rs).abs().nan_to_num(nan=math.inf).max().item()
+               for r, g in zip(ref, got) for rs, gs in pieces(r, g, double=False))
 
 
 def plain_versions(LK, SK, LSK):
@@ -469,8 +532,9 @@ def compare_call(name, plain, a, k, got, f32):
         ref, got = [ref[n] for n in names], [got[n] for n in names]
         if f32:
             ok = (field_err(ref, got) < math.inf
-                  and all(torch.allclose(g, r, rtol=2e-4, atol=2e-5)
-                          for r, g in zip(ref, got)))
+                  and all(torch.allclose(gs, rs, rtol=2e-4, atol=2e-5)
+                          for r, g in zip(ref, got)
+                          for rs, gs in pieces(r, g, double=False)))
             return max_abs_diff(ref, got), ok
     return max_abs_diff(ref, got), field_err(ref, got) <= (
         SWEEP_TOL_F32[name] if f32 else 1e-9)
@@ -624,43 +688,6 @@ def wall_seconds(fn, reps=5):
     return statistics.median(walls), min(walls), max(walls)
 
 
-def trace_call(fn):
-    """Trace one warm call with torch.profiler: device launches, device busy
-    ms (the union of the device intervals), the device idle share of the
-    call (from its host start to its last device activity), and each
-    kernel's device ms.  The profiler slows the host side, so the idle
-    share is an upper bound for an untraced call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("chip_smoke_call"):
-            fn()
-            torch.cuda.synchronize()
-    events = prof.events()
-    call = next(e for e in events if e.name == "chip_smoke_call"
-                and e.device_type == DeviceType.CPU)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and e.name != "chip_smoke_call")
-    busy, reach = 0.0, -math.inf
-    for t0, t1 in spans:
-        busy += max(0.0, t1 - max(t0, reach))
-        reach = max(reach, t1)
-    span = max(call.time_range.end, reach) - call.time_range.start
-    kernel_ms = {
-        kname: sum(e.time_range.elapsed_us() for e in events
-                   if e.device_type == DeviceType.CUDA and sym in e.name) / 1e3
-        for kname, _, _, sym, _, _ in KERNELS}
-    return dict(device_launches=len(spans), device_busy_ms=busy / 1e3,
-                traced_call_ms=span / 1e3,
-                device_idle_share=(1.0 - busy / span) if spans else None,
-                kernel_device_ms=kernel_ms)
-
-
 def group_err(out_s, out_k, groups):
     """field_err over every field of the given result groups."""
     keys = [(g, k) for g in groups for k in out_s[g]]
@@ -691,13 +718,6 @@ def nc_field_err(ref, got, names):
             return math.inf
         worst = max(worst, np.abs(r - g).max() / max(1.0, np.abs(r).max()))
     return worst
-
-
-def card_line():
-    """The card's name and power limit as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def sync_sites(fn):
@@ -820,6 +840,8 @@ def parallel_phase(dev, counters, headline, cli_files):
     import numpy as np
     import torch
 
+    from spartacus_surface_tpu_torch import bench
+    from spartacus_surface_tpu_torch.bench import card_line
     from spartacus_surface_tpu_torch.models.dispatch import (
         TILE_INFINITE_STREET, TILE_SIMPLE_URBAN, TILE_URBAN, TILE_VEGETATED_URBAN,
         run_radsurf)
@@ -864,33 +886,28 @@ def parallel_phase(dev, counters, headline, cli_files):
 
     def budget_check(out, arrays, f32, scale, tag):
         """The per-column residuals of a streamed result against the slice
-        phase's bars (LW on the columns that conserve).  An urban column
-        whose building fraction changes by less than min_building_fraction
-        between two layers has a roof (or overhang) of that area, which the
-        reference leaves out of its budget: it leaks O(area) of the flux by
-        design, so such a column is held to 1e-6 of the flux scale instead
-        (their count and worst residuals are printed)."""
+        phase's bars (LW on the columns that conserve), through
+        bench.budget_gate: an urban column with a sub-threshold roof
+        (bench.sub_threshold_roofs, a leak of the reference's by design) is
+        held to the scan route's residual on the same column instead."""
         rep = arrays["i_representation"]
         conserving = ~np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET])
-        step = np.abs(np.diff(np.asarray(arrays["building_fraction"], np.float64), axis=1))
-        leaky = np.isin(rep, [TILE_URBAN, TILE_VEGETATED_URBAN]) & (
-            step.min(1) < config.min_building_fraction)
-        bars = {"sw_norm_dir": 1e-4 if f32 else 1e-10, "sw_norm_diff": 1e-4 if f32 else 1e-10,
-                "lw_internal": 1e-4 * scale if f32 else 1e-9,
-                "lw_norm": 1e-4 * scale if f32 else 1e-10}
-        worst = {}
-        for g in groups:
-            r = np.abs(np.asarray(out["resid"][g], np.float64))
-            if g.startswith("lw"):
-                r = r * conserving
-            leak_bar = max(bars[g], 1e-6 * (scale if g.startswith("lw") else 1.0))
-            worst[g] = float(r[~leaky].max())
-            worst[f"{g} leaky"] = float(r[leaky].max()) if leaky.any() else None
-            check(worst[g] <= bars[g], f"{tag}: {g} energy budget residual {worst[g]:.3e}")
-            check(not leaky.any() or worst[f"{g} leaky"] <= leak_bar,
-                  f"{tag}: {g} energy budget residual {worst[f'{g} leaky']}"
-                  " on a column with a sub-threshold roof")
-        worst["leaky_columns"] = int(leaky.sum())
+        leaky = np.isin(rep, [TILE_URBAN, TILE_VEGETATED_URBAN]) & bench.sub_threshold_roofs(
+            arrays["building_fraction"], config.min_building_fraction)
+        resid = {g: np.asarray(out["resid"][g], np.float64) * (
+            conserving if g.startswith("lw") else 1.0) for g in groups}
+        witness = None
+        if leaky.any():
+            idx = np.flatnonzero(leaky)
+            sub = {k: v[idx] for k, v in arrays.items()}
+            scan = run_radsurf(config, sub, dev, route="scan")
+            masks = representation_masks(sub["i_representation"], dev)
+            witness = {g: budget_residual(budget_with_masks(scan[g], masks)).double().cpu().numpy()
+                       for g in groups}
+        worst, failed = bench.budget_gate(
+            resid, leaky, bench.budget_bars("float32" if f32 else "float64", scale), witness)
+        for f in failed:
+            check(False, f"{tag}: {f}")
         return worst
 
     def wall(fn, reps=3):
@@ -1147,6 +1164,7 @@ def auto_phase(dev, counters, slices, cli_files):
     import numpy as np
     import torch
 
+    from spartacus_surface_tpu_torch.bench import card_line
     from spartacus_surface_tpu_torch.driver import main as cli
     from spartacus_surface_tpu_torch.models import dispatch, solver
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
@@ -1408,6 +1426,7 @@ def corners_phase(dev, counters):
     import numpy as np
     import torch
 
+    from spartacus_surface_tpu_torch.bench import card_line
     from spartacus_surface_tpu_torch.models import solver
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
@@ -1522,6 +1541,86 @@ def corners_phase(dev, counters):
             del scans
 
 
+def bench_phase(counters):
+    """The bench phase (see the module docstring): one bench.main per block,
+    its lines echoed, the launch counters set to 0 just before it and read
+    just after; the first step of each throughput block captured and its
+    kernels held against their plain versions at phase 2's bars."""
+    import torch
+
+    from spartacus_surface_tpu_torch import bench
+    from spartacus_surface_tpu_torch.models import solver
+    from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+    from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
+    from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+
+    compared, plains = [], plain_versions(LK, SK, LSK)
+
+    @contextlib.contextmanager
+    def watch():
+        """Hold every kernel call of a block's first step against its plain
+        version as it returns (CompareEach)."""
+        with CompareEach(solver, plains) as cap:
+            yield
+        res = {kname: [(e, ok) for n in names for k, e, ok, _, _ in cap.calls[n]
+                       if runs_on(factory, k, LK)]
+               for kname, _, _, _, names, factory in KERNELS}
+        compared.append(dict(
+            dtype=next((c[0][4] for c in cap.calls.values() if c), None),
+            calls={n: len(c) for n, c in cap.calls.items()},
+            first_operand_shape={n: c[0][3] for n, c in cap.calls.items() if c},
+            max_abs_err={k: max(e for e, _ in r) for k, r in res.items() if r},
+            passed=any(res.values()) and all(ok for r in res.values() for _, ok in r)))
+
+    def run(tag, argv):
+        """bench.main(argv) between a reset and a read of the counters;
+        (its lines, the launches counted)."""
+        torch.cuda.empty_cache()
+        compared.clear()
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(argv, watch=watch)
+        launches = {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+        print(out.getvalue(), end="", flush=True)
+        lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        check(rc == 0, f"bench {tag}: exit code {rc}")
+        for ln in lines:
+            check("error" not in ln, f"bench {tag}: {ln['metric']} failed")
+            check(ln.get("ok", True) is not False, f"bench {tag}: {ln['metric']} gate failed")
+        check(all(launches[k] > 0 for k in PATH_4),
+              f"bench {tag}: a kernel of the path was not launched {launches}")
+        for c in compared:
+            check(c["passed"], f"bench {tag}: a kernel disagrees with its plain version"
+                               f" {c['max_abs_err']}")
+        return rc, lines, launches
+
+    t0 = time.perf_counter()
+    reps = ["--reps", str(BENCH_REPS)]
+    metrics, blocks = [], {}
+    for name in bench.BLOCK_NAMES:
+        rc, lines, launches = run(name, reps + ["--block", name])
+        metrics += [ln["metric"] for ln in lines]
+        if name == "cli":  # the CLI's own launches, counted in its process
+            cli_launches = next((ln["launches"] for ln in lines if "launches" in ln), {})
+            check(all(cli_launches.get(k, 0) > 0 for k in PATH_4),
+                  f"bench cli: the CLI did not launch every kernel of the path {cli_launches}")
+            launches = {"in process": launches, "CLI": cli_launches}
+        blocks[name] = dict(exit_code=rc, launches=launches, kernels_vs_plain=list(compared))
+        if name in THROUGHPUT_BLOCKS:
+            check(len(compared) == THROUGHPUT_BLOCKS[name],
+                  f"bench {name}: {len(compared)} first steps compared with the plain versions")
+    expected = [m for _, m, _ in bench.BLOCKS]
+    check(metrics == expected, f"bench: lines {metrics}, expected {expected}")
+    rc, lines, launches = run("trace", reps + ["--trace", "--block", "headline"])
+    traced = [ln["block"] for ln in lines if ln["metric"] == "per_layer_device_ms"]
+    check(len(traced) == 2, f"bench: {len(traced)} per-layer lines of the headline")
+    blocks["trace"] = dict(exit_code=rc, launches=launches)
+    emit(phase="bench", seconds=time.perf_counter() - t0, lines=len(metrics), blocks=blocks,
+         card=bench.card_line())
+
+
 def auto_only(dev, counters):
     """The auto and corners phases alone: cli_files_unchecked, then both."""
     files = cli_files_unchecked()
@@ -1539,6 +1638,8 @@ def main(argv=None) -> int:
                       help="build, then run the parallel phase alone (no kernels line)")
     args.add_argument("--auto-only", action="store_true",
                       help="build, then run the auto and corners phases alone (no kernels line)")
+    args.add_argument("--bench-only", action="store_true",
+                      help="build, then run the bench phase alone (no kernels line)")
     args = args.parse_args(argv)
     profile = args.profile
     import torch
@@ -1551,6 +1652,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from spartacus_surface_tpu_torch.bench import card_line, trace_fields
     from spartacus_surface_tpu_torch.driver import main as cli
     from spartacus_surface_tpu_torch.driver import test_kernels as demo
     from spartacus_surface_tpu_torch.driver.read_input import read_input
@@ -1570,6 +1672,7 @@ def main(argv=None) -> int:
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import probe_kernels as PK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+    from spartacus_surface_tpu_torch.ops.launches import COUNTERS
     from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
     from spartacus_surface_tpu_torch.tools import roofline as RL
     from spartacus_surface_tpu_torch.utils import profiling
@@ -1580,16 +1683,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    # launch counters, {label: (wrapper, attribute)}
-    counters = {
-        "K1": (LK.layer_factory, "launches"), "K2": (SK.sw_up_sweep, "launches"),
-        "K3": (SK.sw_down_sweep_both, "launches"),
-        "K4": (LSK.lw_up_sweep, "launches"),
-        "K5": (LSK.lw_down_sweep_both, "launches"),
-        "K1d": (LK.layer_factory, "dense_launches"),
-        "K1 LW mode": (LK.lw_layer_factory, "launches"),
-        "K1d LW mode": (LK.lw_layer_factory, "dense_launches"),
-    }
+    counters = COUNTERS  # {label: (wrapper, attribute)}
 
     def reset_counts():
         for w, attr in counters.values():
@@ -1645,8 +1739,11 @@ def main(argv=None) -> int:
          nvcc_seconds=cuda_build.build_seconds,
          part_seconds={f"{n}:{m or 'main'}": t for (n, m), t in cuda_build.part_seconds.items()},
          ptxas=ptxas)
-    if args.parallel_only or args.auto_only:
-        (parallel_only if args.parallel_only else auto_only)(dev, counters)
+    if args.parallel_only or args.auto_only or args.bench_only:
+        if args.bench_only:
+            bench_phase(counters)
+        else:
+            (parallel_only if args.parallel_only else auto_only)(dev, counters)
         print(card_line(), flush=True)
         for f in FAILURES:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
@@ -2275,7 +2372,7 @@ def main(argv=None) -> int:
                 for route in ("kernel", "scan")}
             emit(phase="profile", run=sname, dtype=dname,
                  **{f"seconds_{r}_route": w for r, w in walls.items()},
-                 **trace_call(lambda: run_radsurf(config, arrays, dev)))
+                 **trace_fields(lambda: run_radsurf(config, arrays, dev), kernels=TRACED))
             torch.cuda.empty_cache()
         # one gradient step of the grad phase at the headline
         rep, base, _ = grad_cases["headline"]
@@ -2284,9 +2381,12 @@ def main(argv=None) -> int:
             arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np_dt, i_representation=rep)
             veg_ext = torch.as_tensor(arrays["veg_ext"], device=dev)
             emit(phase="profile", run="grad headline", dtype=dname,
-                 **trace_call(lambda: grad_step(config, arrays, veg_ext)))
+                 **trace_fields(lambda: grad_step(config, arrays, veg_ext), kernels=TRACED))
             del arrays, veg_ext
             torch.cuda.empty_cache()
+
+    # ---- bench: the port's benchmark, every block at its full shape
+    bench_phase(counters)
 
     rows = []
     for (kname, src, rep, _, names, factory), e in zip(KERNELS, errs):
@@ -2344,10 +2444,7 @@ def main(argv=None) -> int:
                        share_f64=b64["share"])
         rows.append(row)
     emit(kernels=rows)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    print(smi.stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     if FAILURES:
         for f in FAILURES:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)

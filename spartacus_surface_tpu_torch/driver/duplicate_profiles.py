@@ -10,7 +10,8 @@ user-provided list).
 Usage: python -m spartacus_surface_tpu_torch.driver.duplicate_profiles in.nc out.nc
 
 A copy of spartacus_surface_tpu/driver/duplicate_profiles.py (numpy and scipy, no JAX): the
-port imports nothing of the JAX package.
+port imports nothing of the JAX package.  Unlike the copy's original it
+writes 64-bit offsets, so that outputs beyond 2 GiB can be written.
 """
 
 from __future__ import annotations
@@ -39,7 +40,10 @@ def duplicate_profiles(in_path: str, out_path: str, cos_sza=None,
     ncol_in = src.dimensions["column"]
     if n_copies is None:
         n_copies = len(cos_sza)
-    dst = netcdf_file(out_path, "w")
+    # NetCDF3 with 64-bit offsets (as utils/netcdf_io writes): a classic
+    # file's int32 variable offsets overflow beyond 2 GiB, which 50,048
+    # copies of one 62-layer, 14-band profile exceed
+    dst = netcdf_file(out_path, "w", version=2)
     for name, size in src.dimensions.items():
         dst.createDimension(name, n_copies * ncol_in if name == "column"
                             else size)

@@ -36,6 +36,7 @@ constant.
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import sys
@@ -47,6 +48,7 @@ import torch
 from ..models import flux_utils
 from ..models.dispatch import TILE_NAMES, run_radsurf, working_set_bytes
 from ..models.simple_spectrum import calc_simple_spectrum_lw
+from ..ops import launches
 from ..parallel import distributed
 from ..parallel.mesh import make_mesh
 from ..parallel.streaming import stream_columns
@@ -99,8 +101,9 @@ def build_argparser():
     )
     p.add_argument(
         "--timings", action="store_true",
-        help="Print per-phase wall times (read_input / radsurf / save) at"
-             " exit: the region timers of --profile without the trace",
+        help="Print per-phase wall times (read_input / radsurf / save) and"
+             " the kernels' launch counts at exit: the region timers of"
+             " --profile without the trace",
     )
     p.add_argument(
         "--column-chunk", type=int, default=None, metavar="N",
@@ -472,6 +475,7 @@ def _run(args) -> int:
         profiling.stop_trace()
     if args.profile or args.timings:
         profiling.report()
+        print("Kernel launches: " + json.dumps(launches.counts()))
     if args.profile:
         log(f"Profiler trace written to {args.profile}")
     log("-----------------------------------------------------------------"

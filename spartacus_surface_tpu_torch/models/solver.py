@@ -1174,15 +1174,21 @@ def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
     return -(-C // n_chunks)
 
 
+# the column chunk the latest SW / LW solve ran with (0: the whole batch),
+# as _resolve_column_chunk resolved it
+last_column_chunk = {"sw": None, "lw": None}
+
+
 def _chunked_solve(impl, inp: CanopyInputs, opt: SolverOptions, lg,
                    with_profiles, *, lw: bool, route: str, budget=None):
     """Solve in chunks of opt.column_chunk columns (0: the whole batch, -1:
-    AUTO, _resolve_column_chunk)."""
+    AUTO, _resolve_column_chunk); the chunk is kept in last_column_chunk."""
     C, L = inp.dz.shape
     ck = _resolve_column_chunk(opt, lg, C, L, inp.air_ext.shape[-1],
                                inp.air_ext.dtype, inp.air_ext.device, lw=lw,
                                route=route, with_profiles=with_profiles,
                                budget=budget)
+    last_column_chunk["lw" if lw else "sw"] = ck
     if not ck or C <= ck:
         return impl(inp, opt, lg, with_profiles)
     parts = [impl(replace(inp, **{k: x[i:i + ck] for k, x in inp.tensors()}),

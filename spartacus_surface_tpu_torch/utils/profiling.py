@@ -11,6 +11,8 @@ Port of spartacus_surface_tpu/utils/profiling.py:
     --timings or --profile); the region also shows in a torch.profiler
     trace.  A region that launches device work must end in
     torch.cuda.synchronize() for its wall time to cover that work;
+  * `annotate(name)`: a named range in a torch.profiler trace (always on,
+    no timing), the counterpart of the JAX package's named scope;
   * `start_trace(dir)` / `stop_trace()`: a torch.profiler trace (CPU, and
     CUDA where available) written to DIR as a Chrome trace.
 """
@@ -41,6 +43,12 @@ def hook(name: str):
         yield
     _totals[name] += time.perf_counter() - t0
     _counts[name] += 1
+
+
+def annotate(name: str):
+    """Named region of a torch.profiler trace (jax.named_scope's
+    counterpart): the events recorded inside it nest under `name`."""
+    return torch.profiler.record_function(name)
 
 
 def report(printer=print):
