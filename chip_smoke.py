@@ -6,6 +6,7 @@
     python3 chip_smoke.py --parallel-only   # build, then the parallel phase alone
     python3 chip_smoke.py --auto-only   # build, then the auto and corners phases
     python3 chip_smoke.py --bench-only  # build, then the bench phase alone
+    python3 chip_smoke.py --graphs-only # build, then the graphs phase alone
 
 Phases, one JSON line each (failures make the script exit nonzero before the
 final line):
@@ -60,6 +61,34 @@ final line):
      field-normalized <= 3e-4 (SW) / 2.5e-3 (LW) in f32, 1e-9 in f64; the
      energy budgets of the run as in phase 3.  Prints the CLI's region
      walls (read_input / radsurf / save).
+  graphs - the compiled programs (utils/graphs.py: spartacus_sw /
+     spartacus_lw on the kernel route and run_radsurf's device core, a CUDA
+     graph per key, captured at the second call and replayed after) against
+     their eager runs under graphs.disabled(), the graphs cleared before
+     each run: the bench's headline step (spartacus_sw + spartacus_lw,
+     16,384 x 8 x 1, nreg 2, AUTO chunk) in float32 and float64, its nreg3
+     step (8,192 columns, nreg 3) and its rami5 step (1,024 x 62 x 14, nreg
+     3) in float32, run_radsurf at rami5_ns1 (SW on K1d) and at the
+     headline's mixed tiles in float32; and the CLI (cli_ns4, single
+     precision) streamed in GRAPH_CLI_CHUNK-column chunks, run eagerly and
+     three times with graphs.  Checks: no synchronizing CUDA operation in
+     the eager call (sync_sites: such an operation would stop a capture);
+     the captured call's outputs
+     bit-equal to the eager call's, a field that is not within GRAPH_TOL
+     (named in the line); the path's kernels counted in one replay (the
+     counters set to 0 just before it, read just after); the CLI's output
+     files bit-equal (else within GRAPH_TOL), its last run replaying every
+     chunk with no capture, every kernel of the path counted.  Prints per
+     run: capture_s and the capture call's wall, walls of graph and eager
+     calls in turns (GRAPH_ROUNDS rounds of graph, eager, eager, graph:
+     median, min, max), one torch.profiler trace of each mode (host launch
+     calls, device launches, busy ms, idle share), each mode's peak device
+     memory above the inputs, and the graphs' pool (reserved and free GiB);
+     the CLI's radsurf region walls in turns.  Every other phase runs its
+     calls as a user would, through the graphs; a call whose kernel calls
+     are held against their plain versions (Capture, CompareEach) runs
+     eagerly, and each of the parallel, auto, grad and bench phases starts
+     with the graphs cleared (graphs.clear()).
   parallel - streamed, meshed and multi-process runs (parallel/), each with
      the launch counters set to 0 just before it and read just after (K1-K5
      must launch on every path), every line with the card's name and power
@@ -73,7 +102,8 @@ final line):
          budgets reduced on the card per chunk within phase 3's bars; no
          synchronizing CUDA operation in the streamed run
          (torch.cuda.set_sync_debug_mode("warn"): each one's Python frames
-         are printed); one shot's warm wall (median of 3, its outputs
+         are printed; the synchronize that begins a graph capture, once per
+         key, is counted apart); one shot's warm wall (median of 3, its outputs
          fetched to the host as the stream's are) and columns/s.
        stream_scale: the headline's mix repeated 64 times (1,114,112
          columns: 17 chunks), float32 and float64: finite outputs of the expected
@@ -102,7 +132,8 @@ final line):
      the card's name and power limit:
        model: the model's one-shot prediction against the measured
          max_memory_allocated of one warm kernel-route run_radsurf call
-         (column_chunk 0; above what was allocated before it) at the
+         (column_chunk 0; above what was allocated before it; the second
+         call of its key, which captures the core's graph) at the
          headline, rami5_shape and rami5_ns1, float32 and float64: each
          measured / predicted within AUTO_RATIO.
        sweep: warm walls (median, min, max of 5) and peaks of the kernel
@@ -166,7 +197,10 @@ final line):
      bars); the kernel route's gradient against the scan route's (whose
      step keeps its whole graph, all columns) at 1e-9 relative in float64
      and GRAD_AGREE_F32 in float32 (max|diff| / max|scan|); finite; the
-     autograd graph freed after the step; in float64 a directional central
+     autograd graph freed after the step (nothing left allocated but the
+     allocator's blocks of the gradient and the loss, read from its
+     snapshot, and what a graph captured in the step keeps in the graph
+     cache); in float64 a directional central
      difference of the kernel route's loss (step FD_STEP along a seeded
      normal v) against <grad, v> within 5e-4 relative
      (tests/test_autodiff.py:104).  Prints each step's launches, peak
@@ -414,6 +448,14 @@ AUTO_SQUEEZE = 0.5
 BENCH_REPS = 5
 THROUGHPUT_BLOCKS = {"nreg3": 1, "rami5": 2, "grad": 1, "capacity": 1, "headline": 2}
 CORNER_CONFIGS = ((3, 4, True), (2, 4, True), (2, 4, False), (1, 4, True))
+# graphs phase: rounds of (graph, eager, eager, graph) timed calls, the
+# streamed CLI run's column chunk (the cli input's tile blocks make 4
+# chunks of one VegetatedUrban shape, 2 of Forest, 2 of Urban, then a
+# ragged mixed one), and the bar of a field that is not bit-equal (the
+# loosest of phase 2's per-field bars)
+GRAPH_ROUNDS = 10
+GRAPH_CLI_CHUNK = 2048
+GRAPH_TOL = {"float32": 2e-4, "float64": 1e-9}
 # corner columns whose layer factory takes this many doubling steps or more
 # (tools.roofline.doubling_steps) are held to their budgets only
 CORNER_MAX_DOUBLINGS = 16
@@ -463,12 +505,17 @@ class Capture:
     """Record the operands and results of every call of the kernel wrappers
     that a module (the solver, or the kernel demo) calls,
     {wrapper name: [(args, kwargs, result), ...]} (the wrappers themselves
-    run unchanged)."""
+    run unchanged, and the calls inside run eagerly: graphs.disabled())."""
 
     def __init__(self, module):
         self.module, self.calls = module, {n: [] for n in WRAPPERS}
 
     def __enter__(self):
+        from spartacus_surface_tpu_torch.utils import graphs
+
+        # the calls watched run eagerly (a replay calls no wrapper)
+        self.eager = graphs.disabled()
+        self.eager.__enter__()
         self.saved = {n: getattr(self.module, n) for n in WRAPPERS
                       if hasattr(self.module, n)}
         for name, fn in self.saved.items():
@@ -485,6 +532,7 @@ class Capture:
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.module, name, fn)
+        self.eager.__exit__(*exc)
 
 
 class CompareEach(Capture):
@@ -723,7 +771,9 @@ def nc_field_err(ref, got, names):
 def sync_sites(fn):
     """fn() under torch.cuda.set_sync_debug_mode("warn"): (its result, for
     each synchronizing CUDA operation it issued the file:line of its
-    Python frames, innermost first)."""
+    Python frames, innermost first).  The synchronize that begins a CUDA
+    graph's capture (utils/graphs.py, once per key) is a site too; see
+    capture_sites."""
     import traceback
     import warnings
 
@@ -748,6 +798,12 @@ def sync_sites(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return res, sites
+
+
+def capture_sites(sites):
+    """(the sites of sync_sites that begin a graph capture, the others)."""
+    capture = [x for x in sites if "graphs.py:" in x]
+    return capture, [x for x in sites if x not in capture]
 
 
 def copy_overlap(fn):
@@ -852,6 +908,9 @@ def parallel_phase(dev, counters, headline, cli_files):
     from spartacus_surface_tpu_torch.utils.config import Config
     from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 
+    from spartacus_surface_tpu_torch.utils import graphs
+
+    graphs.clear()  # no graph of an earlier phase holds the card's memory
     card = card_line()
     groups = ("sw_norm_dir", "sw_norm_diff", "lw_internal", "lw_norm")
     dtypes = {"float32": np.float32, "float64": np.float64}
@@ -933,6 +992,7 @@ def parallel_phase(dev, counters, headline, cli_files):
         t0 = time.perf_counter()
         got, syncs = sync_sites(lambda: streamed(arrays))
         t_stream = time.perf_counter() - t0
+        captures, syncs = capture_sites(syncs)
         c = counts()
         launched(c, tag)
         check(not syncs, f"{tag}: the streamed run synchronized the device at {syncs[:10]}")
@@ -951,7 +1011,8 @@ def parallel_phase(dev, counters, headline, cli_files):
         emit(phase="parallel", item="stream_equal", dtype=dname, columns=len(rep),
              chunk=PAR_CHUNK, depth=PAR_DEPTH, chunks=-(-len(rep) // PAR_CHUNK),
              field_normalized_err=err, tol=PAR_TOL[dname], max_budget_residual=resid,
-             launches=c, sync_sites=syncs, seconds_streamed_first=t_stream,
+             launches=c, sync_sites=syncs, capture_sync_sites=len(captures),
+             seconds_streamed_first=t_stream,
              one_shot_warm_wall_seconds=w_one, one_shot_cols_per_sec=one_shot_rate[dname],
              torch=torch.__version__, card=card)
         del arrays
@@ -1173,8 +1234,10 @@ def auto_phase(dev, counters, slices, cli_files):
     from spartacus_surface_tpu_torch.utils.config import Config
     from spartacus_surface_tpu_torch.utils.device_memory import (
         BUDGET_RESERVE, BUDGET_SHARE, device_budget)
+    from spartacus_surface_tpu_torch.utils import graphs
     from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 
+    graphs.clear()  # no graph of an earlier phase holds the card's memory
     card = card_line()
     GiB = 2**30
     dtypes = {"float32": np.float32, "float64": np.float64}
@@ -1242,6 +1305,8 @@ def auto_phase(dev, counters, slices, cli_files):
             arrays, config = arrays_of(sname, dname), config_of(sname, 0)
             dispatch.run_radsurf(config, arrays, dev)  # warm: workspaces, caches
             torch.cuda.empty_cache()
+            # the second call captures the core's CUDA graph: its peak is the
+            # working set the graph's pool holds
             peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))[1]
             rep, L = slices[sname][0], slices[sname][1]
             predicted = dispatch.working_set_bytes(config, rep, L, np.dtype(np_dt).itemsize)
@@ -1294,6 +1359,7 @@ def auto_phase(dev, counters, slices, cli_files):
     nam = cli_files["namelist"]
     cfg_cli = Config.from_namelist(nam).consolidate()
     predicted_cli = dispatch.working_set_bytes(cfg_cli, tiles(CLI_TILES), 8, 8)
+    graphs.clear()  # the graphs' pool would hold memory the ballast counts as free
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
@@ -1348,6 +1414,9 @@ def auto_phase(dev, counters, slices, cli_files):
                            if k in got and got[k].shape == ref[k].shape), default=None),
          card=card)
 
+    # the CLI's graphs would go with its process; here they would hold the
+    # squeezed budget's memory in their pool (device_budget counts it taken)
+    graphs.clear()
     arrays = arrays_of("headline", "float64")
     reset()
     with Picks() as picks:
@@ -1554,6 +1623,9 @@ def bench_phase(counters):
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
 
+    from spartacus_surface_tpu_torch.utils import graphs
+
+    graphs.clear()  # the bench starts as in a process of its own
     compared, plains = [], plain_versions(LK, SK, LSK)
 
     @contextlib.contextmanager
@@ -1621,6 +1693,205 @@ def bench_phase(counters):
          card=bench.card_line())
 
 
+def graphs_phase(dev, counters, slices, cli_files):
+    """The graphs phase: each compiled program against its eager run under
+    graphs.disabled() (see the module docstring).  slices: slice_shapes();
+    cli_files: as for parallel_phase."""
+    import numpy as np
+    import torch
+
+    from spartacus_surface_tpu_torch import bench, entry
+    from spartacus_surface_tpu_torch.driver import main as cli
+    from spartacus_surface_tpu_torch.models.dispatch import run_radsurf
+    from spartacus_surface_tpu_torch.models.solver import SolverOptions
+    from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
+    from spartacus_surface_tpu_torch.utils import graphs, profiling
+    from spartacus_surface_tpu_torch.utils.config import Config
+    from spartacus_surface_tpu_torch.utils.inputs import example_arrays
+
+    card = bench.card_line()
+    dtypes = {"float32": np.float32, "float64": np.float64}
+    GiB = 2**30
+
+    def reset():
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
+
+    def counts():
+        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+
+    def in_mode(mode, fn):
+        """fn as a graph replay ("graph") or eagerly ("eager")."""
+        def run():
+            with graphs.disabled() if mode == "eager" else contextlib.nullcontext():
+                return fn()
+        return run
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def pool_gib():
+        """GiB of the graph pools' segments on the card: (reserved, free)."""
+        segs = [g for g in torch.cuda.memory_snapshot()
+                if tuple(g["segment_pool_id"]) != (0, 0)]
+        return (sum(g["total_size"] for g in segs) / GiB,
+                sum(g["total_size"] - g["allocated_size"] for g in segs) / GiB)
+
+    def differing(ref, got):
+        """{output field: field-normalized error} of the fields that are not
+        bit-equal; fails a field over GRAPH_TOL."""
+        fr, fg = bench.fields_of(ref), bench.fields_of(got)
+        check(fr.keys() == fg.keys(), f"graphs: the outputs differ in their fields"
+                                      f" {fr.keys() ^ fg.keys()}")
+        out = {}
+        for k in fr:
+            if not torch.equal(fr[k], fg[k]):
+                out[k] = field_err([fr[k]], [fg[k]])
+        return out
+
+    def solves(C, L, S, nreg, dname):
+        """bench.py's step: spartacus_sw + spartacus_lw, AUTO column chunk."""
+        opt = SolverOptions(nreg=nreg, nstream=4, do_urban=True, column_chunk=-1)
+        lg = LegendreGauss(4)
+        sw, lw = entry.canopy_inputs(C, L, S, dtypes[dname], dev, 0)
+        return lambda: bench.sw_lw(sw, lw, opt, lg)
+
+    def radsurf(sname, dname):
+        rep, L, S, cfg = slices[sname]
+        config = Config(do_lw=True, **cfg).consolidate()
+        arrays = example_arrays(C=len(rep), L=L, S=S, dtype=dtypes[dname],
+                                i_representation=rep)
+        return lambda: run_radsurf(config, arrays, dev)
+
+    runs = (("bench_headline", "float32", lambda: solves(16384, 8, 1, 2, "float32"), PATH_4),
+            ("bench_headline", "float64", lambda: solves(16384, 8, 1, 2, "float64"), PATH_4),
+            ("bench_nreg3", "float32", lambda: solves(8192, 8, 1, 3, "float32"), PATH_4),
+            ("bench_rami5", "float32", lambda: solves(1024, 62, 14, 3, "float32"), PATH_4),
+            ("rami5_ns1", "float32", lambda: radsurf("rami5_ns1", "float32"), PATH_R5_1),
+            ("run_radsurf_headline", "float32", lambda: radsurf("headline", "float32"),
+             PATH_4))
+    for name, dname, make, path in runs:
+        tag = f"graphs {name} {dname}"
+        graphs.clear()
+        step = make()
+        _, ref = timed(in_mode("eager", step))
+        _, syncs = sync_sites(in_mode("eager", step))  # what would stop a capture
+        check(not syncs, f"{tag}: the eager call synchronized the device at {syncs[:10]}")
+        before = graphs.stats()
+        t_first, _ = timed(step)  # the key's first call: eager
+        t_capture, got = timed(step)  # captured, then replayed
+        after = graphs.stats()
+        captures = after["captures"] - before["captures"]
+        check(captures > 0, f"{tag}: nothing was captured")
+        diff = differing(ref, got)
+        for k, e in diff.items():
+            check(e <= GRAPH_TOL[dname], f"{tag}: {k} differs from the eager call by {e:.3e}")
+        del ref, got
+        reset()
+        timed(step)  # one replay, counted
+        launches = counts()
+        check(all(launches[k] > 0 for k in path),
+              f"{tag}: a kernel of the path was not launched in a replay {launches}")
+        walls = {"graph": [], "eager": []}
+        for _ in range(GRAPH_ROUNDS):
+            for mode in ("graph", "eager", "eager", "graph"):
+                walls[mode].append(timed(in_mode(mode, step))[0])
+        peaks, traces = {}, {}
+        for mode in ("graph", "eager"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            timed(in_mode(mode, step))
+            peaks[mode] = (torch.cuda.max_memory_allocated() - base) / GiB
+            traces[mode] = bench.trace_fields(in_mode(mode, step), f"graphs_{mode}",
+                                              kernels=TRACED)
+        reserved, free = pool_gib()
+        emit(phase="graphs", run=name, dtype=dname, bit_equal=not diff, sync_sites=syncs,
+             differing_fields=diff, tol=GRAPH_TOL[dname], captures=captures,
+             capture_s=after["capture_s"] - before["capture_s"],
+             seconds_first_call=t_first, seconds_capture_call=t_capture,
+             launches_one_replay=launches,
+             median_ms={m: 1e3 * statistics.median(w) for m, w in walls.items()},
+             min_ms={m: 1e3 * min(w) for m, w in walls.items()},
+             max_ms={m: 1e3 * max(w) for m, w in walls.items()},
+             n={m: len(w) for m, w in walls.items()},
+             host_launches={m: t["host_launches"] for m, t in traces.items()},
+             device_launches={m: t["device_launches"] for m, t in traces.items()},
+             device_busy_ms={m: t["device_busy_ms"] for m, t in traces.items()},
+             idle_share={m: t["device_idle_share"] for m, t in traces.items()},
+             peak_gib=peaks, pool_reserved_gib=reserved, pool_free_gib=free,
+             budget_pool_free_gib=graphs.pool_free_bytes(dev) / GiB, card=card)
+        del step
+
+    # ---- the CLI streamed in GRAPH_CLI_CHUNK-column chunks (cli_ns4,
+    # single precision): eagerly, then three times with graphs (the first
+    # run captures the chunk shapes that repeat in it, the second the one
+    # that does not, the third replays every chunk)
+    graphs.clear()
+    out_dir = Path(cli_files["input"]).parent
+
+    def cli_run(out_nc):
+        def run():
+            profiling.reset()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main([str(cli_files["namelist"]), str(cli_files["input"]),
+                               str(out_nc), "--precision", "single", "--stream-chunk",
+                               str(GRAPH_CLI_CHUNK), "--timings"])
+            check(rc == 0, f"graphs cli: exit code {rc}")
+            return profiling.totals().get("radsurf")
+        return run
+
+    graph_runs = ("graph1", "graph2", "graph3")
+    files = {m: out_dir / f"graphs_cli_{m}.nc" for m in ("eager",) + graph_runs}
+    t_eager, _ = timed(in_mode("eager", cli_run(files["eager"])))
+    per_run = []
+    for m in graph_runs:
+        before = graphs.stats()
+        reset()
+        t, radsurf_s = timed(cli_run(files[m]))
+        after = graphs.stats()
+        per_run.append(dict(seconds=t, radsurf_s=radsurf_s, launches=counts(),
+                            **{k: after[k] - before[k] for k in ("captures", "replays",
+                                                                 "capture_s")}))
+    check(per_run[-1]["captures"] == 0 and per_run[-1]["replays"] > 0,
+          f"graphs cli: the last run did not replay every chunk {per_run[-1]}")
+    check(all(per_run[-1]["launches"][k] > 0 for k in PATH_4),
+          f"graphs cli: a kernel of the path was not launched {per_run[-1]['launches']}")
+    ref = nc_vars(files["eager"])
+    same = {}
+    for m in graph_runs:
+        got = nc_vars(files[m])
+        same[m] = set(ref) == set(got) and all(np.array_equal(ref[k], got[k]) for k in ref)
+        if not same[m]:
+            err = nc_field_err(ref, got, [k for k in ref if k in got])
+            check(err <= GRAPH_TOL["float32"], f"graphs cli {m}: the file differs by {err:.3e}")
+            same[m] = {k: float(np.abs(got[k] - ref[k]).max()) for k in ref
+                       if k in got and not np.array_equal(ref[k], got[k])}
+    walls = {"graph": [], "eager": []}
+    for _ in range(3):
+        for mode in ("graph", "eager", "eager", "graph"):
+            walls[mode].append(in_mode(mode, cli_run(files["graph3"]))())
+    emit(phase="graphs", run="cli_ns4_streamed", dtype="float32", chunk=GRAPH_CLI_CHUNK,
+         bit_equal_files=same, seconds_eager_run=t_eager, runs=per_run,
+         radsurf_median_s={m: statistics.median(w) for m, w in walls.items()},
+         radsurf_min_s={m: min(w) for m, w in walls.items()},
+         radsurf_max_s={m: max(w) for m, w in walls.items()},
+         n={m: len(w) for m, w in walls.items()}, card=card)
+    graphs.clear()
+
+
+def graphs_only(dev, counters):
+    """The graphs phase alone: cli_files_unchecked, then graphs_phase."""
+    files = cli_files_unchecked()
+    t0 = time.perf_counter()
+    graphs_phase(dev, counters, slice_shapes(), files)
+    emit(phase="graphs", item="seconds", seconds=time.perf_counter() - t0)
+
+
 def auto_only(dev, counters):
     """The auto and corners phases alone: cli_files_unchecked, then both."""
     files = cli_files_unchecked()
@@ -1640,6 +1911,8 @@ def main(argv=None) -> int:
                       help="build, then run the auto and corners phases alone (no kernels line)")
     args.add_argument("--bench-only", action="store_true",
                       help="build, then run the bench phase alone (no kernels line)")
+    args.add_argument("--graphs-only", action="store_true",
+                      help="build, then run the graphs phase alone (no kernels line)")
     args = args.parse_args(argv)
     profile = args.profile
     import torch
@@ -1675,7 +1948,7 @@ def main(argv=None) -> int:
     from spartacus_surface_tpu_torch.ops.launches import COUNTERS
     from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
     from spartacus_surface_tpu_torch.tools import roofline as RL
-    from spartacus_surface_tpu_torch.utils import profiling
+    from spartacus_surface_tpu_torch.utils import graphs, profiling
     from spartacus_surface_tpu_torch.utils.config import Config, DriverConfig
     from spartacus_surface_tpu_torch.utils.inputs import (
         example_arrays, example_inputs, random_lw_fields, write_example_input)
@@ -1739,11 +2012,12 @@ def main(argv=None) -> int:
          nvcc_seconds=cuda_build.build_seconds,
          part_seconds={f"{n}:{m or 'main'}": t for (n, m), t in cuda_build.part_seconds.items()},
          ptxas=ptxas)
-    if args.parallel_only or args.auto_only or args.bench_only:
+    if args.parallel_only or args.auto_only or args.bench_only or args.graphs_only:
         if args.bench_only:
             bench_phase(counters)
         else:
-            (parallel_only if args.parallel_only else auto_only)(dev, counters)
+            (parallel_only if args.parallel_only else auto_only if args.auto_only
+             else graphs_only)(dev, counters)
         print(card_line(), flush=True)
         for f in FAILURES:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
@@ -2019,6 +2293,12 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     cli.run_radsurf = run_radsurf
 
+    # ---- graphs: each compiled program against its eager run
+    t0 = time.perf_counter()
+    graphs_phase(dev, counters, slices, {
+        "input": input_nc, "columns": len(rep_cli), "namelist": CLI_DIR / "cli_ns4.nam"})
+    emit(phase="graphs", item="seconds", seconds=time.perf_counter() - t0)
+
     # ---- parallel: streamed, meshed and multi-process runs
     t0 = time.perf_counter()
     parallel_phase(dev, counters, (slices["headline"][0], slices["headline"][3]),
@@ -2082,6 +2362,7 @@ def main(argv=None) -> int:
         with torch.no_grad():
             return grad_loss(run_radsurf(config, {**arrays, "veg_ext": veg_ext}, dev)).item()
 
+    graphs.clear()  # the grad phase starts as in a process of its own
     ns1_config = Config.from_namelist(CLI_DIR / "cli_ns1.nam")
     ns1_config.do_lw = True
     grad_cases = {  # name: (tile codes, config, the kernels that must launch)
@@ -2144,17 +2425,30 @@ def main(argv=None) -> int:
             step = wall_seconds(lambda: grad_step(config, arrays, veg_ext), reps=3)[0]
             # after those warm steps (the first step of a process leaves the
             # libraries' workspaces, 64 MiB), a step leaves nothing of its
-            # graph: only the gradient and the loss it returns, each in
-            # blocks of the caching allocator's 512 bytes
-            blocks = lambda t: -(-t.untyped_storage().nbytes() // 512) * 512
+            # graph: only the gradient and the loss it returns, in the
+            # allocator's blocks that hold them (a block is 512-byte
+            # rounded, or a whole cached block that was not split, up to 1
+            # MiB larger); a graph captured in the step keeps its static
+            # inputs and packed outputs in the graph cache: counted apart
+            def block_bytes(*ts):
+                sizes = {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+                         for b in seg["blocks"] if b["state"] == "active_allocated"}
+                return sum(sizes[t.untyped_storage().data_ptr()] for t in ts)
+
+            held0 = graphs.stats()
             mem0 = torch.cuda.memory_allocated()
             loss, grad = grad_step(config, arrays, veg_ext)
             torch.cuda.synchronize()
-            left = torch.cuda.memory_allocated() - mem0 - blocks(grad) - blocks(loss)
-            check(left <= 0, f"{tag}: {left} bytes of the step outlived it")
+            held1 = graphs.stats()
+            cached = held1["held_bytes"] - held0["held_bytes"]
+            left = torch.cuda.memory_allocated() - mem0 - block_bytes(grad, loss) - cached
+            check(left <= 0, f"{tag}: {left} bytes of the step outlived it"
+                             f" (graphs: {held0} before, {held1} after)")
             del loss, grad
             record.update(seconds_forward=fwd, seconds_forward_backward=step,
                           step_over_forward=step / fwd, bytes_left_after_step=left,
+                          graph_bytes_kept_in_step=cached,
+                          captures_in_step=held1["captures"] - held0["captures"],
                           graph_freed_after_step=left <= 0)
             emit(**record)
             del g_k, arrays, veg_ext

@@ -38,7 +38,10 @@ torch.cuda.synchronize(), tracing off: the port is host-bound at the
 headline, and its users pay that host time, so bench.py's differential
 in-device loop, which cancels dispatch, is not used.  3 warm-up calls (the
 first one's wall is `first_call_s`, set-up), then --reps timed calls (40,
-11 in the capacity block).  A throughput line holds columns/s/chip from the
+11 in the capacity block).  Each solve is a compiled program (a CUDA graph
+per key, utils/graphs.py): the warm-up runs it eagerly, then captures it,
+and the timed calls replay it; a line holds the seconds its captures took
+(`capture_s`, set-up) and their count (`captures`).  A throughput line holds columns/s/chip from the
 median wall (one card), median_ms, the highest percentile with at least ten
 samples beyond it (p75 at 40 calls; none with fewer than 20), min_ms,
 max_ms, n, and peak_gib, the peak device memory above what was allocated
@@ -83,7 +86,7 @@ from .models.solver import SolverOptions, spartacus_lw, spartacus_sw
 from .ops import cuda_build, launches
 from .ops.legendre_gauss import LegendreGauss
 from .parallel.mesh import tree_leaves
-from .utils import profiling
+from .utils import graphs, profiling
 from .utils.config import Config, DriverConfig
 from .utils.constants import StefanBoltzmann
 from .utils.inputs import example_arrays, write_example_input
@@ -120,6 +123,8 @@ CLI_VARIABLES = ("height", "ground_spectral_flux_dn_sw", "spectral_flux_dn_layer
 TRACE_KERNELS = ("layer_factory_kernel", "layer_factory_dense_kernel", "sw_up_kernel",
                  "sw_down_kernel", "lw_up_kernel", "lw_down_kernel")
 DTYPES = {"float32": np.float32, "float64": np.float64}
+# the runtime calls of a trace that launch device work
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
 
 
 @dataclass
@@ -224,9 +229,11 @@ def measure(b: Bench, step, columns: int, reps: int, check) -> dict:
         first = time.perf_counter() - t0
     found = check(out)
     del out
+    before = graphs.stats()
     for _ in range(WARMUP - 1):
         step()
         b.sync()
+    after = graphs.stats()
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -241,7 +248,8 @@ def measure(b: Bench, step, columns: int, reps: int, check) -> dict:
         percentile_ms=None if pval is None else pval * 1e3,
         min_ms=min(walls) * 1e3, max_ms=max(walls) * 1e3, n=reps,
         peak_gib=(torch.cuda.max_memory_allocated(b.device) - base) / 2**30 if cuda else None,
-        first_call_s=first, **found)
+        first_call_s=first, capture_s=after["capture_s"] - before["capture_s"],
+        captures=after["captures"] - before["captures"], **found)
 
 
 def trace_fields(step, label: str = "bench_call", cuda: bool = True,
@@ -250,9 +258,11 @@ def trace_fields(step, label: str = "bench_call", cuda: bool = True,
     profiling.annotate(label), after a warm call: the device ms of each
     kernel of `kernels` ({name: the device symbol a trace names it with};
     default TRACE_KERNELS by symbol) and of everything else (the front end
-    and epilogue), the device launches, the device-busy ms (the union of the
-    device intervals) and the idle share of the call (from its host start to
-    its last device activity).  The profiler slows the host side, so the
+    and epilogue), the device launches (kernels and copies the device ran,
+    those of a CUDA graph's replay each counted), the host's launch calls
+    (host_launches: kernel, copy and graph launches issued; a replay is one),
+    the device-busy ms (the union of the device intervals) and the idle
+    share of the call (from its host start to its last device activity).  The profiler slows the host side, so the
     idle share is an upper bound for an untraced call.  Without the card
     (cuda false) the device numbers are None (not measured)."""
     from torch.autograd import DeviceType
@@ -272,7 +282,9 @@ def trace_fields(step, label: str = "bench_call", cuda: bool = True,
     dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != label]
     fields = dict(traced_call_ms=call.time_range.elapsed_us() / 1e3, kernel_device_ms=None,
                   other_device_ms=None, device_launches=None, device_busy_ms=None,
-                  device_idle_share=None)
+                  device_idle_share=None, host_launches=sum(
+                      1 for e in events if e.device_type == DeviceType.CPU
+                      and e.name.startswith(LAUNCH_CALLS)))
     if dev:
         busy, reach = 0.0, -math.inf
         for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in dev):

@@ -6,6 +6,12 @@ Port of spartacus_surface_tpu/models/dispatch.py ``run_radsurf`` /
 Parity: the per-column ``select case (i_representation)`` loop of
 radsurf/radsurf_interface.F90:105-313.
 
+As in JAX, a call is a host plan (_plan: the tile groups, their indices,
+the fields moved to the device, the AUTO column chunks) and a device core
+(_core: the flux containers, every solve and scatter), which on the kernel
+route runs as a compiled program: a CUDA graph per (plan, shapes, dtype,
+device), utils/graphs.py.
+
 Device meshes: pass ``mesh=`` (a list of devices, parallel/mesh.py) and each
 layered group's columns are split over its entries, each shard solved on its
 own device (``column_chunk`` applying per shard, as under JAX's
@@ -19,18 +25,23 @@ may be unequal, so no group is padded to a device multiple (JAX
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from ..parallel.mesh import column_sharding, tree_map
+from ..ops.legendre_gauss import LegendreGauss
+from ..parallel.mesh import column_sharding, tree_leaves, tree_map
 from ..utils.config import Config
 from ..utils import device_memory as DM
+from ..utils import graphs
 from ..utils.convert import torch_dtype
 from ..utils.transfer import to_device
 from . import flat as flat_mod
 from . import simple_urban as su_mod
-from .solver import (CanopyInputs, SolverOptions, debug_dump_sw, spartacus_lw,
-                     spartacus_sw)
+from . import solver
+from .solver import (CanopyInputs, SolverOptions, _needs_grad, debug_dump_sw,
+                     spartacus_lw, spartacus_sw)
 
 # Tile representation codes (radsurf/radsurf_canopy_properties.F90:26-33)
 TILE_FLAT = 0
@@ -119,17 +130,18 @@ def working_set_bytes(config: Config, i_representation, nlay: int,
     """The working-set model (utils/device_memory.py) of one one-shot
     run_radsurf call on the kernel route: columns of the tile codes
     i_representation [ncol] with nlay layers, a consolidated Config, words of
-    itemsize bytes.  The layered groups are solved one after another and
-    every group's outputs are kept until all are scattered, so the peak is
-    the flux containers of every column, the outputs kept so far, and one
-    solve's inputs and transient, the largest of them."""
+    itemsize bytes.  Every solve's inputs are on the device before the core
+    runs (_plan), the layered groups are solved one after another and every
+    group's outputs are kept until all are scattered, so the peak is the
+    flux containers of every column, the inputs of every solve, the outputs
+    kept so far, and one solve's transient, the largest of them."""
     rep = np.asarray(i_representation)
     ncol = rep.size
     bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
         [(True, config.nlwinternal)] if config.do_lw else [])
     fixed = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
                 for _, S in bands)
-    kept = peak = 0
+    inputs = kept = peak = 0
     for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
         C = int((rep == code).sum())
         for lw, S in bands if C else ():
@@ -137,10 +149,10 @@ def working_set_bytes(config: Config, i_representation, nlay: int,
                                   (lg_lw if lw else lg_sw).nstream, itemsize,
                                   lw=lw, do_urban=opt_kw["do_urban"],
                                   with_profiles=config.do_save_flux_profile)
-            inputs = DM.class_bytes(DM.INPUT_WORDS[lw], C, nlay, S, itemsize)
-            peak = max(peak, kept + inputs + t)
+            inputs += DM.class_bytes(DM.INPUT_WORDS[lw], C, nlay, S, itemsize)
+            peak = max(peak, kept + t)
             kept += k
-    return fixed + peak
+    return fixed + inputs + peak
 
 
 def _same(*names):
@@ -183,6 +195,15 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
       mesh: optional list of devices (parallel/mesh.make_mesh): the layered
         groups' columns are split over it, each shard solved on its entry.
 
+    The host plan (_plan: tile groups, indices, the fields moved to the
+    device, AUTO column chunks) runs at every call; the device core (_core:
+    every solve and scatter) is a compiled program (utils/graphs.py; JAX
+    _radsurf_core): on CUDA a CUDA graph per (plan, shapes, dtype, device),
+    captured at the second call and replayed from then on, on the kernel
+    route.  It runs eagerly on the CPU, under graphs.disabled(), where an
+    input needs a gradient, with a mesh, and on the scan route (the plain
+    reference: its factory reads its doubling count on the host).
+
     Returns {"sw_norm_dir", "sw_norm_diff"} (with do_sw) and {"lw_internal",
     "lw_norm"} (with do_lw) flux dicts, and "bc_out": {"sw_albedo",
     "sw_albedo_dir"} / {"lw_emissivity", "lw_emission"}, tensors on
@@ -191,62 +212,188 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
+    plan, payload = _plan(config, arrays, device, route, mesh)
+    leaves = tree_leaves(payload)
+    if mesh:
+        with graphs.disabled():
+            return _core(plan, payload)
+    if route != "kernel" or any(_needs_grad(x) for x in leaves):
+        return _core(plan, payload)
+    skeleton = tree_map(lambda _: 0, payload)
+
+    def core(*xs):
+        it = iter(xs)
+        return _core(plan, tree_map(lambda _: next(it), skeleton))
+    return graphs.call((_core, plan), core, leaves)
+
+
+@functools.lru_cache(maxsize=None)
+def _lg(nstream: int) -> LegendreGauss:
+    return LegendreGauss(nstream)
+
+
+def _plan(config: Config, arrays: dict, device, route: str, mesh):
+    """The host half of run_radsurf (JAX run_radsurf before _radsurf_core):
+    the tile groups, their column indices and fields moved to the device (or
+    a group's shards to the mesh's devices), and each layered solve's
+    options with its column chunk resolved.  AUTO chunks: each solve may plan
+    for the budget its device had when the run began, less what the run has
+    moved there (measured) and what the core will hold there before the
+    solve (the working-set model: the flux containers, the earlier solves'
+    outputs), so that the run as a whole stays within that budget.
+
+    Returns (plan, payload).  plan is static and hashable (it keys the
+    core's graph): (head, flat, layered, simple), head = (ncol, nlay, nsw,
+    nlw, do_sw, do_lw, with_profiles, min_building_fraction, route, device,
+    dtype), flat and simple whether those groups exist, layered one
+    (nstream_sw, nstream_lw, ((shard device, opt_sw or None, opt_lw or
+    None), ...)) per group.  payload: {"flat", "layered", "simple"}, the
+    tensors in the plan's order."""
     rep = np.asarray(arrays["i_representation"])
     dz = arrays["dz"]
     ncol, nlay = dz.shape
-    kw = dict(dtype=dz.dtype if isinstance(dz, torch.Tensor)
-              else torch_dtype(np.asarray(dz).dtype), device=device)
+    dtype = dz.dtype if isinstance(dz, torch.Tensor) else torch_dtype(np.asarray(dz).dtype)
+    itemsize = torch.finfo(dtype).bits // 8
+    profiles = config.do_save_flux_profile
+    start = {d: (DM.device_budget(d), torch.cuda.memory_allocated(d))
+             for d in {device, *(mesh or ())}
+             if d.type == "cuda" and config.column_chunk == -1}
 
     def get(key, idx, dev=device):
         """The columns idx of arrays[key] on dev: a tensor is indexed there
         (its autograd graph kept), a numpy array sliced on the host."""
         x = arrays[key]
         if isinstance(x, torch.Tensor):
-            return x.to(device=dev, dtype=kw["dtype"])[to_device(idx, dev)]
-        return to_device(np.asarray(x)[idx], dev, kw["dtype"])
+            return x.to(device=dev, dtype=dtype)[to_device(idx, dev)]
+        return to_device(np.asarray(x)[idx], dev, dtype)
 
-    # AUTO column chunks: each solve may plan for the budget its device had
-    # when the run began, less what the run has allocated there since (the
-    # flux containers, earlier groups' outputs), so that the run as a whole
-    # stays within that budget
-    start = {d: (DM.device_budget(d), torch.cuda.memory_allocated(d))
-             for d in {device, *(mesh or ())}
-             if d.type == "cuda" and config.column_chunk == -1}
+    gdir = "ground_albedo_dir" if config.use_sw_direct_albedo else "ground_albedo"
+    payload = {}
 
-    def budget_left(dev):
-        if dev not in start:
-            return None
-        budget, allocated = start[dev]
-        return budget - (torch.cuda.memory_allocated(dev) - allocated)
+    # ---- flat tiles
+    idx = np.nonzero(rep == TILE_FLAT)[0]
+    if idx.size:
+        pl = payload["flat"] = {"idx": to_device(idx, device)}
+        if config.do_sw:
+            pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx))
+        if config.do_lw:
+            pl.update(gemis=get("ground_emissivity", idx),
+                      gemit=get("ground_emission", idx))
 
+    # ---- layered SPARTACUS tiles, per shard
+    groups, payload["layered"] = [], []
+    for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
+        idx = np.nonzero(rep == code)[0]
+        if not idx.size:
+            continue
+        shards = ([(dev, idx[sl]) for dev, sl in column_sharding(idx.size, mesh)
+                   if sl.stop > sl.start] if mesh else [(device, idx)])
+        pls = []
+        for k, (dev, sidx) in enumerate(shards):
+            pl = {"idx": to_device(sidx, device)}
+            if config.do_sw:
+                keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
+                pl["sw"] = CanopyInputs(**{f: get(key, sidx, dev) for f, key in keys.items()})
+                if k == 0:  # prints the group's first column under SPARTACUS_DEBUG_ARRAYS
+                    debug_dump_sw(pl["sw"], SolverOptions(nstream=lg_sw.nstream, **opt_kw),
+                                  lg_sw)
+            if config.do_lw:
+                pl["lw"] = CanopyInputs(**{f: get(key, sidx, dev) for f, key in _LW_KEYS.items()})
+            pls.append(pl)
+        groups.append((opt_kw, lg_sw, lg_lw, [dev for dev, _ in shards], pls))
+        payload["layered"].append(pls)
+
+    # ---- simple urban / infinite street
+    idx = np.nonzero(np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]))[0]
+    if idx.size:
+        if np.any(np.asarray(arrays["nlay"])[idx] != 1):
+            raise ValueError(
+                "simple urban representations must have only one layer")
+        lay0 = lambda key: get(key, idx)[:, 0]
+        pl = payload["simple"] = dict(
+            idx=to_device(idx, device), dz=lay0("dz"),
+            bf=lay0("building_fraction"), bs=lay0("building_scale"),
+            cos_sza=get("cos_sza", idx),
+            is_inf=to_device(rep[idx] == TILE_INFINITE_STREET, device))
+        if config.do_sw:
+            pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx),
+                      ralb=lay0("roof_albedo"), walb=lay0("wall_albedo"))
+        if config.do_lw:
+            pl.update(gemis=get("ground_emissivity", idx),
+                      gemit=get("ground_emission", idx),
+                      remis=lay0("roof_emissivity"), remit=lay0("roof_emission"),
+                      wemis=lay0("wall_emissivity"), wemit=lay0("wall_emission"))
+
+    # ---- the layered solves' options, their AUTO chunks resolved
+    bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
+        [(True, config.nlwinternal)] if config.do_lw else [])
+    held = {d: torch.cuda.memory_allocated(d) - a for d, (_, a) in start.items()}
+    if device in held:  # the flux containers
+        held[device] += sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
+                            for _, S in bands)
+    layered = []
+    for opt_kw, lg_sw, lg_lw, devs, pls in groups:
+        shard_opts = []
+        for dev, pl in zip(devs, pls):
+            opts = []
+            for lw, S in bands:
+                lg, inp = (lg_lw, pl["lw"]) if lw else (lg_sw, pl["sw"])
+                C = inp.dz.shape[0]
+                budget = start[dev][0] - held[dev] if dev in start else None
+                opt = solver.resolve_chunk(
+                    SolverOptions(nstream=lg.nstream, **opt_kw), lg, C, nlay, S,
+                    dtype, dev, lw=lw, route=route, with_profiles=profiles,
+                    budget=budget)
+                if dev in held:  # the solve's outputs, kept to the end
+                    held[dev] += DM.solve_bytes(
+                        C, nlay, S, opt.nreg, lg.nstream, itemsize, lw=lw,
+                        do_urban=opt.do_urban, with_profiles=profiles)[1]
+                opts.append(opt)
+            opt_sw = opts[0] if config.do_sw else None
+            opt_lw = opts[-1] if config.do_lw else None
+            shard_opts.append((dev, opt_sw, opt_lw))
+        layered.append((lg_sw.nstream, lg_lw.nstream, tuple(shard_opts)))
+
+    head = (ncol, nlay, config.nswinternal, config.nlwinternal, config.do_sw,
+            config.do_lw, profiles, config.min_building_fraction, route,
+            device, dtype)
+    plan = (head, "flat" in payload, tuple(layered), "simple" in payload)
+    return plan, payload
+
+
+def _core(plan, payload):
+    """The device half of run_radsurf (JAX _radsurf_core): the flux
+    containers, the flat, layered and simple-urban solves, and the scatter
+    of every group's outputs into the containers.  plan, payload: _plan."""
+    head, has_flat, layered, has_simple = plan
+    (ncol, nlay, nsw, nlw, do_sw, do_lw, profiles, min_bf, route, device,
+     dtype) = head
+    kw = dict(dtype=dtype, device=device)
     bc = {}
     out = {"bc_out": bc}
-    nsw, nlw = config.nswinternal, config.nlwinternal
-    if config.do_sw:
+    if do_sw:
         bc.update(sw_albedo=torch.zeros((ncol, nsw), **kw),
                   sw_albedo_dir=torch.zeros((ncol, nsw), **kw))
         out.update(sw_norm_dir=_empty_flux(ncol, nlay, nsw, **kw),
                    sw_norm_diff=_empty_flux(ncol, nlay, nsw, **kw))
-    if config.do_lw:
+    if do_lw:
         bc.update(lw_emissivity=torch.zeros((ncol, nlw), **kw),
                   lw_emission=torch.zeros((ncol, nlw), **kw))
         out.update(lw_internal=_empty_flux(ncol, nlay, nlw, **kw),
                    lw_norm=_empty_flux(ncol, nlay, nlw, **kw))
-    gdir = "ground_albedo_dir" if config.use_sw_direct_albedo else "ground_albedo"
 
     # ---- flat tiles (radsurf_interface.F90:122-173)
-    idx = np.nonzero(rep == TILE_FLAT)[0]
-    if idx.size:
-        tidx = to_device(idx, device)
-        if config.do_sw:
-            nd, nf, fbc = flat_mod.flat_sw(get("ground_albedo", idx), get(gdir, idx))
+    if has_flat:
+        pl = payload["flat"]
+        tidx = pl["idx"]
+        if do_sw:
+            nd, nf, fbc = flat_mod.flat_sw(pl["galb"], pl["galb_dir"])
             _scatter(out["sw_norm_dir"], nd, tidx)
             _scatter(out["sw_norm_diff"], nf, tidx)
             for key in ("sw_albedo", "sw_albedo_dir"):
                 bc[key][tidx] = fbc[key]
-        if config.do_lw:
-            li, ln, fbc = flat_mod.flat_lw(get("ground_emissivity", idx),
-                                           get("ground_emission", idx))
+        if do_lw:
+            li, ln, fbc = flat_mod.flat_lw(pl["gemis"], pl["gemit"])
             _scatter(out["lw_internal"], li, tidx)
             _scatter(out["lw_norm"], ln, tidx)
             for key in ("lw_emissivity", "lw_emission"):
@@ -255,32 +402,18 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
     # ---- layered SPARTACUS tiles: every shard's solves are issued first,
     # then their results gathered on `device` and scattered
     solved = []
-    for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
-        idx = np.nonzero(rep == code)[0]
-        if not idx.size:
-            continue
-        shards = ([(dev, idx[sl]) for dev, sl in column_sharding(idx.size, mesh)
-                   if sl.stop > sl.start] if mesh else [(device, idx)])
-        for k, (dev, sidx) in enumerate(shards):
+    for (ns_sw, ns_lw, shards), pls in zip(layered, payload.get("layered", ())):
+        for (_, opt_sw, opt_lw), pl in zip(shards, pls):
             sw = lw = None
-            if config.do_sw:
-                keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
-                inp = CanopyInputs(**{f: get(key, sidx, dev) for f, key in keys.items()})
-                opt = SolverOptions(nstream=lg_sw.nstream, **opt_kw)
-                if k == 0:  # prints the group's first column under SPARTACUS_DEBUG_ARRAYS
-                    debug_dump_sw(inp, opt, lg_sw)
+            if opt_sw is not None:
+                inp = pl["sw"]
                 sw = (inp.cos_sza > 0.0, spartacus_sw(
-                    inp, opt, lg_sw, with_profiles=config.do_save_flux_profile,
-                    route=route, budget=budget_left(dev)))
-            if config.do_lw:  # not masked by sun_up
-                inp = CanopyInputs(**{f: get(key, sidx, dev) for f, key in _LW_KEYS.items()})
-                lw = spartacus_lw(
-                    inp, SolverOptions(nstream=lg_lw.nstream, **opt_kw), lg_lw,
-                    with_profiles=config.do_save_flux_profile, route=route,
-                    budget=budget_left(dev))
-            solved.append((sidx, sw, lw))
-    for sidx, sw, lw in solved:
-        tidx = to_device(sidx, device)
+                    inp, opt_sw, _lg(ns_sw), with_profiles=profiles, route=route))
+            if opt_lw is not None:  # not masked by sun_up
+                lw = spartacus_lw(pl["lw"], opt_lw, _lg(ns_lw),
+                                  with_profiles=profiles, route=route)
+            solved.append((pl["idx"], sw, lw))
+    for tidx, sw, lw in solved:
         sw, lw = tree_map(lambda t: t.to(device), (sw, lw))
         if sw is not None:
             sun_up, (ndir, ndiff, sbc) = sw
@@ -296,32 +429,24 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
             bc["lw_emission"][tidx] = lbc["top_emission"]
 
     # ---- simple urban / infinite street (radsurf_interface.F90:272-309)
-    idx = np.nonzero(np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]))[0]
-    if idx.size:
-        if np.any(np.asarray(arrays["nlay"])[idx] != 1):
-            raise ValueError(
-                "simple urban representations must have only one layer")
-        lay0 = lambda key: get(key, idx)[:, 0]
-        geom = (lay0("dz"), lay0("building_fraction"), lay0("building_scale"))
-        is_inf = to_device(rep[idx] == TILE_INFINITE_STREET, device)
-        tidx = to_device(idx, device)
-        opts = dict(min_building_fraction=config.min_building_fraction,
-                    with_profiles=config.do_save_flux_profile)
-        if config.do_sw:
+    if has_simple:
+        pl = payload["simple"]
+        tidx = pl["idx"]
+        geom = (pl["dz"], pl["bf"], pl["bs"])
+        opts = dict(min_building_fraction=min_bf, with_profiles=profiles)
+        if do_sw:
             ndir, ndiff, sbc = su_mod.simple_urban_sw(
-                *geom, get("cos_sza", idx), is_inf, get("ground_albedo", idx),
-                get(gdir, idx), lay0("roof_albedo"), lay0("wall_albedo"), **opts)
-            sun_up = get("cos_sza", idx) > 0.0
+                *geom, pl["cos_sza"], pl["is_inf"], pl["galb"], pl["galb_dir"],
+                pl["ralb"], pl["walb"], **opts)
+            sun_up = pl["cos_sza"] > 0.0
             _scatter(out["sw_norm_dir"], ndir, tidx, sun_up, layer0=True)
             _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up, layer0=True)
             for key in ("sw_albedo", "sw_albedo_dir"):
                 bc[key][tidx] = sbc[key]
-        if config.do_lw:
+        if do_lw:
             lint, lnorm, lbc = su_mod.simple_urban_lw(
-                *geom, is_inf, get("ground_emissivity", idx),
-                get("ground_emission", idx), lay0("roof_emissivity"),
-                lay0("roof_emission"), lay0("wall_emissivity"),
-                lay0("wall_emission"), **opts)
+                *geom, pl["is_inf"], pl["gemis"], pl["gemit"], pl["remis"],
+                pl["remit"], pl["wemis"], pl["wemit"], **opts)
             _scatter(out["lw_internal"], lint, tidx, layer0=True)
             _scatter(out["lw_norm"], lnorm, tidx, layer0=True)
             for key in ("lw_emissivity", "lw_emission"):

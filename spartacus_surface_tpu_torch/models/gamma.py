@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.legendre_gauss import LegendreGauss
-from ..utils.transfer import to_device
+from ..utils.transfer import constant
 
 _EXT_EPS = 1.0e-8  # floor used by the reference (radsurf_forest_sw.F90:282)
 
@@ -92,7 +92,7 @@ def assemble_gammas(ext_reg, ssa_reg, f_exchange, f_wall, wall_ext,
     ns = lg.nstream
     nd = nreg * ns
     kw = dict(dtype=ext_reg.dtype, device=ext_reg.device)
-    t = lambda x: to_device(x, ext_reg.device, ext_reg.dtype)
+    t = lambda x: constant(x, ext_reg.device, ext_reg.dtype)
     tan_s, mu_s, w_s, vw_s = t(lg.tan_ang), t(lg.mu), t(lg.weight), t(lg.vweight)
     eye_s = torch.eye(ns, **kw)
     reg_eye = torch.eye(nreg, **kw)
@@ -144,7 +144,7 @@ def emission_rates(ext_reg, ssa_reg, planck_reg, frac, norm_perim_wall,
 
     Returns {"emiss_rate" [C, L, S, nd], "volume_emiss" [C, L, S, nreg]}.
     """
-    hw, mu, vw = (to_device(x, ext_reg.device, ext_reg.dtype)
+    hw, mu, vw = (constant(x, ext_reg.device, ext_reg.dtype)
                   for x in (lg.hweight, lg.mu, lg.vweight))
     volume_emiss = frac[..., None, :] * ext_reg * (1.0 - ssa_reg) * planck_reg
     wall_emiss = (norm_perim_wall[..., None, :] * lg.vadjustment

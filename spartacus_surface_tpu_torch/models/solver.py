@@ -54,9 +54,10 @@ from ..ops.lw_sweep_kernels import lw_down_sweep_both, lw_out_rows, lw_up_sweep
 from ..ops.matrix import matmul, matvec, solve
 from ..ops.sweep_kernels import sw_down_sweep_both, sw_out_rows, sw_up_sweep
 from ..utils import device_memory as DM
+from ..utils import graphs
 from ..utils.constants import Pi
 from ..utils.debug import debug_arrays_enabled, maybe_dump
-from ..utils.transfer import to_device
+from ..utils.transfer import constant
 from . import gamma as G
 from .geometry import (
     norm_perim_urban,
@@ -326,7 +327,7 @@ def _ground_fluxes(outs, dn_dir_fin, dn_diff_fin, up_fin, with_direct, zcos,
         ground_dn = ground_dn + ground_dn_dir
     outs["ground_dn"] = ground_dn
     outs["ground_net"] = ground_dn - up_fin.sum(-1)
-    tan_over_pi = to_device(np.tile(lg.tan_ang, nreg) / Pi, zcos.device, zcos.dtype)
+    tan_over_pi = constant(np.tile(lg.tan_ang, nreg) / Pi, zcos.device, zcos.dtype)
     outs["ground_vertical_diff"] = (dn_diff_fin + up_fin) @ tan_over_pi
     one = torch.ones_like(ground_dn)
     outs["top_dn_dir"] = one if with_direct else torch.zeros_like(one)
@@ -434,7 +435,7 @@ def _sw_adding(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     C, L = inp.dz.shape
     S = inp.air_ext.shape[-1]
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    t = lambda x: to_device(x, dev, dtype)
+    t = lambda x: constant(x, dev, dtype)
     mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
     zcos, sin0, geo, facets, _ = front
     assoc = opt.associative_sweeps
@@ -681,7 +682,7 @@ def _sw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     S = inp.air_ext.shape[-1]
     B = C * S
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    hw = to_device(lg.hweight, dev, dtype)
+    hw = constant(lg.hweight, dev, dtype)
 
     front = _sw_front(inp, opt, lg)
     zcos, sin0, geo, facets, (g0, g1, g2, g3) = front
@@ -722,8 +723,8 @@ def _sw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
         torch.stack([_soa_cls(ab_coef), _soa_cls(vb_coef),
                      _soa_cls(facets["wall_albedo"])], dim=1),
     ], dim=1)
-    rmu = to_device(1.0 / lg.mu, dev, dtype)
-    rtan = to_device(lg.tan_ang, dev, dtype)
+    rmu = constant(1.0 / lg.mu, dev, dtype)
+    rtan = constant(lg.tan_ang, dev, dtype)
     outs, fin = sw_down_sweep_both(
         lay["R"], lay["T"], lay["E"], lay["Sdn"], lay["int_dir"],
         lay["int_diff"], lay["int_dir_diff"], stacks, vov, aux, zcos_b, hw,
@@ -864,7 +865,7 @@ def _lw_ground_fluxes(outs, dn_fin, up_fin, with_source, lg, nreg, bc):
     dtype, dev = dn_fin.dtype, dn_fin.device
     outs["ground_dn"] = dn_fin.sum(-1)
     outs["ground_net"] = outs["ground_dn"] - up_fin.sum(-1)
-    tan_over_pi = to_device(np.tile(lg.tan_ang, nreg) / Pi, dev, dtype)
+    tan_over_pi = constant(np.tile(lg.tan_ang, nreg) / Pi, dev, dtype)
     outs["ground_vertical_diff"] = (dn_fin + up_fin) @ tan_over_pi
     if with_source:
         outs["top_dn"] = torch.zeros_like(outs["ground_dn"])
@@ -924,7 +925,7 @@ def _lw_adding(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     C, L = inp.dz.shape
     S = inp.air_ext.shape[-1]
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    t = lambda x: to_device(x, dev, dtype)
+    t = lambda x: constant(x, dev, dtype)
     mu, hw, tan_s = t(lg.mu), t(lg.hweight), t(lg.tan_ang)
     geo, facets, _, em = front
     assoc = opt.associative_sweeps
@@ -1065,7 +1066,7 @@ def _lw_kernel_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
     S = inp.air_ext.shape[-1]
     B = C * S
     dtype, dev = inp.air_ext.dtype, inp.air_ext.device
-    t = lambda x: to_device(x, dev, dtype)
+    t = lambda x: constant(x, dev, dtype)
     hw = t(lg.hweight)
 
     front = _lw_front(inp, opt, lg)
@@ -1179,16 +1180,29 @@ def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
 last_column_chunk = {"sw": None, "lw": None}
 
 
-def _chunked_solve(impl, inp: CanopyInputs, opt: SolverOptions, lg,
-                   with_profiles, *, lw: bool, route: str, budget=None):
-    """Solve in chunks of opt.column_chunk columns (0: the whole batch, -1:
-    AUTO, _resolve_column_chunk); the chunk is kept in last_column_chunk."""
-    C, L = inp.dz.shape
-    ck = _resolve_column_chunk(opt, lg, C, L, inp.air_ext.shape[-1],
-                               inp.air_ext.dtype, inp.air_ext.device, lw=lw,
+def resolve_chunk(opt: SolverOptions, lg, C: int, L: int, S: int, dtype,
+                  device, *, lw: bool, route: str, with_profiles: bool = False,
+                  budget=None) -> SolverOptions:
+    """opt with its column chunk resolved (_resolve_column_chunk), which is
+    also kept in last_column_chunk."""
+    ck = _resolve_column_chunk(opt, lg, C, L, S, dtype, device, lw=lw,
                                route=route, with_profiles=with_profiles,
                                budget=budget)
     last_column_chunk["lw" if lw else "sw"] = ck
+    return replace(opt, column_chunk=ck)
+
+
+def _chunked_solve(impl, inp: CanopyInputs, opt: SolverOptions, lg,
+                   with_profiles, *, lw: bool, route: str, budget=None):
+    """Solve in chunks of opt.column_chunk columns (0: the whole batch, -1:
+    AUTO, _resolve_column_chunk); the chunk is kept in last_column_chunk
+    and, resolved, in the options each chunk's solve gets (it keys the
+    chunk's graph, _compiled)."""
+    C, L = inp.dz.shape
+    opt = resolve_chunk(opt, lg, C, L, inp.air_ext.shape[-1],
+                        inp.air_ext.dtype, inp.air_ext.device, lw=lw,
+                        route=route, with_profiles=with_profiles, budget=budget)
+    ck = opt.column_chunk
     if not ck or C <= ck:
         return impl(inp, opt, lg, with_profiles)
     parts = [impl(replace(inp, **{k: x[i:i + ck] for k, x in inp.tensors()}),
@@ -1227,8 +1241,8 @@ class _KernelRouteGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kernel, scan, opt, lg, with_profiles, names, keys,
                 *tensors):
-        outs = kernel(CanopyInputs(**dict(zip(names, tensors))), opt, lg,
-                      with_profiles)
+        outs = _compiled(kernel, CanopyInputs(**dict(zip(names, tensors))),
+                         opt, lg, with_profiles)
         keys.extend(list(d) for d in outs)
         ctx.save_for_backward(*tensors)
         ctx.set_materialize_grads(False)
@@ -1262,15 +1276,31 @@ def _needs_grad(x) -> bool:
             or fwAD.unpack_dual(x).tangent is not None)
 
 
+def _compiled(kernel, inp: CanopyInputs, opt: SolverOptions, lg,
+              with_profiles):
+    """kernel(inp, opt, lg, with_profiles) as a compiled program
+    (utils/graphs.py; JAX: jax.jit with static opt, lg and with_profiles):
+    on CUDA tensors a CUDA graph per (kernel, opt with its resolved column
+    chunk, nstream, with_profiles, the inputs' shapes, dtype and device),
+    captured at the second call and replayed from then on."""
+    named = inp.tensors()
+    names = tuple(n for n, _ in named)
+    return graphs.call(
+        (kernel, opt, lg.nstream, with_profiles, names),
+        lambda *xs: kernel(CanopyInputs(**dict(zip(names, xs))), opt, lg,
+                           with_profiles),
+        [x for _, x in named])
+
+
 def _with_grad(kernel, scan):
-    """The kernel route `kernel` as a solve: called directly, or, where an
-    input needs a gradient, through _KernelRouteGrad with `scan` as its
-    backward (one Function per column chunk, so a backward recomputes one
-    chunk's scan graph at a time)."""
+    """The kernel route `kernel` as a solve: a compiled program
+    (_compiled), or, where an input needs a gradient, through
+    _KernelRouteGrad with `scan` as its backward (one Function per column
+    chunk, so a backward recomputes one chunk's scan graph at a time)."""
     def impl(inp, opt, lg, with_profiles):
         named = inp.tensors()
         if not any(_needs_grad(x) for _, x in named):
-            return kernel(inp, opt, lg, with_profiles)
+            return _compiled(kernel, inp, opt, lg, with_profiles)
         keys = []
         flat = iter(_KernelRouteGrad.apply(
             kernel, scan, opt, lg, with_profiles, [n for n, _ in named], keys,

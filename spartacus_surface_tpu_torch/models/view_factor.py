@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import Pi
-from ..utils.transfer import to_device
+from ..utils.transfer import constant
 
 # 8-point quadrature over the cosine of zenith angle of the exponential
 # model (radsurf_view_factor.F90:85-95).
@@ -47,8 +47,8 @@ def view_factors_inf(h, cos_sza=None):
 def view_factors_exp(r, cos_sza=None):
     """Exponential-model view factors (radsurf_view_factor.F90:76-138),
     Eqs. 41/42 of Hogan (2019a); returns as view_factors_inf."""
-    w = to_device(_EXP_WEIGHTS, r.device, r.dtype)
-    nodes = to_device(_EXP_NODES, r.device, r.dtype)
+    w = constant(_EXP_WEIGHTS, r.device, r.dtype)
+    nodes = constant(_EXP_NODES, r.device, r.dtype)
     hweight = w * nodes / (w * nodes).sum()
     vweight = w * torch.sqrt(1.0 - nodes * nodes)
     vweight = vweight / vweight.sum()

@@ -34,3 +34,11 @@ def counts() -> dict:
 def reset():
     for w, a in COUNTERS.values():
         setattr(w, a, 0)
+
+
+def add(delta: dict):
+    """Add {label: launches} to the counters (utils/graphs.py: a replay
+    adds the launches its capture counted)."""
+    for k, n in delta.items():
+        w, a = COUNTERS[k]
+        setattr(w, a, getattr(w, a) + n)

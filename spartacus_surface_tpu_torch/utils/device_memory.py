@@ -33,6 +33,7 @@ import torch
 from ..ops.layer_kernel import out_rows
 from ..ops.lw_sweep_kernels import lw_out_rows, lw_stack_rows
 from ..ops.sweep_kernels import sw_out_rows, sw_stack_rows
+from . import graphs
 
 # The share of a device's free memory that an automatic chunk may plan to
 # fill, and a fixed reserve off it.  They cover what the model does not
@@ -117,12 +118,14 @@ def solve_bytes(ncol: int, nlay: int, nband: int, nreg: int, nstream: int,
 
 def device_budget(device) -> float:
     """Bytes an automatic chunk may plan to fill on `device`: (free memory
-    + what the caching allocator has reserved but not allocated) x
-    BUDGET_SHARE - BUDGET_RESERVE, at least 0.  Off CUDA there is no
-    separate device memory: math.inf."""
+    + what the caching allocator has reserved but not allocated, less the
+    free blocks of the CUDA graphs' pool, which eager work cannot use,
+    utils/graphs.py) x BUDGET_SHARE - BUDGET_RESERVE, at least 0.  Off CUDA
+    there is no separate device memory: math.inf."""
     device = torch.device(device)
     if device.type != "cuda":
         return math.inf
     free, _ = torch.cuda.mem_get_info(device)
-    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    cached = (torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+              - graphs.pool_free_bytes(device))
     return max(0.0, BUDGET_SHARE * (free + cached) - BUDGET_RESERVE)

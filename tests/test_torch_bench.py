@@ -60,7 +60,7 @@ SMALL = {
 }
 THROUGHPUT_KEYS = {"value", "unit", "columns", "n_cards", "median_ms", "percentile",
                    "percentile_ms", "min_ms", "max_ms", "n", "peak_gib", "first_call_s",
-                   "finite", "dtype", "shape", "card"}
+                   "capture_s", "captures", "finite", "dtype", "shape", "card"}
 BLOCK_KEYS = {
     "build_check_matrix_ok": {"value", "unit", "ok", "build_seconds", "launches"},
     "kernel_scan_parity_max_rel_err": {"value", "value_f64", "ok", "per_config"},
