@@ -85,10 +85,12 @@ final line):
      calls, device launches, busy ms, idle share), each mode's peak device
      memory above the inputs, and the graphs' pool (reserved and free GiB);
      the CLI's radsurf region walls in turns.  Every other phase runs its
-     calls as a user would, through the graphs; a call whose kernel calls
-     are held against their plain versions (Capture, CompareEach) runs
-     eagerly, and each of the parallel, auto, grad and bench phases starts
-     with the graphs cleared (graphs.clear()).
+     calls as a user would, through the graphs, and keeps the graphs the
+     earlier phases left; a call whose kernel calls are held against their
+     plain versions (Capture, CompareEach) runs eagerly.  The grad and
+     bench phases start with the graphs cleared (graphs.clear()), as in a
+     process of their own, and so does the auto phase's ballast (memory
+     another process took first).
   parallel - streamed, meshed and multi-process runs (parallel/), each with
      the launch counters set to 0 just before it and read just after (K1-K5
      must launch on every path), every line with the card's name and power
@@ -102,8 +104,9 @@ final line):
          budgets reduced on the card per chunk within phase 3's bars; no
          synchronizing CUDA operation in the streamed run
          (torch.cuda.set_sync_debug_mode("warn"): each one's Python frames
-         are printed; the synchronize that begins a graph capture, once per
-         key, is counted apart); one shot's warm wall (median of 3, its outputs
+         are printed; the mode does not report torch.cuda.synchronize,
+         which a graph's capture calls once per key: the run's captures are
+         printed); one shot's warm wall (median of 3, its outputs
          fetched to the host as the stream's are) and columns/s.
        stream_scale: the headline's mix repeated 64 times (1,114,112
          columns: 17 chunks), float32 and float64: finite outputs of the expected
@@ -132,10 +135,9 @@ final line):
      the card's name and power limit:
        model: the model's one-shot prediction against the measured
          max_memory_allocated of one warm kernel-route run_radsurf call
-         (column_chunk 0; above what was allocated before it; the second
-         call of its key, which captures the core's graph) at the
-         headline, rami5_shape and rami5_ns1, float32 and float64: each
-         measured / predicted within AUTO_RATIO.
+         (column_chunk 0; above what was allocated before it; eager, under
+         graphs.disabled()) at the headline, rami5_shape and rami5_ns1,
+         float32 and float64: each measured / predicted within AUTO_RATIO.
        sweep: warm walls (median, min, max of 5) and peaks of the kernel
          route at the AUTO_SWEEP column chunks, float32 and float64, and
          whether a chunk beats the whole batch by more than both walls'
@@ -150,16 +152,28 @@ final line):
          --stream-chunk: exit code 0, the automatic stream line in its log,
          its peak less the ballast within the budget, the output file equal
          to the cli phase's double file (every variable rtol / atol 1e-12),
-         K1-K5 launched; then run_radsurf(column_chunk=-1) on the headline
-         in float64: every chunk picked > 0, the peak less the ballast within
+         K1-K5 launched; the CLI again, capturing its chunks' graphs (exit
+         code 0, the same file, K1-K5 launched, its peak printed); then,
+         with the graphs the CLI captured still held,
+         run_radsurf(column_chunk=-1) on the headline in float64: the
+         graphs released for its eager run, every chunk picked > 0, the peak less the ballast within
          the budget, equal to the unsqueezed call at auto_equal's bar, K1-K5
          launched.  With the ballast freed, both paths run again at the
          chunks picked under it, every kernel call captured and held
          against its plain version at the phase-2 bars.
-       production: stream_scale's 1,114,112 columns in float64 on the free
-         card: the CLI's automatic stream chunk for them (printed), and one
-         run_radsurf call at column_chunk -1: finite, K1-K5 launched, its
-         peak against the model's prediction within AUTO_RATIO.
+       capture_footprint: one run_radsurf call at column_chunk 0 on the
+         headline's mix x FOOTPRINT_REPEATS (696,320 columns) in float64,
+         then the same call captured: the graph pool's growth over the
+         eager call's peak less its inputs within CAPTURE_FACTOR
+         (utils/device_memory.py; AUTO plans a solve on CUDA for that
+         multiple of its transient).
+       production: stream_scale's 1,114,112 columns in float64, the
+         footprint's graph still held: the CLI's automatic stream chunk for
+         them (printed), and one run_radsurf call at column_chunk -1:
+         finite, K1-K5 launched, its peak against the model of the chunks
+         it picked (dispatch._plan's need and inputs) within AUTO_RATIO;
+         the same call twice more, the second captured and the third
+         replayed, each with the chunks of the first.
   corners - utils/inputs.corner_grid (the JAX package's fuzz corner values
      as 500 columns x 2 layers of 5 m) through spartacus_sw and
      spartacus_lw, kernel route against scan route, float32 and float64,
@@ -443,6 +457,9 @@ sys.exit(rc)
 AUTO_RATIO = (0.67, 1.10)
 AUTO_SWEEP = {"headline": (0, 2048, 8192), "rami5_shape": (0, 256, 512)}
 AUTO_SQUEEZE = 0.5
+# the headline's mix repeated this many times (696,320 columns) for the
+# auto phase's capture_footprint: a one-shot float64 call of 36.6 GiB
+FOOTPRINT_REPEATS = 40
 # bench phase: the timed calls of each of its throughput blocks, and the
 # first steps each throughput block runs (one per precision)
 BENCH_REPS = 5
@@ -770,24 +787,33 @@ def nc_field_err(ref, got, names):
 
 def sync_sites(fn):
     """fn() under torch.cuda.set_sync_debug_mode("warn"): (its result, for
-    each synchronizing CUDA operation it issued the file:line of its
-    Python frames, innermost first).  The synchronize that begins a CUDA
-    graph's capture (utils/graphs.py, once per key) is a site too; see
-    capture_sites."""
+    each synchronizing CUDA operation it issued its 8 innermost Python
+    frames as path:line, innermost first, a path under PyTorch's package as
+    torch/..., one in this repo relative to it).  The mode reports the
+    operations that synchronize as a side effect, not torch.cuda.synchronize
+    (which a CUDA graph's capture calls, utils/graphs.py, once per key)."""
     import traceback
     import warnings
 
     import torch
 
+    roots = ((Path(torch.__file__).resolve().parent, "torch"),
+             (Path(__file__).resolve().parent, ""))
     sites = []
+
+    def where(f):
+        path = Path(f.filename).resolve()
+        for root, prefix in roots:
+            if path.is_relative_to(root):
+                return "/".join(p for p in (prefix, str(path.relative_to(root))) if p)
+        return path.name
 
     def show(message, category, filename, lineno, file=None, line=None):
         # PyTorch's own warning on entering the mode is not a sync
         if "called a synchronizing CUDA operation" in str(message):
             frames = [f for f in traceback.extract_stack()[:-1]
                       if not f.filename.endswith("warnings.py")]
-            sites.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
-                                    for f in frames[:-9:-1]))
+            sites.append(" < ".join(f"{where(f)}:{f.lineno}" for f in frames[:-9:-1]))
 
     with warnings.catch_warnings():
         warnings.simplefilter("always")
@@ -798,12 +824,6 @@ def sync_sites(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return res, sites
-
-
-def capture_sites(sites):
-    """(the sites of sync_sites that begin a graph capture, the others)."""
-    capture = [x for x in sites if "graphs.py:" in x]
-    return capture, [x for x in sites if x not in capture]
 
 
 def copy_overlap(fn):
@@ -910,7 +930,6 @@ def parallel_phase(dev, counters, headline, cli_files):
 
     from spartacus_surface_tpu_torch.utils import graphs
 
-    graphs.clear()  # no graph of an earlier phase holds the card's memory
     card = card_line()
     groups = ("sw_norm_dir", "sw_norm_diff", "lw_internal", "lw_norm")
     dtypes = {"float32": np.float32, "float64": np.float64}
@@ -989,10 +1008,11 @@ def parallel_phase(dev, counters, headline, cli_files):
         scale = max(1.0, float(np.abs(arrays["ground_emission"]).max()))
         reset()
         torch.cuda.synchronize()
+        before = graphs.stats()
         t0 = time.perf_counter()
         got, syncs = sync_sites(lambda: streamed(arrays))
         t_stream = time.perf_counter() - t0
-        captures, syncs = capture_sites(syncs)
+        graph_stats = {k: graphs.stats()[k] - before[k] for k in ("captures", "releases")}
         c = counts()
         launched(c, tag)
         check(not syncs, f"{tag}: the streamed run synchronized the device at {syncs[:10]}")
@@ -1011,7 +1031,7 @@ def parallel_phase(dev, counters, headline, cli_files):
         emit(phase="parallel", item="stream_equal", dtype=dname, columns=len(rep),
              chunk=PAR_CHUNK, depth=PAR_DEPTH, chunks=-(-len(rep) // PAR_CHUNK),
              field_normalized_err=err, tol=PAR_TOL[dname], max_budget_residual=resid,
-             launches=c, sync_sites=syncs, capture_sync_sites=len(captures),
+             launches=c, sync_sites=syncs, graphs=graph_stats,
              seconds_streamed_first=t_stream,
              one_shot_warm_wall_seconds=w_one, one_shot_cols_per_sec=one_shot_rate[dname],
              torch=torch.__version__, card=card)
@@ -1220,8 +1240,8 @@ def parallel_only(dev, counters):
 
 
 def auto_phase(dev, counters, slices, cli_files):
-    """The auto phase: model, sweep, auto_equal, squeeze (see the module
-    docstring).  slices: slice_shapes(); cli_files: as for parallel_phase."""
+    """The auto phase: model, sweep, auto_equal, squeeze, capture_footprint,
+    production (see the module docstring).  slices: slice_shapes(); cli_files: as for parallel_phase."""
     import numpy as np
     import torch
 
@@ -1231,13 +1251,13 @@ def auto_phase(dev, counters, slices, cli_files):
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+    from spartacus_surface_tpu_torch.parallel.mesh import tree_leaves
     from spartacus_surface_tpu_torch.utils.config import Config
     from spartacus_surface_tpu_torch.utils.device_memory import (
-        BUDGET_RESERVE, BUDGET_SHARE, device_budget)
+        BUDGET_RESERVE, BUDGET_SHARE, CAPTURE_FACTOR, device_budget)
     from spartacus_surface_tpu_torch.utils import graphs
     from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 
-    graphs.clear()  # no graph of an earlier phase holds the card's memory
     card = card_line()
     GiB = 2**30
     dtypes = {"float32": np.float32, "float64": np.float64}
@@ -1272,6 +1292,14 @@ def auto_phase(dev, counters, slices, cli_files):
         torch.cuda.synchronize()
         return out, torch.cuda.max_memory_allocated() - base
 
+    def wall_of(fn):
+        """(host seconds of fn() to a synchronize, its result)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
     def walls(fn, reps=5):
         """Warm host seconds of reps calls (after one), each synchronized."""
         fn()
@@ -1303,11 +1331,13 @@ def auto_phase(dev, counters, slices, cli_files):
     for sname in slices:
         for dname, np_dt in dtypes.items():
             arrays, config = arrays_of(sname, dname), config_of(sname, 0)
-            dispatch.run_radsurf(config, arrays, dev)  # warm: workspaces, caches
-            torch.cuda.empty_cache()
-            # the second call captures the core's CUDA graph: its peak is the
-            # working set the graph's pool holds
-            peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))[1]
+            # the model is of an eager call (an earlier phase may hold this
+            # key's graph, whose replay allocates nothing; a capture's pool
+            # is capture_footprint's)
+            with graphs.disabled():
+                dispatch.run_radsurf(config, arrays, dev)  # warm: workspaces, caches
+                torch.cuda.empty_cache()
+                peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))[1]
             rep, L = slices[sname][0], slices[sname][1]
             predicted = dispatch.working_set_bytes(config, rep, L, np.dtype(np_dt).itemsize)
             ratio = peak / predicted
@@ -1359,7 +1389,11 @@ def auto_phase(dev, counters, slices, cli_files):
     nam = cli_files["namelist"]
     cfg_cli = Config.from_namelist(nam).consolidate()
     predicted_cli = dispatch.working_set_bytes(cfg_cli, tiles(CLI_TILES), 8, 8)
-    graphs.clear()  # the graphs' pool would hold memory the ballast counts as free
+    # the ballast stands for memory another process took before this one
+    # held any graph: it is placed on a card with no graph pool; the
+    # squeezed CLI then captures its graphs in what is left, and the
+    # squeezed run_radsurf runs with them held
+    graphs.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
@@ -1414,16 +1448,45 @@ def auto_phase(dev, counters, slices, cli_files):
                            if k in got and got[k].shape == ref[k].shape), default=None),
          card=card)
 
-    # the CLI's graphs would go with its process; here they would hold the
-    # squeezed budget's memory in their pool (device_budget counts it taken)
-    graphs.clear()
+    # the CLI once more: its chunks' keys are seen now, so it captures their
+    # graphs in the squeezed memory (each chunk holds another mix of tile
+    # codes, so no key repeats within one run); its peak counts the graphs'
+    # static buffers, which the working-set model does not
+    before = graphs.stats()
+    stdout2 = io.StringIO()
+    reset()
+    with contextlib.redirect_stdout(stdout2):
+        rc2, budget2, peak2 = squeezed(lambda: cli.main(argv))
+    c2 = counts()
+    after = graphs.stats()
+    got2 = nc_vars(out_nc) if out_nc.exists() else {}
+    same2 = set(ref) == set(got2) and all(
+        ref[k].shape == got2[k].shape and np.allclose(got2[k], ref[k], rtol=1e-12, atol=1e-12)
+        for k in ref)
+    check(rc2 == 0, f"auto squeeze cli again: exit code {rc2}")
+    check(after["captures"] > before["captures"], "auto squeeze cli again: nothing captured")
+    check(same2, "auto squeeze cli again: the file differs from the cli phase's double file")
+    launched(c2, "auto squeeze cli again")
+    emit(phase="auto", item="squeeze_cli_again", exit_code=rc2, budget_gib=budget2 / GiB,
+         peak_less_ballast_gib=peak2 / GiB, reserve_growth_gib=reserved[-1] / GiB,
+         same_file_1e12=same2, launches=c2,
+         **{k: after[k] - before[k] for k in ("captures", "replays", "releases")},
+         graphs_held_gib=[b / GiB for b in graphs.held(dev)], card=card)
+
+    # the CLI's graphs stay, holding part of the squeezed memory: the call
+    # plans with it (device_budget counts it available) and its eager run
+    # gets it back (the cache releases the graphs)
+    held_graphs = graphs.stats()
     arrays = arrays_of("headline", "float64")
     reset()
     with Picks() as picks:
         out, budget, peak = squeezed(
             lambda: host(dispatch.run_radsurf(config_of("headline", -1), arrays, dev)))
     c = counts()
+    releases = graphs.stats()["releases"] - held_graphs["releases"]
     err = field_err(unsqueezed["float64"], out)
+    check(held_graphs["graphs"] > 0, "auto squeeze run_radsurf: the squeezed CLI left no graph")
+    check(releases > 0, "auto squeeze run_radsurf: the CLI's graphs were not released")
     check(picks.chunks and all(ck > 0 for ck in picks.chunks),
           f"auto squeeze run_radsurf: chunks {picks.chunks}")
     check(peak <= budget, f"auto squeeze run_radsurf: peak {peak / GiB:.3f} over the"
@@ -1431,7 +1494,8 @@ def auto_phase(dev, counters, slices, cli_files):
     check(err <= PAR_TOL["float64"], f"auto squeeze run_radsurf: vs unsqueezed {err:.3e}")
     launched(c, "auto squeeze run_radsurf")
     emit(phase="auto", item="squeeze_run_radsurf", run="headline", dtype="float64",
-         chunks_picked=picks.chunks, budget_gib=budget / GiB, peak_less_ballast_gib=peak / GiB,
+         chunks_picked=picks.chunks, graphs_held_before=held_graphs["graphs"],
+         graph_releases=releases, budget_gib=budget / GiB, peak_less_ballast_gib=peak / GiB,
          reserve_growth_gib=reserved[-1] / GiB,
          field_normalized_err=err, tol=PAR_TOL["float64"], launches=c, card=card)
     del ballast, out
@@ -1460,15 +1524,50 @@ def auto_phase(dev, counters, slices, cli_files):
     del arrays
     torch.cuda.empty_cache()
 
+    def pool_bytes():
+        """Bytes the CUDA graphs' pools hold on the card (their segments)."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) != (0, 0))
+
+    # ---- capture_footprint: one run_radsurf call at column_chunk 0 on the
+    # headline's mix x FOOTPRINT_REPEATS in float64: its eager peak above
+    # its inputs, then the pool its capture takes, within CAPTURE_FACTOR
+    rep = np.tile(slices["headline"][0], FOOTPRINT_REPEATS)
+    arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np.float64, i_representation=rep)
+    config = config_of("headline", 0)
+    inputs = sum(x.numel() * x.element_size() for x in tree_leaves(
+        dispatch._plan(config, arrays, dev, "kernel", None, host=True)[1]))
+    out, eager_peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))
+    del out
+    torch.cuda.synchronize()
+    pool0, before = pool_bytes(), graphs.stats()
+    capture_s, out = wall_of(lambda: dispatch.run_radsurf(config, arrays, dev))
+    del out
+    pool = pool_bytes() - pool0
+    captures = graphs.stats()["captures"] - before["captures"]
+    ratio = pool / (eager_peak - inputs)
+    check(captures == 1, f"auto capture_footprint: {captures} captures")
+    check(ratio <= CAPTURE_FACTOR, f"auto capture_footprint: the pool is {ratio:.3f} x the"
+          f" eager peak above the inputs, over CAPTURE_FACTOR {CAPTURE_FACTOR}")
+    emit(phase="auto", item="capture_footprint", columns=len(rep), dtype="float64",
+         eager_peak_gib=eager_peak / GiB, inputs_gib=inputs / GiB, pool_gib=pool / GiB,
+         pool_over_eager_peak_less_inputs=ratio, capture_factor=CAPTURE_FACTOR,
+         seconds_capture_call=capture_s, card=card)
+    del arrays
+
     # ---- production: the headline's mix x 64 (stream_scale's 1,114,112
-    # columns) in float64 on the free card: the CLI's automatic stream
-    # chunk, and one run_radsurf call at column_chunk -1 against the model
+    # columns) in float64, the capture_footprint's graph still held: the
+    # CLI's automatic stream chunk, and run_radsurf at column_chunk -1
+    # three times, its first call against the model of the chunks it picks
+    # (dispatch._plan: the inputs and the core's need)
     rep = np.tile(slices["headline"][0], PAR_REPEATS["stream_scale"])
     arrays = example_arrays(C=len(rep), L=8, S=1, dtype=np.float64, i_representation=rep)
     config = config_of("headline", -1)
     budget = device_budget(dev)
     chunk = cli.auto_stream_chunk(config, arrays, len(rep), 1, budget)
-    predicted = dispatch.working_set_bytes(config, rep, 8, 8)
+    plan, payload = dispatch._plan(config, arrays, dev, "kernel", None, host=True)
+    predicted = plan.need + sum(x.numel() * x.element_size() for x in tree_leaves(payload))
+    del payload
     reset()
     with Picks() as picks:
         t0 = time.perf_counter()
@@ -1481,10 +1580,32 @@ def auto_phase(dev, counters, slices, cli_files):
     check(AUTO_RATIO[0] <= peak / predicted <= AUTO_RATIO[1],
           f"auto production: measured / predicted {peak / predicted:.3f}")
     launched(c, "auto production")
+    # the same call twice more: the second captures its graph, which holds
+    # much of the card, the third plans with that memory counted available
+    # (device_budget) and so picks the same chunks and replays the graph
+    later = []
+    for _ in range(2):
+        before, pool0 = graphs.stats(), pool_bytes()
+        with Picks() as again:
+            n_seconds, out = wall_of(lambda: dispatch.run_radsurf(config, arrays, dev))
+        del out
+        after = graphs.stats()
+        later.append(dict(seconds=n_seconds, chunks_picked=again.chunks,
+                          pool_growth_gib=(pool_bytes() - pool0) / GiB,
+                          **{k: after[k] - before[k] for k in ("captures", "replays")}))
+    # (a replay's picks are the host plan's alone: an eager or captured
+    # core resolves each solve's chunk again, to the same value)
+    check(all(r["chunks_picked"] and r["chunks_picked"] == picks.chunks[:len(r["chunks_picked"])]
+              for r in later),
+          f"auto production: chunks {picks.chunks} then {[r['chunks_picked'] for r in later]}")
+    check([(r["captures"], r["replays"]) for r in later] == [(1, 1), (0, 1)],
+          f"auto production: the second call did not capture, or the third not replay {later}")
     emit(phase="auto", item="production", columns=len(rep), dtype="float64",
          budget_gib=budget / GiB, auto_stream_chunk=chunk, chunks_picked=picks.chunks,
          predicted_gib=predicted / GiB, measured_gib=peak / GiB, ratio=peak / predicted,
-         seconds_first=seconds, finite=finite, launches=c, card=card)
+         one_shot_predicted_gib=dispatch.working_set_bytes(config, rep, 8, 8) / GiB,
+         seconds_first=seconds, finite=finite, launches=c, later_calls=later,
+         graphs_held_gib=[b / GiB for b in graphs.held(dev)], card=card)
     del arrays
     torch.cuda.empty_cache()
 
@@ -1824,7 +1945,7 @@ def graphs_phase(dev, counters, slices, cli_files):
              device_busy_ms={m: t["device_busy_ms"] for m, t in traces.items()},
              idle_share={m: t["device_idle_share"] for m, t in traces.items()},
              peak_gib=peaks, pool_reserved_gib=reserved, pool_free_gib=free,
-             budget_pool_free_gib=graphs.pool_free_bytes(dev) / GiB, card=card)
+             graphs_held_gib=[b / GiB for b in graphs.held(dev)], card=card)
         del step
 
     # ---- the CLI streamed in GRAPH_CLI_CHUNK-column chunks (cli_ns4,
@@ -1881,7 +2002,6 @@ def graphs_phase(dev, counters, slices, cli_files):
          radsurf_min_s={m: min(w) for m, w in walls.items()},
          radsurf_max_s={m: max(w) for m, w in walls.items()},
          n={m: len(w) for m, w in walls.items()}, card=card)
-    graphs.clear()
 
 
 def graphs_only(dev, counters):

@@ -7,7 +7,7 @@ Parity: the per-column ``select case (i_representation)`` loop of
 radsurf/radsurf_interface.F90:105-313.
 
 As in JAX, a call is a host plan (_plan: the tile groups, their indices,
-the fields moved to the device, the AUTO column chunks) and a device core
+each group's fields, the AUTO column chunks) and a device core
 (_core: the flux containers, every solve and scatter), which on the kernel
 route runs as a compiled program: a CUDA graph per (plan, shapes, dtype,
 device), utils/graphs.py.
@@ -25,7 +25,9 @@ may be unequal, so no group is padded to a device multiple (JAX
 
 from __future__ import annotations
 
+import contextlib
 import functools
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -195,14 +197,15 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
       mesh: optional list of devices (parallel/mesh.make_mesh): the layered
         groups' columns are split over it, each shard solved on its entry.
 
-    The host plan (_plan: tile groups, indices, the fields moved to the
-    device, AUTO column chunks) runs at every call; the device core (_core:
-    every solve and scatter) is a compiled program (utils/graphs.py; JAX
+    The host plan (_plan: tile groups, indices, each group's fields, AUTO
+    column chunks) runs at every call; the device core (_core: every solve
+    and scatter) is a compiled program (utils/graphs.py; JAX
     _radsurf_core): on CUDA a CUDA graph per (plan, shapes, dtype, device),
     captured at the second call and replayed from then on, on the kernel
-    route.  It runs eagerly on the CPU, under graphs.disabled(), where an
-    input needs a gradient, with a mesh, and on the scan route (the plain
-    reference: its factory reads its doubling count on the host).
+    route, its fields moved with one transfer a dtype.  It runs eagerly on
+    the CPU, under graphs.disabled(), where an input needs a gradient, with
+    a mesh, and on the scan route (the plain reference: its factory reads
+    its doubling count on the host).
 
     Returns {"sw_norm_dir", "sw_norm_diff"} (with do_sw) and {"lw_internal",
     "lw_norm"} (with do_lw) flux dicts, and "bc_out": {"sw_albedo",
@@ -212,19 +215,18 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
-    plan, payload = _plan(config, arrays, device, route, mesh)
-    leaves = tree_leaves(payload)
-    if mesh:
-        with graphs.disabled():
+    compiled = route == "kernel" and not mesh and not any(
+        _needs_grad(x) for x in arrays.values() if isinstance(x, torch.Tensor))
+    plan, payload = _plan(config, arrays, device, route, mesh, host=compiled)
+    if not compiled:
+        with graphs.disabled() if mesh else contextlib.nullcontext():
             return _core(plan, payload)
-    if route != "kernel" or any(_needs_grad(x) for x in leaves):
-        return _core(plan, payload)
     skeleton = tree_map(lambda _: 0, payload)
 
     def core(*xs):
         it = iter(xs)
         return _core(plan, tree_map(lambda _: next(it), skeleton))
-    return graphs.call((_core, plan), core, leaves)
+    return graphs.call(plan, core, tree_leaves(payload), device=device, need=plan.need)
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,22 +234,46 @@ def _lg(nstream: int) -> LegendreGauss:
     return LegendreGauss(nstream)
 
 
-def _plan(config: Config, arrays: dict, device, route: str, mesh):
-    """The host half of run_radsurf (JAX run_radsurf before _radsurf_core):
-    the tile groups, their column indices and fields moved to the device (or
-    a group's shards to the mesh's devices), and each layered solve's
-    options with its column chunk resolved.  AUTO chunks: each solve may plan
-    for the budget its device had when the run began, less what the run has
-    moved there (measured) and what the core will hold there before the
-    solve (the working-set model: the flux containers, the earlier solves'
-    outputs), so that the run as a whole stays within that budget.
+@dataclass(frozen=True)
+class Plan:
+    """The static part of a run_radsurf call (_plan), which keys its core's
+    graph.  flat / simple: whether those tile groups exist; layered: per
+    layered group (nstream_sw, nstream_lw, ((shard device, opt_sw or None,
+    opt_lw or None), ...)), the options with their column chunks resolved;
+    need: the bytes the core allocates beyond its inputs (the working-set
+    model: the flux containers, the solves' outputs kept, the largest
+    solve's transient), which follows from the rest."""
+    ncol: int
+    nlay: int
+    nsw: int
+    nlw: int
+    do_sw: bool
+    do_lw: bool
+    profiles: bool
+    min_building_fraction: float
+    route: str
+    device: torch.device
+    dtype: torch.dtype
+    flat: bool
+    layered: tuple
+    simple: bool
+    need: int = field(default=0, compare=False)
 
-    Returns (plan, payload).  plan is static and hashable (it keys the
-    core's graph): (head, flat, layered, simple), head = (ncol, nlay, nsw,
-    nlw, do_sw, do_lw, with_profiles, min_building_fraction, route, device,
-    dtype), flat and simple whether those groups exist, layered one
-    (nstream_sw, nstream_lw, ((shard device, opt_sw or None, opt_lw or
-    None), ...)) per group.  payload: {"flat", "layered", "simple"}, the
+
+def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = False):
+    """The host half of run_radsurf (JAX run_radsurf before _radsurf_core):
+    the tile groups, their column indices and fields, and each layered
+    solve's options with its column chunk resolved.  host: the numpy
+    fields stay on the host, as CPU tensors, for the graph cache to move
+    (utils/graphs.py: one transfer a dtype, on a replay into the graph's
+    own buffers); else each is moved to the device (or a group's shards to
+    the mesh's devices) here.  AUTO chunks: each solve may plan for the
+    budget its device had when the run began, less what the run moves there
+    (its inputs) and what the core will hold there before the solve (the
+    working-set model: the flux containers, the earlier solves' outputs),
+    so that the run as a whole stays within that budget.
+
+    Returns (Plan, payload): payload {"flat", "layered", "simple"}, the
     tensors in the plan's order."""
     rep = np.asarray(arrays["i_representation"])
     dz = arrays["dz"]
@@ -258,14 +284,15 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh):
     start = {d: (DM.device_budget(d), torch.cuda.memory_allocated(d))
              for d in {device, *(mesh or ())}
              if d.type == "cuda" and config.column_chunk == -1}
+    place = (lambda a, dev, dt=None: torch.as_tensor(a, dtype=dt)) if host else to_device
 
     def get(key, idx, dev=device):
-        """The columns idx of arrays[key] on dev: a tensor is indexed there
-        (its autograd graph kept), a numpy array sliced on the host."""
+        """The columns idx of arrays[key] for dev: a tensor is indexed on
+        dev (its autograd graph kept), a numpy array sliced on the host."""
         x = arrays[key]
         if isinstance(x, torch.Tensor):
             return x.to(device=dev, dtype=dtype)[to_device(idx, dev)]
-        return to_device(np.asarray(x)[idx], dev, dtype)
+        return place(np.asarray(x)[idx], dev, dtype)
 
     gdir = "ground_albedo_dir" if config.use_sw_direct_albedo else "ground_albedo"
     payload = {}
@@ -273,7 +300,7 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh):
     # ---- flat tiles
     idx = np.nonzero(rep == TILE_FLAT)[0]
     if idx.size:
-        pl = payload["flat"] = {"idx": to_device(idx, device)}
+        pl = payload["flat"] = {"idx": place(idx, device)}
         if config.do_sw:
             pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx))
         if config.do_lw:
@@ -290,7 +317,7 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh):
                    if sl.stop > sl.start] if mesh else [(device, idx)])
         pls = []
         for k, (dev, sidx) in enumerate(shards):
-            pl = {"idx": to_device(sidx, device)}
+            pl = {"idx": place(sidx, device)}
             if config.do_sw:
                 keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
                 pl["sw"] = CanopyInputs(**{f: get(key, sidx, dev) for f, key in keys.items()})
@@ -311,10 +338,10 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh):
                 "simple urban representations must have only one layer")
         lay0 = lambda key: get(key, idx)[:, 0]
         pl = payload["simple"] = dict(
-            idx=to_device(idx, device), dz=lay0("dz"),
+            idx=place(idx, device), dz=lay0("dz"),
             bf=lay0("building_fraction"), bs=lay0("building_scale"),
             cos_sza=get("cos_sza", idx),
-            is_inf=to_device(rep[idx] == TILE_INFINITE_STREET, device))
+            is_inf=place(rep[idx] == TILE_INFINITE_STREET, device))
         if config.do_sw:
             pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx),
                       ralb=lay0("roof_albedo"), walb=lay0("wall_albedo"))
@@ -324,14 +351,20 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh):
                       remis=lay0("roof_emissivity"), remit=lay0("roof_emission"),
                       wemis=lay0("wall_emissivity"), wemit=lay0("wall_emission"))
 
-    # ---- the layered solves' options, their AUTO chunks resolved
+    # ---- the layered solves' options, their AUTO chunks resolved; what
+    # the core holds on `device`: the flux containers, the solves' kept
+    # outputs and the largest solve's transient (chunked: one chunk's, with
+    # the chunks' outputs twice, as they are concatenated)
     bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
         [(True, config.nlwinternal)] if config.do_lw else [])
+    containers = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
+                     for _, S in bands)
     held = {d: torch.cuda.memory_allocated(d) - a for d, (_, a) in start.items()}
-    if device in held:  # the flux containers
-        held[device] += sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
-                            for _, S in bands)
-    layered = []
+    if device in held:  # the inputs the core's call moves, and the containers
+        held[device] += containers + sum(
+            x.numel() * x.element_size() for x in tree_leaves(payload)
+            if x.device.type != device.type)
+    layered, kept, peak = [], 0, 0
     for opt_kw, lg_sw, lg_lw, devs, pls in groups:
         shard_opts = []
         for dev, pl in zip(devs, pls):
@@ -344,31 +377,36 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh):
                     SolverOptions(nstream=lg.nstream, **opt_kw), lg, C, nlay, S,
                     dtype, dev, lw=lw, route=route, with_profiles=profiles,
                     budget=budget)
+                size = lambda n: DM.solve_bytes(
+                    n, nlay, S, opt.nreg, lg.nstream, itemsize, lw=lw,
+                    do_urban=opt.do_urban, with_profiles=profiles)
+                transient, k = size(C)
+                if 0 < opt.column_chunk < C:
+                    transient = size(opt.column_chunk)[0] + 2 * k
+                peak, kept = max(peak, kept + transient), kept + k
                 if dev in held:  # the solve's outputs, kept to the end
-                    held[dev] += DM.solve_bytes(
-                        C, nlay, S, opt.nreg, lg.nstream, itemsize, lw=lw,
-                        do_urban=opt.do_urban, with_profiles=profiles)[1]
+                    held[dev] += k
                 opts.append(opt)
             opt_sw = opts[0] if config.do_sw else None
             opt_lw = opts[-1] if config.do_lw else None
             shard_opts.append((dev, opt_sw, opt_lw))
         layered.append((lg_sw.nstream, lg_lw.nstream, tuple(shard_opts)))
 
-    head = (ncol, nlay, config.nswinternal, config.nlwinternal, config.do_sw,
-            config.do_lw, profiles, config.min_building_fraction, route,
-            device, dtype)
-    plan = (head, "flat" in payload, tuple(layered), "simple" in payload)
+    plan = Plan(ncol, nlay, config.nswinternal, config.nlwinternal, config.do_sw,
+                config.do_lw, profiles, config.min_building_fraction, route, device,
+                dtype, "flat" in payload, tuple(layered), "simple" in payload,
+                need=containers + peak)
     return plan, payload
 
 
-def _core(plan, payload):
+def _core(plan: Plan, payload):
     """The device half of run_radsurf (JAX _radsurf_core): the flux
     containers, the flat, layered and simple-urban solves, and the scatter
-    of every group's outputs into the containers.  plan, payload: _plan."""
-    head, has_flat, layered, has_simple = plan
-    (ncol, nlay, nsw, nlw, do_sw, do_lw, profiles, min_bf, route, device,
-     dtype) = head
-    kw = dict(dtype=dtype, device=device)
+    of every group's outputs into the containers.  plan, payload: _plan,
+    the payload on its devices."""
+    ncol, nlay, nsw, nlw = plan.ncol, plan.nlay, plan.nsw, plan.nlw
+    do_sw, do_lw, profiles, route = plan.do_sw, plan.do_lw, plan.profiles, plan.route
+    kw = dict(dtype=plan.dtype, device=plan.device)
     bc = {}
     out = {"bc_out": bc}
     if do_sw:
@@ -383,7 +421,7 @@ def _core(plan, payload):
                    lw_norm=_empty_flux(ncol, nlay, nlw, **kw))
 
     # ---- flat tiles (radsurf_interface.F90:122-173)
-    if has_flat:
+    if plan.flat:
         pl = payload["flat"]
         tidx = pl["idx"]
         if do_sw:
@@ -402,7 +440,7 @@ def _core(plan, payload):
     # ---- layered SPARTACUS tiles: every shard's solves are issued first,
     # then their results gathered on `device` and scattered
     solved = []
-    for (ns_sw, ns_lw, shards), pls in zip(layered, payload.get("layered", ())):
+    for (ns_sw, ns_lw, shards), pls in zip(plan.layered, payload.get("layered", ())):
         for (_, opt_sw, opt_lw), pl in zip(shards, pls):
             sw = lw = None
             if opt_sw is not None:
@@ -414,7 +452,7 @@ def _core(plan, payload):
                                   with_profiles=profiles, route=route)
             solved.append((pl["idx"], sw, lw))
     for tidx, sw, lw in solved:
-        sw, lw = tree_map(lambda t: t.to(device), (sw, lw))
+        sw, lw = tree_map(lambda t: t.to(plan.device), (sw, lw))
         if sw is not None:
             sun_up, (ndir, ndiff, sbc) = sw
             _scatter(out["sw_norm_dir"], ndir, tidx, sun_up)
@@ -429,11 +467,12 @@ def _core(plan, payload):
             bc["lw_emission"][tidx] = lbc["top_emission"]
 
     # ---- simple urban / infinite street (radsurf_interface.F90:272-309)
-    if has_simple:
+    if plan.simple:
         pl = payload["simple"]
         tidx = pl["idx"]
         geom = (pl["dz"], pl["bf"], pl["bs"])
-        opts = dict(min_building_fraction=min_bf, with_profiles=profiles)
+        opts = dict(min_building_fraction=plan.min_building_fraction,
+                    with_profiles=profiles)
         if do_sw:
             ndir, ndiff, sbc = su_mod.simple_urban_sw(
                 *geom, pl["cos_sza"], pl["is_inf"], pl["galb"], pl["galb_dir"],

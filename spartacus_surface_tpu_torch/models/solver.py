@@ -1150,7 +1150,10 @@ def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
     the fewest equal chunks that fit; elsewhere, and on the CPU, whose
     budget is unbounded, 0.  Explicit values pass through.  Chunked, every
     chunk's outputs are kept and then concatenated: that takes twice the
-    outputs of the C columns besides one chunk's transient."""
+    outputs of the C columns besides one chunk's transient.  On CUDA the
+    solve is captured as a CUDA graph at its second call, whose pool holds
+    up to CAPTURE_FACTOR x the transient (utils/device_memory.py): the
+    plan is for that, so that the capture fits as the eager call does."""
     ck = opt.column_chunk
     if ck != -1:
         return ck
@@ -1162,6 +1165,8 @@ def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
     words = DM.solve_words(opt.nreg, lg.nstream, lw=lw, do_urban=opt.do_urban,
                            with_profiles=with_profiles)
     transient, kept = (DM.class_bytes(w, C, L, S, itemsize) for w in words)
+    if torch.device(device).type == "cuda":
+        transient *= DM.CAPTURE_FACTOR
     if transient <= budget:
         return 0
     room = budget - 2 * kept
@@ -1239,10 +1244,10 @@ class _KernelRouteGrad(torch.autograd.Function):
     keys the forward appends to `keys`."""
 
     @staticmethod
-    def forward(ctx, kernel, scan, opt, lg, with_profiles, names, keys,
+    def forward(ctx, kernel, scan, opt, lg, with_profiles, lw, names, keys,
                 *tensors):
         outs = _compiled(kernel, CanopyInputs(**dict(zip(names, tensors))),
-                         opt, lg, with_profiles)
+                         opt, lg, with_profiles, lw)
         keys.extend(list(d) for d in outs)
         ctx.save_for_backward(*tensors)
         ctx.set_materialize_grads(False)
@@ -1252,7 +1257,7 @@ class _KernelRouteGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cts):
         scan, opt, lg, with_profiles, names, keys = ctx.setup
-        need = ctx.needs_input_grad[7:]
+        need = ctx.needs_input_grad[8:]
         with torch.enable_grad():
             xs = [x.detach().requires_grad_(n)
                   for x, n in zip(ctx.saved_tensors, need)]
@@ -1264,7 +1269,7 @@ class _KernelRouteGrad(torch.autograd.Function):
             grads = iter(torch.autograd.grad(
                 [o for o, _ in pairs], [x for x in xs if x.requires_grad],
                 [c for _, c in pairs], allow_unused=True) if pairs else ())
-        return (None,) * 7 + tuple(next(grads, None) if n else None
+        return (None,) * 8 + tuple(next(grads, None) if n else None
                                    for n in need)
 
 
@@ -1277,22 +1282,27 @@ def _needs_grad(x) -> bool:
 
 
 def _compiled(kernel, inp: CanopyInputs, opt: SolverOptions, lg,
-              with_profiles):
+              with_profiles, lw: bool):
     """kernel(inp, opt, lg, with_profiles) as a compiled program
     (utils/graphs.py; JAX: jax.jit with static opt, lg and with_profiles):
     on CUDA tensors a CUDA graph per (kernel, opt with its resolved column
     chunk, nstream, with_profiles, the inputs' shapes, dtype and device),
-    captured at the second call and replayed from then on."""
+    captured at the second call and replayed from then on.  The call needs
+    the working-set model's transient bytes (utils/device_memory.py)."""
     named = inp.tensors()
     names = tuple(n for n, _ in named)
+    C, L = inp.dz.shape
+    need = DM.solve_bytes(C, L, inp.air_ext.shape[-1], opt.nreg, lg.nstream,
+                          inp.air_ext.element_size(), lw=lw, do_urban=opt.do_urban,
+                          with_profiles=with_profiles)[0]
     return graphs.call(
         (kernel, opt, lg.nstream, with_profiles, names),
         lambda *xs: kernel(CanopyInputs(**dict(zip(names, xs))), opt, lg,
                            with_profiles),
-        [x for _, x in named])
+        [x for _, x in named], need=need)
 
 
-def _with_grad(kernel, scan):
+def _with_grad(kernel, scan, lw: bool):
     """The kernel route `kernel` as a solve: a compiled program
     (_compiled), or, where an input needs a gradient, through
     _KernelRouteGrad with `scan` as its backward (one Function per column
@@ -1300,17 +1310,17 @@ def _with_grad(kernel, scan):
     def impl(inp, opt, lg, with_profiles):
         named = inp.tensors()
         if not any(_needs_grad(x) for _, x in named):
-            return _compiled(kernel, inp, opt, lg, with_profiles)
+            return _compiled(kernel, inp, opt, lg, with_profiles, lw)
         keys = []
         flat = iter(_KernelRouteGrad.apply(
-            kernel, scan, opt, lg, with_profiles, [n for n, _ in named], keys,
+            kernel, scan, opt, lg, with_profiles, lw, [n for n, _ in named], keys,
             *(x for _, x in named)))
         return tuple({k: next(flat) for k in ks} for ks in keys)
     return impl
 
 
-_ROUTES = {"kernel": _with_grad(_sw_kernel_path, _sw_scan), "scan": _sw_scan}
-_LW_ROUTES = {"kernel": _with_grad(_lw_kernel_path, _lw_scan), "scan": _lw_scan}
+_ROUTES = {"kernel": _with_grad(_sw_kernel_path, _sw_scan, False), "scan": _sw_scan}
+_LW_ROUTES = {"kernel": _with_grad(_lw_kernel_path, _lw_scan, True), "scan": _lw_scan}
 
 
 def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,

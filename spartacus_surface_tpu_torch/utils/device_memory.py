@@ -16,7 +16,8 @@ models/solver.py, the CLI's ``--stream-chunk`` default in driver/main.py):
   HBM3 (700 W) the measured peak of a one-shot run_radsurf call was 0.97-
   1.01 of the model's (chip_smoke.py, `auto` phase).
 * ``device_budget``: the bytes a device can still give, its free memory
-  plus what PyTorch's caching allocator holds unallocated, times
+  plus what PyTorch's caching allocator holds unallocated (and what the
+  CUDA graphs hold, which they give back when it is needed), times
   ``BUDGET_SHARE``, less ``BUDGET_RESERVE``.  Off CUDA the budget is
   unbounded.
 
@@ -46,6 +47,16 @@ from . import graphs
 # `auto` phase, squeeze).
 BUDGET_SHARE = 0.85
 BUDGET_RESERVE = 2**30
+
+# A call on CUDA is captured as a CUDA graph at its second call
+# (utils/graphs.py), and a capture cannot give the allocator's blocks back
+# to the device: a tensor larger than every block freed so far takes new
+# memory, so the graph's pool holds more than an eager call's peak.  An
+# automatic chunk on CUDA plans for this multiple of a solve's transient
+# bytes.  chip_smoke.py's `auto` phase (capture_footprint) measures the
+# pool of a captured one-shot call against its eager peak and holds the
+# ratio to it.
+CAPTURE_FACTOR = 1.6
 
 
 # Words of one solve's CanopyInputs (models/dispatch.py _SW_KEYS /
@@ -116,16 +127,21 @@ def solve_bytes(ncol: int, nlay: int, nband: int, nreg: int, nstream: int,
             class_bytes(k, ncol, nlay, nband, itemsize))
 
 
-def device_budget(device) -> float:
+def device_budget(device, *, with_graphs: bool = True) -> float:
     """Bytes an automatic chunk may plan to fill on `device`: (free memory
-    + what the caching allocator has reserved but not allocated, less the
-    free blocks of the CUDA graphs' pool, which eager work cannot use,
-    utils/graphs.py) x BUDGET_SHARE - BUDGET_RESERVE, at least 0.  Off CUDA
-    there is no separate device memory: math.inf."""
+    + what the caching allocator has reserved but not allocated) x
+    BUDGET_SHARE - BUDGET_RESERVE, at least 0.  with_graphs: also count
+    what the CUDA graphs hold there (utils/graphs.py: their pool's free
+    blocks and their static buffers) as available, since a replay runs in
+    its own graph's memory and the cache gives the rest back before an
+    eager call or a capture that needs it; False: only what eager work can
+    reach now (the pool's free blocks taken).  Off CUDA there is no
+    separate device memory: math.inf."""
     device = torch.device(device)
     if device.type != "cuda":
         return math.inf
     free, _ = torch.cuda.mem_get_info(device)
-    cached = (torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-              - graphs.pool_free_bytes(device))
-    return max(0.0, BUDGET_SHARE * (free + cached) - BUDGET_RESERVE)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    pool_free, buffers = graphs.held(device)
+    room = free + cached + buffers if with_graphs else free + cached - pool_free
+    return max(0.0, BUDGET_SHARE * room - BUDGET_RESERVE)

@@ -6,8 +6,12 @@ with static options) and ``run_radsurf``'s device work (``_radsurf_core``) as
 one compiled program per static key.  On CUDA the counterpart is a CUDA
 graph, captured once per key and replayed with one launch.  ``call`` keeps
 them, keyed by what a JAX static argument or shape would key: the caller's
-static part (the function, its options, the resolved column chunk) and the
-shape, dtype and device of every input tensor.
+static part (the function, its options, the resolved column chunk), the
+device it runs on, and the shape, dtype and device of every input tensor.
+
+Inputs may lie on the device or on the host (CPU tensors for a CUDA call):
+host inputs are packed into one pinned buffer a dtype and moved with one
+transfer each, on a replay straight into the graph's static input buffers.
 
 * First call of a key: ``fn`` runs eagerly.  That is the warm-up a capture
   needs (kernel builds, launch configurations, cuBLAS handles, the cached
@@ -32,14 +36,24 @@ Eager, and only so: under ``disabled()`` (the counterpart of
 The callers add inputs that need a gradient and device meshes.  A capture
 or a replay that fails raises.
 
-Memory: the pool's free blocks are the graphs' working memory, which eager
-allocations cannot use, and ``pool_free_bytes`` gives them to
-utils/device_memory.device_budget, which counts them as taken.  At most
-MAX_GRAPHS graphs are kept, the least recently used evicted first.  A cap
-by count suffices because the pool is shared: what a graph holds on its
-own is its static inputs and its packed outputs, a small share of its
-working set, which the pool holds once for all graphs.  ``clear()`` drops
-every graph and gives the pool back to the device.
+Memory.  What the graphs of a device hold (``held``: their pool's free
+blocks, which are their working memory, and their static buffers) is
+memory an eager call cannot use.  The cache gives it back when it is in
+the way: an eager call that needs more than eager work can reach (``need``
+bytes, from the working-set model of utils/device_memory.py, against
+``device_budget(with_graphs=False)``), or a capture that needs more than
+that and the pool's free blocks, which it reuses, first drops every graph
+of its device (``release``: their keys are kept as seen, so each captures
+again at its next call, with no eager warm-up) and empties the pool.  So utils/device_memory.device_budget counts what the
+graphs hold as available: an AUTO chunk planned while graphs are held is
+the one planned without them, and a replay runs in its own graph's
+memory.  At most MAX_GRAPHS graphs are kept, the least recently used
+evicted first.  A cap by count suffices because the pool is shared: an
+evicted graph's packed outputs return to the pool, and a later capture
+reuses the pool's free blocks; the pool goes back to the device at a
+release or ``clear()``.  A capture cannot give blocks back to the device
+as an eager call does, so its pool may hold more than the eager call's
+peak: AUTO chunks plan for that (device_memory.CAPTURE_FACTOR).
 """
 
 from __future__ import annotations
@@ -58,8 +72,6 @@ MAX_GRAPHS = 8
 MAX_SEEN = 1024
 
 _enabled = [True]
-_pools: dict = {}  # device index -> graph_pool_handle()
-_pool_free: dict = {}  # device index -> free bytes of the graph pools
 
 
 @contextlib.contextmanager
@@ -83,48 +95,143 @@ def on_card(device) -> bool:
     return device.type == "cuda" and not torch.cuda.is_current_stream_capturing()
 
 
+def _device(device) -> torch.device:
+    """device with its index (a CUDA device without one: the current)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _eager_room(device) -> float:
+    from .device_memory import device_budget
+    return device_budget(device, with_graphs=False)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 class Cache:
-    """Graphs by key.  capture(fn, tensors) captures a call and returns the
-    callable that replays it (Graph); eligible(device) says where calls may
-    be captured (on_card).  Both may be replaced, as the tests do to run the
-    cache's logic without a card."""
+    """Graphs by key.  capture(fn, tensors, device, pool) captures a call
+    and returns the callable that replays it (Graph); eligible(device) says
+    where calls may be captured (on_card); room(device) is the bytes an
+    eager call may plan to fill there without the graphs' memory.  All
+    three may be replaced, as the tests do to run the cache's logic
+    without a card."""
 
-    def __init__(self, capture=None, eligible=on_card, max_graphs=MAX_GRAPHS):
-        self.capture, self.eligible, self.max_graphs = capture, eligible, max_graphs
+    def __init__(self, capture=None, eligible=on_card, room=_eager_room,
+                 max_graphs=MAX_GRAPHS):
+        self.capture, self.eligible, self.room = capture, eligible, room
+        self.max_graphs = max_graphs
         self.seen, self.graphs = OrderedDict(), OrderedDict()
-        self.totals = {"captures": 0, "replays": 0, "evictions": 0, "capture_s": 0.0}
+        # device -> MemPool, its free bytes, the stream captures run on
+        self.pools, self.pool_free, self.streams = {}, {}, {}
+        self.totals = {"captures": 0, "replays": 0, "evictions": 0, "releases": 0,
+                       "capture_s": 0.0}
 
-    def call(self, key, fn, tensors):
-        """fn(*tensors), a pytree of tensors: eager at the first call of a
-        key, captured then replayed at the second, replayed after."""
+    def call(self, key, fn, tensors, device=None, need=None):
+        """fn(*tensors on device), a pytree of tensors: eager at the first
+        call of a key, captured then replayed at the second, replayed
+        after.  need: the bytes fn allocates beyond its inputs (None:
+        unknown), which decides whether the graphs' memory is given back
+        before an eager call or a capture."""
         tensors = list(tensors)
-        device = tensors[0].device
+        device = _device(tensors[0].device if device is None else device)
         if not _enabled[0] or not self.eligible(device):
-            return fn(*tensors)
-        key = (key, signature(tensors))
+            return fn(*move(tensors, device))
+        key = (key, device, signature(tensors))
         graph = self.graphs.get(key)
-        if graph is None:
-            if key not in self.seen:
-                self.seen[key] = None
-                while len(self.seen) > MAX_SEEN:
-                    self.seen.popitem(last=False)
-                return fn(*tensors)
+        if graph is not None:
+            self.graphs.move_to_end(key)
+        elif key not in self.seen:
+            self._make_room(device, need, self.room(device))
+            self.seen[key] = None
+            while len(self.seen) > MAX_SEEN:
+                self.seen.popitem(last=False)
+            return fn(*move(tensors, device))
+        else:
+            # a capture allocates in the pool, whose free blocks it reuses,
+            # up to CAPTURE_FACTOR x what fn allocates, and holds its inputs
+            from .device_memory import CAPTURE_FACTOR
+            self._make_room(
+                device, None if need is None else CAPTURE_FACTOR * need + _nbytes(tensors),
+                self.room(device) + self.pool_free.get(device, 0))
             del self.seen[key]
-            graph = self.graphs[key] = (self.capture or Graph)(fn, tensors)
+            graph = self.graphs[key] = (self.capture or Graph)(
+                fn, tensors, device, self._pool(device))
             self.totals["captures"] += 1
             self.totals["capture_s"] += graph.capture_s
             while len(self.graphs) > self.max_graphs:
                 self.graphs.popitem(last=False)
                 self.totals["evictions"] += 1
-            _measure_pool(device)
-        else:
-            self.graphs.move_to_end(key)
+            self._measure(device)
         self.totals["replays"] += 1
         return graph(tensors)
 
+    def _make_room(self, device, need, room):
+        """release(device) where its graphs hold memory and a call that
+        needs `need` bytes (None: unknown) would not fit the `room` it has
+        beside them."""
+        if any(k[1] == device for k in self.graphs) and (need is None or need > room):
+            self.release(device)
+
+    def release(self, device):
+        """Drop the graphs of device (their keys stay seen: each captures
+        again at its next call) and give their pool back to the device."""
+        for k in [k for k in self.graphs if k[1] == device]:
+            del self.graphs[k]
+            self.seen[k] = None
+        self.pools.pop(device, None)
+        self.pool_free.pop(device, None)
+        self.totals["releases"] += 1
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+
+    def _pool(self, device):
+        if device.type != "cuda":
+            return None
+        if device not in self.streams:
+            # every capture on a device runs on one stream, since the
+            # allocator hands a free block only to the stream it was taken
+            # on; cuBLAS keeps a workspace per stream, taken at its first
+            # product: taken in a capture, it would stay allocated in the
+            # pool and keep the pool from going back to the device
+            stream = self.streams[device] = torch.cuda.Stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                for dt in (torch.float32, torch.float64):
+                    x = torch.ones((2, 2, 2), dtype=dt, device=device)
+                    torch.bmm(x, x), x[0] @ x[0]
+            torch.cuda.current_stream(device).wait_stream(stream)
+        if device not in self.pools:
+            self.pools[device] = torch.cuda.MemPool()
+        return self.pools[device], self.streams[device]
+
+    def _measure(self, device):
+        """Keep the free bytes of the graph pools on device: the segments
+        of every pool but the default one ((0, 0)), less what is allocated
+        in them.  They change only at a capture, an eviction or a release:
+        a replay allocates nothing."""
+        if device.type == "cuda":
+            self.pool_free[device] = sum(
+                seg["total_size"] - seg["allocated_size"]
+                for seg in torch.cuda.memory_snapshot()
+                if seg["device"] == device.index and tuple(seg["segment_pool_id"]) != (0, 0))
+
+    def held(self, device) -> tuple:
+        """(free bytes of the graph pool on device, bytes its graphs' static
+        buffers hold)."""
+        device = _device(device)
+        return (self.pool_free.get(device, 0),
+                sum(getattr(g, "held_bytes", 0) for k, g in self.graphs.items()
+                    if k[1] == device))
+
     def clear(self):
+        for device in {k[1] for k in self.graphs} | set(self.pools):
+            self.release(device)
         self.seen.clear()
-        self.graphs.clear()
 
     def stats(self) -> dict:
         return {"graphs": len(self.graphs), "seen": len(self.seen), **self.totals,
@@ -134,122 +241,131 @@ class Cache:
 _cache = Cache()
 
 
-def call(key, fn, tensors):
+def call(key, fn, tensors, device=None, need=None):
     """fn(*tensors), a pytree of tensors, through the process's graph cache.
 
     key: hashable, everything static that fn depends on besides the tensors
-    (fn itself may be a new closure at every call); tensors: the inputs, all
-    on one device.  See the module docstring for which call runs eagerly,
-    which captures and which replays."""
-    return _cache.call(key, fn, tensors)
+    (fn itself may be a new closure at every call); tensors: the inputs, on
+    `device` (default: the first tensor's) or on the host; need: the bytes
+    fn allocates beyond its inputs.  See the module docstring for which
+    call runs eagerly, which captures and which replays."""
+    return _cache.call(key, fn, tensors, device, need)
 
 
 def stats() -> dict:
     """Graphs kept, keys seen once, and the captures, replays (the capturing
-    call's included), evictions and capture seconds since the process
-    began or the last clear(); held_bytes, what the graphs kept hold
-    allocated (their static inputs and packed outputs)."""
+    call's included), evictions, releases and capture seconds since the
+    process began; held_bytes, what the graphs kept hold allocated (their
+    static inputs and packed outputs)."""
     return _cache.stats()
 
 
+def held(device) -> tuple:
+    """(free bytes of the graph pool on device, bytes its graphs' static
+    buffers hold): memory eager work cannot use until the graphs are
+    released (utils/device_memory.device_budget)."""
+    return _cache.held(device)
+
+
 def clear():
-    """Drop every graph and remembered key; give the pools' memory back."""
+    """Drop every graph and remembered key; give the pools' memory, and the
+    allocator's other cached blocks, back to the devices."""
     _cache.clear()
-    _pools.clear()
-    _pool_free.clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
 
-def _index(device) -> int:
-    return device.index if device.index is not None else torch.cuda.current_device()
-
-
-def _pool(device):
-    index = _index(device)
-    if index not in _pools:
-        _pools[index] = torch.cuda.graph_pool_handle()
-    return _pools[index]
-
-
-def _measure_pool(device):
-    """Keep the free bytes of the graph pools on device (for device_budget):
-    the segments of every pool but the default one ((0, 0)), less what is
-    allocated in them."""
-    if device.type != "cuda":
-        return
-    index = _index(device)
-    _pool_free[index] = sum(
-        seg["total_size"] - seg["allocated_size"]
-        for seg in torch.cuda.memory_snapshot()
-        if seg["device"] == index and tuple(seg["segment_pool_id"]) != (0, 0))
-
-
-def pool_free_bytes(device) -> int:
-    """Bytes the graph pools on device hold free: taken, for eager work."""
-    device = torch.device(device)
-    return _pool_free.get(_index(device), 0) if device.type == "cuda" else 0
+def _from_host(t, device) -> bool:
+    return t.device.type == "cpu" and device.type == "cuda"
 
 
 class _Flat:
-    """Tensors of several dtypes held as one contiguous buffer per dtype,
-    each tensor a view into its dtype's buffer."""
+    """Tensors bound for `device` held as one contiguous buffer there per
+    (dtype, whether the tensor comes from the host), each tensor a view
+    into its buffer."""
 
-    def __init__(self, tensors):
+    def __init__(self, tensors, device):
+        self.device = device
         self.shapes = [tuple(t.shape) for t in tensors]
-        self.groups = {}  # dtype -> [(position, offset, numel)]
+        self.groups = {}  # (dtype, from host) -> [(position, offset, numel)]
         sizes = {}
         for i, t in enumerate(tensors):
-            off = sizes.get(t.dtype, 0)
-            self.groups.setdefault(t.dtype, []).append((i, off, t.numel()))
-            sizes[t.dtype] = off + t.numel()
+            g = (t.dtype, _from_host(t, device))
+            off = sizes.get(g, 0)
+            self.groups.setdefault(g, []).append((i, off, t.numel()))
+            sizes[g] = off + t.numel()
 
-    def pack(self, tensors, out=None):
-        """{dtype: one buffer holding the tensors of that dtype in order}
-        (into `out`'s buffers where given)."""
+    def load(self, tensors, out=None) -> dict:
+        """{group: one buffer on the device holding its tensors in order}
+        (into `out`'s buffers where given): a host group packed in pinned
+        memory and moved with one transfer, a device group with one copy."""
         bufs = {}
-        for dt, items in self.groups.items():
+        for g, items in self.groups.items():
             parts = [tensors[i].reshape(-1) for i, _, _ in items]
-            bufs[dt] = torch.cat(parts) if out is None else torch.cat(parts, out=out[dt])
+            dst = None if out is None else out[g]
+            if g[1]:
+                n = sum(t.numel() for t in parts)
+                staged = torch.cat(parts, out=torch.empty(n, dtype=g[0], pin_memory=True))
+                bufs[g] = (staged.to(self.device, non_blocking=True) if dst is None
+                           else dst.copy_(staged, non_blocking=True))
+            else:
+                bufs[g] = torch.cat(parts) if dst is None else torch.cat(parts, out=dst)
         return bufs
 
     def views(self, bufs) -> list:
         out = [None] * len(self.shapes)
-        for dt, items in self.groups.items():
+        for g, items in self.groups.items():
             for i, off, n in items:
-                out[i] = bufs[dt][off:off + n].view(self.shapes[i])
+                out[i] = bufs[g][off:off + n].view(self.shapes[i])
         return out
+
+
+def move(tensors, device) -> list:
+    """tensors on device: those on the host moved with one transfer a dtype
+    (_Flat; each a view of its dtype's buffer), the others as they are."""
+    device = torch.device(device)
+    host = [i for i, t in enumerate(tensors) if _from_host(t, device)]
+    if not host:
+        return list(tensors)
+    part = [tensors[i] for i in host]
+    flat = _Flat(part, device)
+    out = list(tensors)
+    for i, v in zip(host, flat.views(flat.load(part))):
+        out[i] = v
+    return out
 
 
 class Graph:
     """One captured call: static input buffers, the CUDA graph, its packed
-    outputs and the launch counters' growth over its capture."""
+    outputs and the launch counters' growth over its capture.  pool:
+    (the torch.cuda.MemPool it allocates in, the stream it is captured
+    on)."""
 
-    def __init__(self, fn, tensors):
+    def __init__(self, fn, tensors, device, pool):
         from ..ops import launches
 
-        device = tensors[0].device
-        self.inputs = _Flat(tensors)
+        self.device = device
+        self.inputs = _Flat(tensors, device)
+        mempool, stream = pool
         with torch.cuda.device(device):
-            self.static_in = self.inputs.pack(tensors)
+            self.static_in = self.inputs.load(tensors)
             before = launches.counts()
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=_pool(device)):
+            with torch.cuda.graph(self.graph, pool=mempool.id, stream=stream):
                 out = fn(*self.inputs.views(self.static_in))
                 leaves = tree_leaves(out)
                 bad = [type(x).__name__ for x in leaves if not isinstance(x, torch.Tensor)]
                 if bad:
                     raise TypeError(f"a captured call returned non-tensor leaves: {bad}")
-                self.outputs = _Flat(leaves)
-                self.static_out = self.outputs.pack(leaves)
+                self.outputs = _Flat(leaves, device)
+                self.static_out = self.outputs.load(leaves)
                 del leaves
             self.tree = tree_map(lambda _: 0, out)
             del out
             self.capture_s = time.perf_counter() - t0
-        self.held_bytes = sum(b.numel() * b.element_size()
-                              for b in (*self.static_in.values(), *self.static_out.values()))
+        self.held_bytes = _nbytes([*self.static_in.values(), *self.static_out.values()])
         after = launches.counts()
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         launches.add({k: -n for k, n in self.launches.items()})
@@ -257,10 +373,10 @@ class Graph:
     def __call__(self, tensors):
         from ..ops import launches
 
-        with torch.cuda.device(tensors[0].device):
-            self.inputs.pack(tensors, out=self.static_in)
+        with torch.cuda.device(self.device):
+            self.inputs.load(tensors, out=self.static_in)
             self.graph.replay()
-            fresh = {dt: b.clone() for dt, b in self.static_out.items()}
+            fresh = {g: b.clone() for g, b in self.static_out.items()}
         launches.add(self.launches)
         it = iter(self.outputs.views(fresh))
         return tree_map(lambda _: next(it), self.tree)
