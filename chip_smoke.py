@@ -679,7 +679,8 @@ def profiled_ms(fn, calls=20, symbol="", tries=3):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and symbol in e.name)
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                 and symbol in e.name)
         if us > 0:
             return us / 1e3 / calls
     return None
@@ -840,7 +841,7 @@ def copy_overlap(fn):
         fn()
         torch.cuda.synchronize()
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     copies = [(n, t0, t1) for n, t0, t1 in spans if n.startswith("Memcpy")]
     union = []  # the kernels' busy intervals, merged
     for t0, t1 in sorted((t0, t1) for n, t0, t1 in spans

@@ -255,7 +255,7 @@ def measure(b: Bench, step, columns: int, reps: int, check) -> dict:
 def trace_fields(step, label: str = "bench_call", cuda: bool = True,
                  kernels: dict | None = None) -> dict:
     """One more call of step() under torch.profiler, inside
-    profiling.annotate(label), after a warm call: the device ms of each
+    profiling.hook(label), after a warm call: the device ms of each
     kernel of `kernels` ({name: the device symbol a trace names it with};
     default TRACE_KERNELS by symbol) and of everything else (the front end
     and epilogue), the device launches (kernels and copies the device ran,
@@ -263,8 +263,11 @@ def trace_fields(step, label: str = "bench_call", cuda: bool = True,
     (host_launches: kernel, copy and graph launches issued; a replay is one),
     the device-busy ms (the union of the device intervals) and the idle
     share of the call (from its host start to its last device activity).  The profiler slows the host side, so the
-    idle share is an upper bound for an untraced call.  Without the card
-    (cuda false) the device numbers are None (not measured)."""
+    idle share is an upper bound for an untraced call.  A named range that
+    holds launches (`label`, the program's profiling.hook spans) also shows
+    as a device-side annotation over them, which is not device work and is
+    left out.  Without the card (cuda false) the device numbers are None
+    (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -274,12 +277,13 @@ def trace_fields(step, label: str = "bench_call", cuda: bool = True,
     sync()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
-        with profiling.annotate(label):
+        with profiling.hook(label):
             step()
             sync()
     events = prof.events()
     call = next(e for e in events if e.name == label and e.device_type == DeviceType.CPU)
-    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != label]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != label
+           and not e.is_user_annotation]
     fields = dict(traced_call_ms=call.time_range.elapsed_us() / 1e3, kernel_device_ms=None,
                   other_device_ms=None, device_launches=None, device_busy_ms=None,
                   device_idle_share=None, host_launches=sum(

@@ -52,7 +52,7 @@ from ..ops import launches
 from ..parallel import distributed
 from ..parallel.mesh import make_mesh
 from ..parallel.streaming import stream_columns
-from ..utils import profiling
+from ..utils import graphs, profiling
 from ..utils.device_memory import CONTAINER_WORDS, class_bytes, device_budget
 from ..utils.config import Config, DriverConfig
 from ..utils.transfer import to_device
@@ -101,9 +101,10 @@ def build_argparser():
     )
     p.add_argument(
         "--timings", action="store_true",
-        help="Print per-phase wall times (read_input / radsurf / save) and"
-             " the kernels' launch counts at exit: the region timers of"
-             " --profile without the trace",
+        help="Print per-phase wall times (read_input / radsurf / save and"
+             " run_radsurf's host plan), the kernels' launch counts and the"
+             " CUDA graphs' counters at exit: the region timers of --profile"
+             " without the trace",
     )
     p.add_argument(
         "--column-chunk", type=int, default=None, metavar="N",
@@ -476,6 +477,9 @@ def _run(args) -> int:
     if args.profile or args.timings:
         profiling.report()
         print("Kernel launches: " + json.dumps(launches.counts()))
+        counted = graphs.stats()
+        print("Graphs: " + json.dumps({k: counted[k] for k in (
+            "replays", "captures", "releases", "evictions", "h2d_bytes")}))
     if args.profile:
         log(f"Profiler trace written to {args.profile}")
     log("-----------------------------------------------------------------"

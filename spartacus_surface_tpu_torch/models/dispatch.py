@@ -36,7 +36,7 @@ from ..ops.legendre_gauss import LegendreGauss
 from ..parallel.mesh import column_sharding, tree_leaves, tree_map
 from ..utils.config import Config
 from ..utils import device_memory as DM
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.convert import torch_dtype
 from ..utils.transfer import to_device
 from . import flat as flat_mod
@@ -217,7 +217,8 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     compiled = route == "kernel" and not mesh and not any(
         _needs_grad(x) for x in arrays.values() if isinstance(x, torch.Tensor))
-    plan, payload = _plan(config, arrays, device, route, mesh, host=compiled)
+    with profiling.hook("dispatch.plan"):
+        plan, payload = _plan(config, arrays, device, route, mesh, host=compiled)
     if not compiled:
         with graphs.disabled() if mesh else contextlib.nullcontext():
             return _core(plan, payload)
@@ -273,6 +274,13 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
     working-set model: the flux containers, the earlier solves' outputs),
     so that the run as a whole stays within that budget.
 
+    Its spans (utils/profiling.hook), inside run_radsurf's dispatch.plan:
+    dispatch.plan.memory_query (AUTO's budget on each card) and one
+    dispatch.plan.gather per section of fields gathered (the flat tiles,
+    each layered group's SW and LW inputs, the simple tiles).  With host
+    they hold no device work, so a profiler trace can put the card's idle
+    time down to them; without it the gathers hold the fields' copies.
+
     Returns (Plan, payload): payload {"flat", "layered", "simple"}, the
     tensors in the plan's order."""
     rep = np.asarray(arrays["i_representation"])
@@ -281,9 +289,12 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
     dtype = dz.dtype if isinstance(dz, torch.Tensor) else torch_dtype(np.asarray(dz).dtype)
     itemsize = torch.finfo(dtype).bits // 8
     profiles = config.do_save_flux_profile
-    start = {d: (DM.device_budget(d), torch.cuda.memory_allocated(d))
-             for d in {device, *(mesh or ())}
-             if d.type == "cuda" and config.column_chunk == -1}
+    cards = [d for d in {device, *(mesh or ())}
+             if d.type == "cuda" and config.column_chunk == -1]
+    start = {}
+    if cards:
+        with profiling.hook("dispatch.plan.memory_query"):
+            start = {d: (DM.device_budget(d), torch.cuda.memory_allocated(d)) for d in cards}
     place = (lambda a, dev, dt=None: torch.as_tensor(a, dtype=dt)) if host else to_device
 
     def get(key, idx, dev=device):
@@ -301,11 +312,12 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
     idx = np.nonzero(rep == TILE_FLAT)[0]
     if idx.size:
         pl = payload["flat"] = {"idx": place(idx, device)}
-        if config.do_sw:
-            pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx))
-        if config.do_lw:
-            pl.update(gemis=get("ground_emissivity", idx),
-                      gemit=get("ground_emission", idx))
+        with profiling.hook("dispatch.plan.gather"):
+            if config.do_sw:
+                pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx))
+            if config.do_lw:
+                pl.update(gemis=get("ground_emissivity", idx),
+                          gemit=get("ground_emission", idx))
 
     # ---- layered SPARTACUS tiles, per shard
     groups, payload["layered"] = [], []
@@ -320,12 +332,15 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
             pl = {"idx": place(sidx, device)}
             if config.do_sw:
                 keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
-                pl["sw"] = CanopyInputs(**{f: get(key, sidx, dev) for f, key in keys.items()})
+                with profiling.hook("dispatch.plan.gather"):
+                    pl["sw"] = CanopyInputs(**{f: get(key, sidx, dev) for f, key in keys.items()})
                 if k == 0:  # prints the group's first column under SPARTACUS_DEBUG_ARRAYS
                     debug_dump_sw(pl["sw"], SolverOptions(nstream=lg_sw.nstream, **opt_kw),
                                   lg_sw)
             if config.do_lw:
-                pl["lw"] = CanopyInputs(**{f: get(key, sidx, dev) for f, key in _LW_KEYS.items()})
+                with profiling.hook("dispatch.plan.gather"):
+                    pl["lw"] = CanopyInputs(**{f: get(key, sidx, dev)
+                                               for f, key in _LW_KEYS.items()})
             pls.append(pl)
         groups.append((opt_kw, lg_sw, lg_lw, [dev for dev, _ in shards], pls))
         payload["layered"].append(pls)
@@ -337,19 +352,20 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
             raise ValueError(
                 "simple urban representations must have only one layer")
         lay0 = lambda key: get(key, idx)[:, 0]
-        pl = payload["simple"] = dict(
-            idx=place(idx, device), dz=lay0("dz"),
-            bf=lay0("building_fraction"), bs=lay0("building_scale"),
-            cos_sza=get("cos_sza", idx),
-            is_inf=place(rep[idx] == TILE_INFINITE_STREET, device))
-        if config.do_sw:
-            pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx),
-                      ralb=lay0("roof_albedo"), walb=lay0("wall_albedo"))
-        if config.do_lw:
-            pl.update(gemis=get("ground_emissivity", idx),
-                      gemit=get("ground_emission", idx),
-                      remis=lay0("roof_emissivity"), remit=lay0("roof_emission"),
-                      wemis=lay0("wall_emissivity"), wemit=lay0("wall_emission"))
+        with profiling.hook("dispatch.plan.gather"):
+            pl = payload["simple"] = dict(
+                idx=place(idx, device), dz=lay0("dz"),
+                bf=lay0("building_fraction"), bs=lay0("building_scale"),
+                cos_sza=get("cos_sza", idx),
+                is_inf=place(rep[idx] == TILE_INFINITE_STREET, device))
+            if config.do_sw:
+                pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx),
+                          ralb=lay0("roof_albedo"), walb=lay0("wall_albedo"))
+            if config.do_lw:
+                pl.update(gemis=get("ground_emissivity", idx),
+                          gemit=get("ground_emission", idx),
+                          remis=lay0("roof_emissivity"), remit=lay0("roof_emission"),
+                          wemis=lay0("wall_emissivity"), wemit=lay0("wall_emission"))
 
     # ---- the layered solves' options, their AUTO chunks resolved; what
     # the core holds on `device`: the flux containers, the solves' kept

@@ -234,7 +234,8 @@ def _device_ms(fn, symbol, calls):
             fn()
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA and symbol in e.name) / 1e3 / calls
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+               and symbol in e.name) / 1e3 / calls
 
 
 def _field_err(ref, got):

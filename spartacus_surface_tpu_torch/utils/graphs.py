@@ -65,6 +65,7 @@ from collections import OrderedDict
 import torch
 
 from ..parallel.mesh import tree_leaves, tree_map
+from . import profiling
 
 # Graphs kept at once (least recently used evicted first), and keys
 # remembered as called once (eager so far)
@@ -128,7 +129,7 @@ class Cache:
         # device -> MemPool, its free bytes, the stream captures run on
         self.pools, self.pool_free, self.streams = {}, {}, {}
         self.totals = {"captures": 0, "replays": 0, "evictions": 0, "releases": 0,
-                       "capture_s": 0.0}
+                       "capture_s": 0.0, "h2d_bytes": 0, "h2d_loads": 0}
 
     def call(self, key, fn, tensors, device=None, need=None):
         """fn(*tensors on device), a pytree of tensors: eager at the first
@@ -255,8 +256,10 @@ def call(key, fn, tensors, device=None, need=None):
 def stats() -> dict:
     """Graphs kept, keys seen once, and the captures, replays (the capturing
     call's included), evictions, releases and capture seconds since the
-    process began; held_bytes, what the graphs kept hold allocated (their
-    static inputs and packed outputs)."""
+    process began; h2d_bytes and h2d_loads, the bytes moved from the host
+    to the device by the loads of host inputs (_Flat.load: eager, capture
+    and replay) and the number of those loads; held_bytes, what the graphs
+    kept hold allocated (their static inputs and packed outputs)."""
     return _cache.stats()
 
 
@@ -299,18 +302,25 @@ class _Flat:
     def load(self, tensors, out=None) -> dict:
         """{group: one buffer on the device holding its tensors in order}
         (into `out`'s buffers where given): a host group packed in pinned
-        memory and moved with one transfer, a device group with one copy."""
-        bufs = {}
+        memory (the span graphs.pack, which holds no device work) and moved
+        with one transfer, a device group with one copy.  The process's
+        cache counts the bytes moved from the host (stats())."""
+        bufs, moved = {}, 0
         for g, items in self.groups.items():
             parts = [tensors[i].reshape(-1) for i, _, _ in items]
             dst = None if out is None else out[g]
             if g[1]:
-                n = sum(t.numel() for t in parts)
-                staged = torch.cat(parts, out=torch.empty(n, dtype=g[0], pin_memory=True))
+                with profiling.hook("graphs.pack"):
+                    n = sum(t.numel() for t in parts)
+                    staged = torch.cat(parts, out=torch.empty(n, dtype=g[0], pin_memory=True))
                 bufs[g] = (staged.to(self.device, non_blocking=True) if dst is None
                            else dst.copy_(staged, non_blocking=True))
+                moved += n * staged.element_size()
             else:
                 bufs[g] = torch.cat(parts) if dst is None else torch.cat(parts, out=dst)
+        if moved:
+            _cache.totals["h2d_bytes"] += moved
+            _cache.totals["h2d_loads"] += 1
         return bufs
 
     def views(self, bufs) -> list:

@@ -6,13 +6,14 @@ used e.g. at radsurf/radsurf_interface.F90:83,315) and times the solver loop
 with omp_get_wtime (driver/spartacus_surface_driver.F90:195,264-268).
 
 Port of spartacus_surface_tpu/utils/profiling.py:
-  * `hook(name)`: context manager accumulating wall time per region (a
-    no-op unless enabled, like lhook; the CLI enables it for one run under
-    --timings or --profile); the region also shows in a torch.profiler
-    trace.  A region that launches device work must end in
-    torch.cuda.synchronize() for its wall time to cover that work;
-  * `annotate(name)`: a named range in a torch.profiler trace (always on,
-    no timing), the counterpart of the JAX package's named scope;
+  * `hook(name)`: context manager accumulating wall time per region and
+    opening a named range of the torch.profiler trace (the counterpart of
+    the JAX package's named scope), on the same clock as the device's
+    events.  It records while `enabled` is set (like lhook; the CLI sets it
+    for one run under --timings or --profile) or while a torch.profiler
+    session runs; otherwise it costs one check.  A region that launches
+    device work must end in torch.cuda.synchronize() for its wall time to
+    cover that work;
   * `start_trace(dir)` / `stop_trace()`: a torch.profiler trace (CPU, and
     CUDA where available) written to DIR as a Chrome trace.
 """
@@ -25,6 +26,7 @@ import time
 from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 enabled = False
 _totals: defaultdict[str, float] = defaultdict(float)
@@ -32,23 +34,24 @@ _counts: defaultdict[str, int] = defaultdict(int)
 _trace: list = []  # [(profiler, log_dir)] while a trace runs
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def hook(name: str):
-    """Accumulating wall-clock region timer (dr_hook equivalent)."""
-    if not enabled:
-        yield
-        return
+    """Accumulating wall-clock region timer (dr_hook equivalent), recording
+    while `enabled` is set or a torch.profiler session runs."""
+    if not (enabled or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _record(name)
+
+
+@contextlib.contextmanager
+def _record(name: str):
     t0 = time.perf_counter()
     with torch.profiler.record_function(name):
         yield
     _totals[name] += time.perf_counter() - t0
     _counts[name] += 1
-
-
-def annotate(name: str):
-    """Named region of a torch.profiler trace (jax.named_scope's
-    counterpart): the events recorded inside it nest under `name`."""
-    return torch.profiler.record_function(name)
 
 
 def report(printer=print):
@@ -67,6 +70,11 @@ def report(printer=print):
 def totals() -> dict:
     """{region: accumulated wall seconds}."""
     return dict(_totals)
+
+
+def counts() -> dict:
+    """{region: the times it was entered while recording}."""
+    return dict(_counts)
 
 
 def reset():
