@@ -479,7 +479,8 @@ def _run(args) -> int:
         print("Kernel launches: " + json.dumps(launches.counts()))
         counted = graphs.stats()
         print("Graphs: " + json.dumps({k: counted[k] for k in (
-            "replays", "captures", "releases", "evictions", "h2d_bytes")}))
+            "replays", "captures", "releases", "evictions", "h2d_bytes",
+            "gather_bytes")}))
     if args.profile:
         log(f"Profiler trace written to {args.profile}")
     log("-----------------------------------------------------------------"

@@ -7,10 +7,11 @@ Parity: the per-column ``select case (i_representation)`` loop of
 radsurf/radsurf_interface.F90:105-313.
 
 As in JAX, a call is a host plan (_plan: the tile groups, their indices,
-each group's fields, the AUTO column chunks) and a device core
-(_core: the flux containers, every solve and scatter), which on the kernel
-route runs as a compiled program: a CUDA graph per (plan, shapes, dtype,
-device), utils/graphs.py.
+the fields they read, whole, the AUTO column chunks) and a device core
+(_core: the flux containers, each group's rows gathered from the whole
+fields, every solve and scatter), which on the kernel route runs as a
+compiled program: a CUDA graph per (plan, shapes, dtype, device),
+utils/graphs.py.
 
 Device meshes: pass ``mesh=`` (a list of devices, parallel/mesh.py) and each
 layered group's columns are split over its entries, each shard solved on its
@@ -38,6 +39,7 @@ from ..utils.config import Config
 from ..utils import device_memory as DM
 from ..utils import graphs, profiling
 from ..utils.convert import torch_dtype
+from ..utils.debug import debug_arrays_enabled
 from ..utils.transfer import to_device
 from . import flat as flat_mod
 from . import simple_urban as su_mod
@@ -132,36 +134,53 @@ def working_set_bytes(config: Config, i_representation, nlay: int,
     """The working-set model (utils/device_memory.py) of one one-shot
     run_radsurf call on the kernel route: columns of the tile codes
     i_representation [ncol] with nlay layers, a consolidated Config, words of
-    itemsize bytes.  Every solve's inputs are on the device before the core
-    runs (_plan), the layered groups are solved one after another and every
-    group's outputs are kept until all are scattered, so the peak is the
-    flux containers of every column, the inputs of every solve, the outputs
-    kept so far, and one solve's transient, the largest of them."""
+    itemsize bytes.  Every field a tile group reads is on the device whole
+    before the core runs (_plan); the core gathers each section's rows
+    (_gathers) and keeps them through the section's solves, the layered
+    groups are solved one after another and every group's outputs are kept
+    until all are scattered.  So the peak is the flux containers of every
+    column, the whole fields, the outputs kept so far, and one section's
+    gathered rows with one solve's transient, the largest of them."""
     rep = np.asarray(i_representation)
     ncol = rep.size
     bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
         [(True, config.nlwinternal)] if config.do_lw else [])
     fixed = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
                 for _, S in bands)
-    inputs = kept = peak = 0
-    for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
+    keys = _gathers(config.do_sw, config.do_lw, _gdir(config))
+    groups = _solver_groups(config)
+    n_flat = int((rep == TILE_FLAT).sum())
+    n_simple = int(np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]).sum())
+    S_of = {False: config.nswinternal, True: config.nlwinternal}
+
+    def nbytes(names, C, lay0=False):
+        """Bytes of the rows of the fields `names` at C columns."""
+        return sum(DM.class_bytes({_word_class(key, lay0): 1}, C, nlay,
+                                  S_of[key in _LW_ONLY], itemsize) for key in names)
+
+    whole = _whole_keys(keys, n_flat, np.isin(rep, list(groups)).any(), n_simple)
+    peak, kept = nbytes(keys["flat"], n_flat), 0
+    for code, (opt_kw, lg_sw, lg_lw) in groups.items():
         C = int((rep == code).sum())
+        rows = nbytes(keys["layered"], C)
         for lw, S in bands if C else ():
             t, k = DM.solve_bytes(C, nlay, S, opt_kw["nreg"],
                                   (lg_lw if lw else lg_sw).nstream, itemsize,
                                   lw=lw, do_urban=opt_kw["do_urban"],
                                   with_profiles=config.do_save_flux_profile)
-            inputs += DM.class_bytes(DM.INPUT_WORDS[lw], C, nlay, S, itemsize)
-            peak = max(peak, kept + t)
+            peak = max(peak, kept + rows + t)
             kept += k
-    return fixed + inputs + peak
+    peak = max(peak, kept + nbytes(keys["simple"], n_simple)
+               + nbytes(keys["lay0"], n_simple, lay0=True))
+    return fixed + nbytes(whole, ncol) + peak
 
 
 def _same(*names):
     return {k: k for k in names}
 
 
-# CanopyInputs field -> arrays key, per band (JAX _gather_inputs)
+# CanopyInputs field -> arrays key, per band (JAX _gather_inputs); a
+# layered group's SW and LW inputs share the common fields' rows
 _COMMON_KEYS = _same("dz", "cos_sza", "veg_fraction", "veg_scale", "veg_ext",
                      "veg_fsd", "veg_contact_fraction", "building_fraction",
                      "building_scale")
@@ -176,6 +195,46 @@ _LW_KEYS = dict(
     **_same("ground_emissivity", "ground_emission", "roof_emissivity",
             "roof_emission", "wall_emissivity", "wall_emission",
             "clear_air_planck", "veg_planck", "veg_air_planck"))
+# the arrays keys with a band axis of nlw, not nsw
+_LW_ONLY = frozenset(_LW_KEYS.values()) - frozenset(_COMMON_KEYS.values())
+
+
+def _gdir(config: Config) -> str:
+    """The arrays key of the direct ground albedo."""
+    return "ground_albedo_dir" if config.use_sw_direct_albedo else "ground_albedo"
+
+
+def _gathers(do_sw: bool, do_lw: bool, gdir: str) -> dict:
+    """The arrays keys whose rows each section of _core gathers, each once:
+    {"flat", "layered", "simple": [C, ...] rows, "lay0": the simple tiles'
+    layer-0 slices}."""
+    ground = (["ground_albedo", gdir] if do_sw else []) + (
+        ["ground_emissivity", "ground_emission"] if do_lw else [])
+    canopy = [*({**_SW_KEYS, "ground_albedo_dir": gdir}.values() if do_sw else ()),
+              *(_LW_KEYS.values() if do_lw else ())]
+    lay0 = ["dz", "building_fraction", "building_scale"] + (
+        ["roof_albedo", "wall_albedo"] if do_sw else []) + (
+        ["roof_emissivity", "roof_emission", "wall_emissivity", "wall_emission"]
+        if do_lw else [])
+    unique = lambda keys: list(dict.fromkeys(keys))
+    return {"flat": unique(ground), "layered": unique(canopy),
+            "simple": unique(["cos_sza", *ground]), "lay0": lay0}
+
+
+def _whole_keys(gathers: dict, flat, layered, simple) -> list:
+    """The arrays keys that the sections present (flat, layered, simple:
+    whether each has columns) gather from, each once: the whole fields
+    that _plan moves."""
+    on = {"flat": flat, "layered": layered, "simple": simple, "lay0": simple}
+    return list(dict.fromkeys(k for s, keys in gathers.items() if on[s] for k in keys))
+
+
+def _word_class(key: str, lay0: bool = False) -> str:
+    """The element class (utils/device_memory.py) of a row of arrays[key],
+    or of its layer-0 slice."""
+    cls = ("C" if key == "cos_sza" else "CS" if key.startswith("ground_")
+           else "CL" if key in _COMMON_KEYS else "E")
+    return {"CL": "C", "E": "CS"}.get(cls, cls) if lay0 else cls
 
 
 def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
@@ -197,15 +256,17 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
       mesh: optional list of devices (parallel/mesh.make_mesh): the layered
         groups' columns are split over it, each shard solved on its entry.
 
-    The host plan (_plan: tile groups, indices, each group's fields, AUTO
-    column chunks) runs at every call; the device core (_core: every solve
-    and scatter) is a compiled program (utils/graphs.py; JAX
-    _radsurf_core): on CUDA a CUDA graph per (plan, shapes, dtype, device),
-    captured at the second call and replayed from then on, on the kernel
-    route, its fields moved with one transfer a dtype.  It runs eagerly on
-    the CPU, under graphs.disabled(), where an input needs a gradient, with
-    a mesh, and on the scan route (the plain reference: its factory reads
-    its doubling count on the host).
+    The host plan (_plan: tile groups, their indices, AUTO column chunks)
+    runs at every call; the device core (_core: the gathers of each group's
+    rows from the whole fields, every solve and scatter) is a compiled
+    program (utils/graphs.py; JAX _radsurf_core): on CUDA a CUDA graph per
+    (plan, shapes, dtype, device), captured at the second call and replayed
+    from then on, on the kernel route, its whole fields and indices moved
+    with one transfer a dtype.  It runs eagerly on the CPU, under
+    graphs.disabled(), where an input needs a gradient, with a mesh, and on
+    the scan route (the plain reference: its factory reads its doubling
+    count on the host).  graphs.stats()["gather_bytes"] counts the bytes
+    the core gathers.
 
     Returns {"sw_norm_dir", "sw_norm_diff"} (with do_sw) and {"lw_internal",
     "lw_norm"} (with do_lw) flux dicts, and "bc_out": {"sw_albedo",
@@ -219,6 +280,7 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
         _needs_grad(x) for x in arrays.values() if isinstance(x, torch.Tensor))
     with profiling.hook("dispatch.plan"):
         plan, payload = _plan(config, arrays, device, route, mesh, host=compiled)
+    graphs.count("gather_bytes", plan.gathered)
     if not compiled:
         with graphs.disabled() if mesh else contextlib.nullcontext():
             return _core(plan, payload)
@@ -238,12 +300,14 @@ def _lg(nstream: int) -> LegendreGauss:
 @dataclass(frozen=True)
 class Plan:
     """The static part of a run_radsurf call (_plan), which keys its core's
-    graph.  flat / simple: whether those tile groups exist; layered: per
-    layered group (nstream_sw, nstream_lw, ((shard device, opt_sw or None,
-    opt_lw or None), ...)), the options with their column chunks resolved;
-    need: the bytes the core allocates beyond its inputs (the working-set
-    model: the flux containers, the solves' outputs kept, the largest
-    solve's transient), which follows from the rest."""
+    graph.  gdir: the arrays key of the direct ground albedo; flat /
+    simple: whether those tile groups exist; layered: per layered group
+    (nstream_sw, nstream_lw, ((shard device, opt_sw or None, opt_lw or
+    None), ...)), the options with their column chunks resolved; need: the
+    bytes the core allocates beyond its inputs (the working-set model: the
+    flux containers, the gathered rows, the solves' outputs kept, the
+    largest solve's transient); gathered: the bytes of the rows the core
+    gathers.  need and gathered follow from the rest."""
     ncol: int
     nlay: int
     nsw: int
@@ -255,34 +319,38 @@ class Plan:
     route: str
     device: torch.device
     dtype: torch.dtype
+    gdir: str
     flat: bool
     layered: tuple
     simple: bool
     need: int = field(default=0, compare=False)
+    gathered: int = field(default=0, compare=False)
 
 
 def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = False):
     """The host half of run_radsurf (JAX run_radsurf before _radsurf_core):
-    the tile groups, their column indices and fields, and each layered
-    solve's options with its column chunk resolved.  host: the numpy
-    fields stay on the host, as CPU tensors, for the graph cache to move
+    the tile groups and their column indices, the fields they read, whole,
+    and each layered solve's options with its column chunk resolved.  The
+    rows of each group are gathered on the device, in _core.  A field that
+    is a torch tensor is moved to the device as it is (its autograd graph
+    kept); a numpy field is, with host, a CPU tensor over the caller's array
+    (cast only where its dtype is not dz's) for the graph cache to move
     (utils/graphs.py: one transfer a dtype, on a replay into the graph's
-    own buffers); else each is moved to the device (or a group's shards to
-    the mesh's devices) here.  AUTO chunks: each solve may plan for the
-    budget its device had when the run began, less what the run moves there
-    (its inputs) and what the core will hold there before the solve (the
-    working-set model: the flux containers, the earlier solves' outputs),
-    so that the run as a whole stays within that budget.
+    own buffers), else moved to the device here.  AUTO chunks: each solve
+    may plan for the budget its device had when the run began, less what
+    the run moves there (the whole fields and indices) and what the core
+    will hold there before the solve (the working-set model: the flux
+    containers, the earlier solves' outputs, the group's gathered rows), so
+    that the run as a whole stays within that budget.  Under
+    SPARTACUS_DEBUG_ARRAYS each layered group's SW inputs at its first
+    column are built here, on the host, for solver.debug_dump_sw.
 
-    Its spans (utils/profiling.hook), inside run_radsurf's dispatch.plan:
-    dispatch.plan.memory_query (AUTO's budget on each card) and one
-    dispatch.plan.gather per section of fields gathered (the flat tiles,
-    each layered group's SW and LW inputs, the simple tiles).  With host
-    they hold no device work, so a profiler trace can put the card's idle
-    time down to them; without it the gathers hold the fields' copies.
+    Its span (utils/profiling.hook), inside run_radsurf's dispatch.plan:
+    dispatch.plan.memory_query (AUTO's budget on each card).
 
-    Returns (Plan, payload): payload {"flat", "layered", "simple"}, the
-    tensors in the plan's order."""
+    Returns (Plan, payload): payload {"fields": {arrays key: [ncol, ...]},
+    "flat", "layered", "simple": each group's (each shard's) column
+    indices, the simple tiles' is_inf}, the tensors in the plan's order."""
     rep = np.asarray(arrays["i_representation"])
     dz = arrays["dz"]
     ncol, nlay = dz.shape
@@ -295,82 +363,69 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
     if cards:
         with profiling.hook("dispatch.plan.memory_query"):
             start = {d: (DM.device_budget(d), torch.cuda.memory_allocated(d)) for d in cards}
-    place = (lambda a, dev, dt=None: torch.as_tensor(a, dtype=dt)) if host else to_device
+    place = (lambda a, dev: torch.as_tensor(a)) if host else to_device
 
-    def get(key, idx, dev=device):
-        """The columns idx of arrays[key] for dev: a tensor is indexed on
-        dev (its autograd graph kept), a numpy array sliced on the host."""
+    def whole(key):
         x = arrays[key]
         if isinstance(x, torch.Tensor):
-            return x.to(device=dev, dtype=dtype)[to_device(idx, dev)]
-        return place(np.asarray(x)[idx], dev, dtype)
+            return x.to(device=device, dtype=dtype)
+        x = np.asarray(x)
+        return torch.as_tensor(x, dtype=dtype) if host else to_device(x, device, dtype)
 
-    gdir = "ground_albedo_dir" if config.use_sw_direct_albedo else "ground_albedo"
+    gdir = _gdir(config)
+    keys = _gathers(config.do_sw, config.do_lw, gdir)
     payload = {}
+    flat = np.nonzero(rep == TILE_FLAT)[0]
+    simple = np.nonzero(np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]))[0]
+    if simple.size and np.any(np.asarray(arrays["nlay"])[simple] != 1):
+        raise ValueError("simple urban representations must have only one layer")
+    groups = [(np.nonzero(rep == code)[0], *solve)
+              for code, solve in _solver_groups(config).items()]
+    groups = [g for g in groups if g[0].size]
+    F = payload["fields"] = {k: whole(k) for k in _whole_keys(
+        keys, flat.size, bool(groups), simple.size)}
+
+    def rows(names, C, lay0=False):
+        """Bytes of the rows (lay0: layer-0 slices) of the fields `names`
+        at C columns."""
+        if not C:
+            return 0
+        return C * itemsize * sum((F[k][0, 0] if lay0 else F[k][0]).numel() for k in names)
+
+    gathered = 0
 
     # ---- flat tiles
-    idx = np.nonzero(rep == TILE_FLAT)[0]
-    if idx.size:
-        pl = payload["flat"] = {"idx": place(idx, device)}
-        with profiling.hook("dispatch.plan.gather"):
-            if config.do_sw:
-                pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx))
-            if config.do_lw:
-                pl.update(gemis=get("ground_emissivity", idx),
-                          gemit=get("ground_emission", idx))
+    if flat.size:
+        payload["flat"] = {"idx": place(flat, device)}
+        gathered += rows(keys["flat"], flat.size)
 
     # ---- layered SPARTACUS tiles, per shard
-    groups, payload["layered"] = [], []
-    for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items():
-        idx = np.nonzero(rep == code)[0]
-        if not idx.size:
-            continue
+    payload["layered"], layered_groups = [], []
+    for idx, opt_kw, lg_sw, lg_lw in groups:
         shards = ([(dev, idx[sl]) for dev, sl in column_sharding(idx.size, mesh)
                    if sl.stop > sl.start] if mesh else [(device, idx)])
-        pls = []
-        for k, (dev, sidx) in enumerate(shards):
-            pl = {"idx": place(sidx, device)}
-            if config.do_sw:
-                keys = {**_SW_KEYS, "ground_albedo_dir": gdir}
-                with profiling.hook("dispatch.plan.gather"):
-                    pl["sw"] = CanopyInputs(**{f: get(key, sidx, dev) for f, key in keys.items()})
-                if k == 0:  # prints the group's first column under SPARTACUS_DEBUG_ARRAYS
-                    debug_dump_sw(pl["sw"], SolverOptions(nstream=lg_sw.nstream, **opt_kw),
-                                  lg_sw)
-            if config.do_lw:
-                with profiling.hook("dispatch.plan.gather"):
-                    pl["lw"] = CanopyInputs(**{f: get(key, sidx, dev)
-                                               for f, key in _LW_KEYS.items()})
-            pls.append(pl)
-        groups.append((opt_kw, lg_sw, lg_lw, [dev for dev, _ in shards], pls))
-        payload["layered"].append(pls)
+        if config.do_sw and debug_arrays_enabled():  # the group's first column
+            first = lambda key: torch.as_tensor(
+                (arrays[key].detach().cpu() if isinstance(arrays[key], torch.Tensor)
+                 else np.asarray(arrays[key]))[idx[:1]]).to(dtype)
+            debug_dump_sw(CanopyInputs(**{f: first(key) for f, key in {
+                **_SW_KEYS, "ground_albedo_dir": gdir}.items()}),
+                SolverOptions(nstream=lg_sw.nstream, **opt_kw), lg_sw)
+        payload["layered"].append([{"idx": place(sidx, device)} for _, sidx in shards])
+        layered_groups.append((opt_kw, lg_sw, lg_lw, shards))
+        gathered += rows(keys["layered"], idx.size)
 
     # ---- simple urban / infinite street
-    idx = np.nonzero(np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]))[0]
-    if idx.size:
-        if np.any(np.asarray(arrays["nlay"])[idx] != 1):
-            raise ValueError(
-                "simple urban representations must have only one layer")
-        lay0 = lambda key: get(key, idx)[:, 0]
-        with profiling.hook("dispatch.plan.gather"):
-            pl = payload["simple"] = dict(
-                idx=place(idx, device), dz=lay0("dz"),
-                bf=lay0("building_fraction"), bs=lay0("building_scale"),
-                cos_sza=get("cos_sza", idx),
-                is_inf=place(rep[idx] == TILE_INFINITE_STREET, device))
-            if config.do_sw:
-                pl.update(galb=get("ground_albedo", idx), galb_dir=get(gdir, idx),
-                          ralb=lay0("roof_albedo"), walb=lay0("wall_albedo"))
-            if config.do_lw:
-                pl.update(gemis=get("ground_emissivity", idx),
-                          gemit=get("ground_emission", idx),
-                          remis=lay0("roof_emissivity"), remit=lay0("roof_emission"),
-                          wemis=lay0("wall_emissivity"), wemit=lay0("wall_emission"))
+    if simple.size:
+        payload["simple"] = dict(idx=place(simple, device),
+                                 is_inf=place(rep[simple] == TILE_INFINITE_STREET, device))
+        gathered += rows(keys["simple"], simple.size) + rows(keys["lay0"], simple.size, True)
 
     # ---- the layered solves' options, their AUTO chunks resolved; what
     # the core holds on `device`: the flux containers, the solves' kept
-    # outputs and the largest solve's transient (chunked: one chunk's, with
-    # the chunks' outputs twice, as they are concatenated)
+    # outputs and the largest of a group's gathered rows with one solve's
+    # transient (chunked: one chunk's, with the chunks' outputs twice, as
+    # they are concatenated)
     bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
         [(True, config.nlwinternal)] if config.do_lw else [])
     containers = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
@@ -380,14 +435,17 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
         held[device] += containers + sum(
             x.numel() * x.element_size() for x in tree_leaves(payload)
             if x.device.type != device.type)
-    layered, kept, peak = [], 0, 0
-    for opt_kw, lg_sw, lg_lw, devs, pls in groups:
+    layered, kept, peak = [], 0, rows(keys["flat"], flat.size)
+    for opt_kw, lg_sw, lg_lw, shards in layered_groups:
         shard_opts = []
-        for dev, pl in zip(devs, pls):
+        for dev, sidx in shards:
+            C = sidx.size
+            g = rows(keys["layered"], C)
+            if dev in held:  # the shard's gathered rows, through its solves
+                held[dev] += g
             opts = []
             for lw, S in bands:
-                lg, inp = (lg_lw, pl["lw"]) if lw else (lg_sw, pl["sw"])
-                C = inp.dz.shape[0]
+                lg = lg_lw if lw else lg_sw
                 budget = start[dev][0] - held[dev] if dev in start else None
                 opt = solver.resolve_chunk(
                     SolverOptions(nstream=lg.nstream, **opt_kw), lg, C, nlay, S,
@@ -399,30 +457,43 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
                 transient, k = size(C)
                 if 0 < opt.column_chunk < C:
                     transient = size(opt.column_chunk)[0] + 2 * k
-                peak, kept = max(peak, kept + transient), kept + k
+                peak, kept = max(peak, kept + g + transient), kept + k
                 if dev in held:  # the solve's outputs, kept to the end
                     held[dev] += k
                 opts.append(opt)
+            if dev in held:
+                held[dev] -= g
             opt_sw = opts[0] if config.do_sw else None
             opt_lw = opts[-1] if config.do_lw else None
             shard_opts.append((dev, opt_sw, opt_lw))
         layered.append((lg_sw.nstream, lg_lw.nstream, tuple(shard_opts)))
+    peak = max(peak, kept + rows(keys["simple"], simple.size)
+               + rows(keys["lay0"], simple.size, True))
 
     plan = Plan(ncol, nlay, config.nswinternal, config.nlwinternal, config.do_sw,
                 config.do_lw, profiles, config.min_building_fraction, route, device,
-                dtype, "flat" in payload, tuple(layered), "simple" in payload,
-                need=containers + peak)
+                dtype, gdir, "flat" in payload, tuple(layered), "simple" in payload,
+                need=containers + peak, gathered=gathered)
     return plan, payload
 
 
 def _core(plan: Plan, payload):
     """The device half of run_radsurf (JAX _radsurf_core): the flux
-    containers, the flat, layered and simple-urban solves, and the scatter
-    of every group's outputs into the containers.  plan, payload: _plan,
-    the payload on its devices."""
+    containers; the flat, layered and simple-urban solves, each on the rows
+    of its columns gathered from the whole fields (a layered group's SW and
+    LW inputs sharing their common fields' rows; a shard's rows moved to its
+    device); and the scatter of every group's outputs into the containers.
+    plan, payload: _plan, the payload on its devices."""
     ncol, nlay, nsw, nlw = plan.ncol, plan.nlay, plan.nsw, plan.nlw
     do_sw, do_lw, profiles, route = plan.do_sw, plan.do_lw, plan.profiles, plan.route
+    F, keys = payload["fields"], _gathers(do_sw, do_lw, plan.gdir)
     kw = dict(dtype=plan.dtype, device=plan.device)
+
+    def gather(section, idx, dev=plan.device, lay0=False):
+        """{arrays key: its rows idx} of the section's fields, on dev."""
+        return {k: (F[k][:, 0] if lay0 else F[k]).index_select(0, idx).to(dev)
+                for k in keys[section]}
+
     bc = {}
     out = {"bc_out": bc}
     if do_sw:
@@ -438,35 +509,40 @@ def _core(plan: Plan, payload):
 
     # ---- flat tiles (radsurf_interface.F90:122-173)
     if plan.flat:
-        pl = payload["flat"]
-        tidx = pl["idx"]
+        tidx = payload["flat"]["idx"]
+        g = gather("flat", tidx)
         if do_sw:
-            nd, nf, fbc = flat_mod.flat_sw(pl["galb"], pl["galb_dir"])
+            nd, nf, fbc = flat_mod.flat_sw(g["ground_albedo"], g[plan.gdir])
             _scatter(out["sw_norm_dir"], nd, tidx)
             _scatter(out["sw_norm_diff"], nf, tidx)
             for key in ("sw_albedo", "sw_albedo_dir"):
                 bc[key][tidx] = fbc[key]
         if do_lw:
-            li, ln, fbc = flat_mod.flat_lw(pl["gemis"], pl["gemit"])
+            li, ln, fbc = flat_mod.flat_lw(g["ground_emissivity"], g["ground_emission"])
             _scatter(out["lw_internal"], li, tidx)
             _scatter(out["lw_norm"], ln, tidx)
             for key in ("lw_emissivity", "lw_emission"):
                 bc[key][tidx] = fbc[key]
+        del g
 
     # ---- layered SPARTACUS tiles: every shard's solves are issued first,
     # then their results gathered on `device` and scattered
-    solved = []
-    for (ns_sw, ns_lw, shards), pls in zip(plan.layered, payload.get("layered", ())):
-        for (_, opt_sw, opt_lw), pl in zip(shards, pls):
-            sw = lw = None
-            if opt_sw is not None:
-                inp = pl["sw"]
-                sw = (inp.cos_sza > 0.0, spartacus_sw(
-                    inp, opt_sw, _lg(ns_sw), with_profiles=profiles, route=route))
-            if opt_lw is not None:  # not masked by sun_up
-                lw = spartacus_lw(pl["lw"], opt_lw, _lg(ns_lw),
-                                  with_profiles=profiles, route=route)
-            solved.append((pl["idx"], sw, lw))
+    def solve(ns_sw, ns_lw, dev, opt_sw, opt_lw, tidx):
+        g = gather("layered", tidx, dev)
+        inputs = lambda names: CanopyInputs(**{f: g[k] for f, k in names.items()})
+        sw = lw = None
+        if opt_sw is not None:
+            inp = inputs({**_SW_KEYS, "ground_albedo_dir": plan.gdir})
+            sw = (inp.cos_sza > 0.0, spartacus_sw(
+                inp, opt_sw, _lg(ns_sw), with_profiles=profiles, route=route))
+        if opt_lw is not None:  # not masked by sun_up
+            lw = spartacus_lw(inputs(_LW_KEYS), opt_lw, _lg(ns_lw),
+                              with_profiles=profiles, route=route)
+        return tidx, sw, lw
+
+    solved = [solve(ns_sw, ns_lw, *shard, pl["idx"])
+              for (ns_sw, ns_lw, shards), pls in zip(plan.layered, payload["layered"])
+              for shard, pl in zip(shards, pls)]
     for tidx, sw, lw in solved:
         sw, lw = tree_map(lambda t: t.to(plan.device), (sw, lw))
         if sw is not None:
@@ -485,23 +561,25 @@ def _core(plan: Plan, payload):
     # ---- simple urban / infinite street (radsurf_interface.F90:272-309)
     if plan.simple:
         pl = payload["simple"]
-        tidx = pl["idx"]
-        geom = (pl["dz"], pl["bf"], pl["bs"])
+        tidx, is_inf = pl["idx"], pl["is_inf"]
+        g, g0 = gather("simple", tidx), gather("lay0", tidx, lay0=True)
+        geom = (g0["dz"], g0["building_fraction"], g0["building_scale"])
         opts = dict(min_building_fraction=plan.min_building_fraction,
                     with_profiles=profiles)
         if do_sw:
             ndir, ndiff, sbc = su_mod.simple_urban_sw(
-                *geom, pl["cos_sza"], pl["is_inf"], pl["galb"], pl["galb_dir"],
-                pl["ralb"], pl["walb"], **opts)
-            sun_up = pl["cos_sza"] > 0.0
+                *geom, g["cos_sza"], is_inf, g["ground_albedo"], g[plan.gdir],
+                g0["roof_albedo"], g0["wall_albedo"], **opts)
+            sun_up = g["cos_sza"] > 0.0
             _scatter(out["sw_norm_dir"], ndir, tidx, sun_up, layer0=True)
             _scatter(out["sw_norm_diff"], ndiff, tidx, sun_up, layer0=True)
             for key in ("sw_albedo", "sw_albedo_dir"):
                 bc[key][tidx] = sbc[key]
         if do_lw:
             lint, lnorm, lbc = su_mod.simple_urban_lw(
-                *geom, pl["is_inf"], pl["gemis"], pl["gemit"], pl["remis"],
-                pl["remit"], pl["wemis"], pl["wemit"], **opts)
+                *geom, is_inf, g["ground_emissivity"], g["ground_emission"],
+                g0["roof_emissivity"], g0["roof_emission"], g0["wall_emissivity"],
+                g0["wall_emission"], **opts)
             _scatter(out["lw_internal"], lint, tidx, layer0=True)
             _scatter(out["lw_norm"], lnorm, tidx, layer0=True)
             for key in ("lw_emissivity", "lw_emission"):

@@ -59,10 +59,6 @@ BUDGET_RESERVE = 2**30
 CAPTURE_FACTOR = 1.6
 
 
-# Words of one solve's CanopyInputs (models/dispatch.py _SW_KEYS /
-# _LW_KEYS), SW (False) and LW (True), by element class
-INPUT_WORDS = {False: {"CL": 8, "C": 1, "CS": 2, "E": 7},
-               True: {"CL": 8, "C": 1, "CS": 2, "E": 10}}
 # Words of one dense flux container of run_radsurf (dispatch._empty_flux)
 # with its two top-of-canopy columns (bc_out)
 CONTAINER_WORDS = {"E": 16, "CL": 3, "CS": 8, "C": 1}

@@ -129,7 +129,8 @@ class Cache:
         # device -> MemPool, its free bytes, the stream captures run on
         self.pools, self.pool_free, self.streams = {}, {}, {}
         self.totals = {"captures": 0, "replays": 0, "evictions": 0, "releases": 0,
-                       "capture_s": 0.0, "h2d_bytes": 0, "h2d_loads": 0}
+                       "capture_s": 0.0, "h2d_bytes": 0, "h2d_loads": 0,
+                       "gather_bytes": 0}
 
     def call(self, key, fn, tensors, device=None, need=None):
         """fn(*tensors on device), a pytree of tensors: eager at the first
@@ -258,9 +259,16 @@ def stats() -> dict:
     call's included), evictions, releases and capture seconds since the
     process began; h2d_bytes and h2d_loads, the bytes moved from the host
     to the device by the loads of host inputs (_Flat.load: eager, capture
-    and replay) and the number of those loads; held_bytes, what the graphs
-    kept hold allocated (their static inputs and packed outputs)."""
+    and replay) and the number of those loads; gather_bytes, the bytes of
+    the rows that run_radsurf's cores gathered from their whole fields
+    (count(), on every route); held_bytes, what the graphs kept hold
+    allocated (their static inputs and packed outputs)."""
     return _cache.stats()
+
+
+def count(name: str, n):
+    """Add n to the counter `name` of stats()."""
+    _cache.totals[name] += n
 
 
 def held(device) -> tuple:

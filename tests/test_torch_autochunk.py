@@ -15,9 +15,10 @@ CLI's automatic stream chunk, and the working-set model that sizes both
 * the CLI with no --stream-chunk against --stream-chunk 0 (the CPU's
   budget is unbounded), and, under a small budget, streaming by itself;
 * the model: monotone in columns, layers, bands, streams, regions and
-  dtype, and within 3 % of the bytes of the tensors the kernel route holds
-  at its peak, counted here with every kernel emulated by its outputs (a
-  CUDA wrapper allocates its outputs and nothing else).
+  dtype; the whole fields and each section's gathered rows counted to the
+  byte on a mixed layout; and within 3 % of the bytes of the tensors the
+  kernel route holds at its peak, counted here with every kernel emulated
+  by its outputs (a CUDA wrapper allocates its outputs and nothing else).
 """
 
 import numpy as np
@@ -248,6 +249,47 @@ def test_model_is_monotone(lw):
     runs = [working_set_bytes(cfg, r, 8, 4) for r in (rep, np.append(rep, 3))]
     assert runs[1] > runs[0]
     assert DM.device_budget("cpu") == float("inf")
+
+
+def test_model_counts_the_whole_fields_and_the_gathered_rows(monkeypatch):
+    """On a permuted mix of the six tile types (SW at 2 bands, LW at 3):
+    working_set_bytes holds every field read once, whole, and Plan.need the
+    rows the core gathers: with each solve's bytes set to 0, the need is the
+    flux containers and the largest section's rows (the flat tiles', a
+    layered group's, the simple tiles' with their layer-0 slices), the
+    model that and the whole fields; Plan.gathered is every section's rows.
+    With the solves counted again, the model is the need and the fields."""
+    L, cpu = 4, torch.device("cpu")
+    rep = np.random.default_rng(2).permutation(np.repeat(np.arange(6), [5, 7, 4, 6, 3, 2]))
+    lw_keys = ("lw_air_ext", "lw_air_ssa", "lw_veg_ssa", "ground_emissivity",
+               "ground_emission", "roof_emissivity", "roof_emission", "wall_emissivity",
+               "wall_emission", "clear_air_planck", "veg_planck", "veg_air_planck")
+    a = example_arrays(C=rep.size, L=L, S=2, dtype=np.float64, i_representation=rep)
+    a3 = example_arrays(C=rep.size, L=L, S=3, dtype=np.float64, i_representation=rep)
+    a.update({k: a3[k] for k in lw_keys})
+    cfg = Config(do_lw=True, nsw=2, nlw=3).consolidate()
+    read = [k for k, v in a.items() if v.dtype.kind == "f" and k != "ground_albedo_dir"]
+    whole = sum(a[k].nbytes for k in read)
+    row = lambda keys, lay0=False: sum((a[k][0, 0] if lay0 else a[k][0]).nbytes for k in keys)
+    ground = ("ground_albedo", "ground_emissivity", "ground_emission")
+    flat = 5 * row(ground)
+    layered = [C * row(read) for C in (7, 4, 6)]
+    simple = 5 * (row(("cos_sza", *ground)) + row(
+        ("dz", "building_fraction", "building_scale", "roof_albedo", "wall_albedo",
+         "roof_emissivity", "roof_emission", "wall_emissivity", "wall_emission"), lay0=True))
+    containers = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, rep.size, L, S, 8) for S in (2, 3))
+
+    real = DM.solve_bytes
+    monkeypatch.setattr(DM, "solve_bytes", lambda *a, **k: (0, 0))
+    plan, payload = TD._plan(cfg, a, cpu, "kernel", None, host=True)
+    assert plan.need == containers + max(flat, *layered, simple)
+    assert plan.gathered == flat + sum(layered) + simple
+    assert sum(t.nbytes for t in payload["fields"].values()) == whole
+    assert working_set_bytes(cfg, rep, L, 8) == containers + whole + max(flat, *layered, simple)
+    monkeypatch.setattr(DM, "solve_bytes", real)
+    plan, _ = TD._plan(cfg, a, cpu, "kernel", None, host=True)
+    assert plan.need > containers + max(layered)
+    assert working_set_bytes(cfg, rep, L, 8) == plan.need + whole
 
 
 class LiveBytes(TorchDispatchMode):

@@ -5,26 +5,30 @@ utils/profiling.hook records (wall time into its totals and a named range
 of the torch.profiler trace) while `profiling.enabled` is set or a
 profiler runs, and does nothing else otherwise.  run_radsurf's host plan
 opens dispatch.plan around models/dispatch.py _plan, with
-dispatch.plan.gather, one per section of fields gathered, and
-dispatch.plan.memory_query (AUTO on a card) inside it; utils/graphs.py
-opens graphs.pack around the pinned staging of each host group and counts
-the bytes and loads it moves to the device (graphs.stats(): h2d_bytes,
-h2d_loads).  benchmark/metrics/dispatch.host_plan_ms.py and
-dispatch.h2d_mb.py read them, loaded here by path as the benchmark loads
-them, so that the tests run from any directory.
+dispatch.plan.memory_query (AUTO on a card) inside it, and gathers no
+rows: the core gathers them on the device, and graphs.stats() counts
+their bytes (gather_bytes); utils/graphs.py opens graphs.pack around the
+pinned staging of each host group and counts the bytes and loads it moves
+to the device (graphs.stats(): h2d_bytes, h2d_loads).
+benchmark/metrics/dispatch.host_plan_ms.py and dispatch.h2d_mb.py read
+them, loaded here by path as the benchmark loads them, so that the tests
+run from any directory.
 
-On the CPU: nothing records without a profiler; under one the plan's
-spans nest; the readers' arithmetic and their None on a program that has
-no such span or counter (or no profiling.counts()); the CLI's regions in a profiler trace without
---timings, and its Graphs line under --timings.  Marked cuda (skipped
-without a GPU): an eager, a capturing and a replaying call under the
-profiler with CUDA activity, where no device-side event carries a span's
-name, AUTO's memory query is spanned and every load counts the payload's
-host bytes; and a call with a gradient-requiring input, and one with its
-fields already on the card, whose spans hold launches and so show as
-device-side annotations, read the same bench.trace_fields numbers with the
-spans on and off.  Imports nothing of JAX, so that the cuda test runs where JAX
-is missing (pytest --noconftest).
+On the CPU: nothing records without a profiler; under one the plan opens
+dispatch.plan alone, and gather_bytes counts the rows the core's
+index_select calls return; the readers' arithmetic and their None on a
+program that has no such span or counter (or no profiling.counts()); the
+CLI's regions in a profiler trace without --timings, and its Graphs line
+under --timings.  Marked cuda (skipped without a GPU): an eager, a
+capturing and a replaying call under the profiler with CUDA activity,
+where no device-side event carries a span's name, AUTO's memory query is
+spanned and every load counts the payload's host bytes, the whole fields
+and the indices; and a call with a gradient-requiring input, whose plan
+moves the whole fields inside dispatch.plan (a device-side annotation),
+and one with its fields already on the card, whose spans hold no launch,
+read the same bench.trace_fields numbers with the spans on and off.
+Imports nothing of JAX, so that the cuda test runs where JAX is missing
+(pytest --noconftest).
 """
 
 import contextlib
@@ -39,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from spartacus_surface_tpu_torch import bench
 from spartacus_surface_tpu_torch.driver import main as CLI
@@ -48,7 +53,7 @@ from spartacus_surface_tpu_torch.utils import graphs, profiling
 from spartacus_surface_tpu_torch.utils.config import Config
 from spartacus_surface_tpu_torch.utils.inputs import example_arrays, write_example_input
 
-SPANS = ("dispatch.plan", "dispatch.plan.gather", "dispatch.plan.memory_query", "graphs.pack")
+SPANS = ("dispatch.plan", "dispatch.plan.memory_query", "graphs.pack")
 METRICS = Path(__file__).resolve().parents[1] / "benchmark" / "metrics"
 
 
@@ -75,6 +80,17 @@ def small_call(device="cpu"):
         cfg, example_arrays(C=36, L=3, S=1, dtype=np.float64, seed=seed), device)
 
 
+def whole_and_indices(arrays) -> int:
+    """Bytes of a SW + LW call's host payload on example_arrays: every float
+    field once, whole (ground_albedo_dir unread without
+    use_sw_direct_albedo), every column's int64 index, and the simple
+    tiles' is_inf flags."""
+    rep = arrays["i_representation"]
+    fields = sum(v.nbytes for k, v in arrays.items()
+                 if v.dtype.kind == "f" and k != "ground_albedo_dir")
+    return fields + 8 * rep.size + int(np.isin(rep, [4, 5]).sum())
+
+
 def named(events, name, cpu=True):
     from torch.autograd import DeviceType
 
@@ -92,23 +108,33 @@ def test_nothing_records_without_a_profiler(clean_registry, monkeypatch):
     assert profiling.totals() == {} and profiling.counts() == {}
 
 
+class IndexSelectBytes(TorchDispatchMode):
+    """The bytes of the tensors that index_select returns while on."""
+
+    nbytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket is torch.ops.aten.index_select:
+            self.nbytes += out.numel() * out.element_size()
+        return out
+
+
 def test_plan_spans_nest_under_a_profiler(clean_registry):
+    """The plan gathers no rows (no dispatch.plan.gather): the core gathers
+    them, and gather_bytes counts what its index_select calls return."""
     call = small_call()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    before = graphs.stats()["gather_bytes"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof, IndexSelectBytes() as rows:
         call()
     events = prof.events()
     (plan,) = named(events, "dispatch.plan")
-    gathers = named(events, "dispatch.plan.gather")
-    # the flat tiles, the SW and LW inputs of the three layered groups, the simple tiles
-    assert len(gathers) == 8
-    for g in gathers:
-        assert plan.time_range.start <= g.time_range.start
-        assert g.time_range.end <= plan.time_range.end
+    assert not named(events, "dispatch.plan.gather")
     assert not named(events, "dispatch.plan.memory_query")  # no card: no budget to query
-    totals = profiling.totals()
-    assert totals["dispatch.plan"] >= totals["dispatch.plan.gather"] > 0
-    assert profiling.counts()["dispatch.plan"] == 1
-    assert profiling.counts()["dispatch.plan.gather"] == 8
+    assert profiling.totals()["dispatch.plan"] > 0
+    assert profiling.counts() == {"dispatch.plan": 1}
+    # the flat tiles, the three layered groups, the simple tiles' rows and layer-0 slices
+    assert graphs.stats()["gather_bytes"] - before == rows.nbytes > 0
     assert not profiling.enabled
 
 
@@ -196,10 +222,13 @@ def test_cli_timings_report_the_graph_counters_and_the_plan(clean_registry, cli_
     assert rc == 0
     (line,) = [ln for ln in stdout.splitlines() if ln.startswith("Graphs: ")]
     counted = json.loads(line[len("Graphs: "):])
-    assert set(counted) == {"replays", "captures", "releases", "evictions", "h2d_bytes"}
+    assert set(counted) == {"replays", "captures", "releases", "evictions", "h2d_bytes",
+                            "gather_bytes"}
+    assert counted["gather_bytes"] > 0
     assert "Kernel launches: " in stdout
-    for span in ("radsurf", "dispatch.plan", "dispatch.plan.gather"):
+    for span in ("radsurf", "dispatch.plan"):
         assert f"  {span} " in stdout
+    assert "  dispatch.plan.gather " not in stdout
 
 
 @pytest.fixture
@@ -218,7 +247,8 @@ def test_cuda_spans_hold_no_device_work_and_loads_count_their_bytes(clean_regist
     arrays = [example_arrays(C=4096, L=8, S=1, dtype=np.float32, seed=s) for s in (1, 2, 3)]
     _, payload = dispatch._plan(cfg, arrays[0], cuda_device, "kernel", None, host=True)
     payload_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(payload))
-    loads = []
+    assert payload_bytes == whole_and_indices(arrays[0])
+    loads, captures = [], graphs.stats()["captures"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for a in arrays:  # eager, captured (then replayed), replayed
             before = graphs.stats()
@@ -227,7 +257,7 @@ def test_cuda_spans_hold_no_device_work_and_loads_count_their_bytes(clean_regist
             after = graphs.stats()
             loads.append((after["h2d_loads"] - before["h2d_loads"],
                           after["h2d_bytes"] - before["h2d_bytes"]))
-    assert graphs.stats()["captures"] == 1
+    assert graphs.stats()["captures"] - captures == 1
     # the capturing call loads its graph's static inputs, then replays
     assert loads == [(1, payload_bytes), (2, 2 * payload_bytes), (1, payload_bytes)]
     events = prof.events()
@@ -250,10 +280,11 @@ def _on_card(arrays, device):
 @pytest.mark.parametrize("inputs", ["grad", "on_card"])
 def test_cuda_trace_fields_read_the_same_with_the_spans_on_and_off(clean_registry, cuda_device,
                                                                    monkeypatch, inputs):
-    """Where a span holds launches (the eager route's field moves; the
-    index kernels of fields already on the card), the profiler shows it as
-    a device-side annotation; bench.trace_fields leaves those out, so it
-    reads the same launches, busy and other ms whether the spans record."""
+    """Where a span holds launches (the eager route's field moves), the
+    profiler shows it as a device-side annotation; bench.trace_fields
+    leaves those out, so it reads the same launches, busy and other ms
+    whether the spans record.  Fields already on the card are indexed in
+    the core, outside any span."""
     cfg = Config(do_lw=True, nsw=1, nlw=1).consolidate()
     arrays = example_arrays(C=4096, L=8, S=1, dtype=np.float32, seed=5)
     if inputs == "grad":
@@ -268,7 +299,10 @@ def test_cuda_trace_fields_read_the_same_with_the_spans_on_and_off(clean_registr
         step()
         torch.cuda.synchronize()
     held = [e for e in prof.events() if e.name in SPANS and e.device_type.name == "CUDA"]
-    assert held and all(e.is_user_annotation for e in held)
+    # the eager route moves the whole fields inside dispatch.plan; fields
+    # on the card are indexed in the core, so the plan holds no launch
+    assert bool(held) == (inputs == "grad")
+    assert all(e.is_user_annotation for e in held)
 
     spans = profiling.hook
     only_label = lambda name: spans(name) if name == "bench_call" else contextlib.nullcontext()
@@ -278,7 +312,6 @@ def test_cuda_trace_fields_read_the_same_with_the_spans_on_and_off(clean_registr
         reads[way].append(bench.trace_fields(step, cuda=True))
     monkeypatch.setattr(profiling, "hook", spans)
     median = lambda way, field: statistics.median(r[field] for r in reads[way])
-    # counted, dispatch.plan and its 8 gathers would add 9 launches a call;
     # the profiler's own count of a call varies by a few from trace to trace
     assert abs(median("on", "device_launches") - median("off", "device_launches")) <= 4, reads
     for field in ("device_busy_ms", "other_device_ms"):
