@@ -7,6 +7,7 @@
     python3 chip_smoke.py --auto-only   # build, then the auto and corners phases
     python3 chip_smoke.py --bench-only  # build, then the bench phase alone
     python3 chip_smoke.py --graphs-only # build, then the graphs phase alone
+    python3 chip_smoke.py --divergence-only  # build, then the k1_divergence phase alone
 
 Phases, one JSON line each (failures make the script exit nonzero before the
 final line):
@@ -45,6 +46,22 @@ final line):
      and each kernel's results in that run against its plain version on the
      same operands, at the tolerances of phase 2.  Also prints each route's
      wall seconds (first call, after synchronize) and peak device memory.
+  k1_divergence - the order K1 and K1d take their elements in, on every
+     factory call (SW and LW mode) of three float32 run_radsurf calls: the
+     headline, rami5_shape and the benchmark's urban_mix.f32 input set (all
+     six tile types, half of the columns at night).  Per call: the doubling
+     counts of tools.roofline.doubling_steps (mean, range) and the order
+     pass's window (the card's resident teams); the share of the doubling
+     steps that a warp's teams and a block's teams (teams per block from
+     layer_kernel.factory_config) run that their elements need, as the
+     elements come and in the launch's order (window by window, longest
+     first); CUDA-event ms of the wrapper's
+     ordered launch (the order pass and its argsort included), of the
+     order pass and argsort alone, and of the launch as the elements come
+     (the identity order).  Checks: the order pass's counts are
+     doubling_steps' (one step off only at a step's edge, within the
+     operands' rounding), and the ordered and the identity launch agree bit
+     for bit.
   cli - the offline CLI, driver.main.main([namelist, input, output,
      --precision single|double, --timings]) in this process, on an input
      file written by utils/inputs.write_example_input (16,384 layered
@@ -252,9 +269,7 @@ final line):
      (kernel, library, library, kernel): the tool's event_ms (20
      back-to-back launches after a warm-up, median of 3) and the
      kernel-only device time of one torch.profiler trace of 20 calls;
-     K1's cost of divergent doubling counts (the headline float32 SW and LW
-     calls timed on their elements as they come and sorted by doubling
-     count, the same work); the SM clock and power
+     the SM clock and power
      draw nvidia-smi reads while each probe runs; every kernel row's
      FLOPs and compulsory bytes (tools.roofline.kernel_work on the timed
      call's operands) and its bound, whose share of the measured time must
@@ -686,24 +701,120 @@ def profiled_ms(fn, calls=20, symbol="", tries=3):
     return None
 
 
-def sorted_by_doubling(a, k, kernel, RL):
-    """The operands of a factory call as one layer of L*B elements, (as
-    they come, sorted by doubling count), and the share of the doubling
-    steps a warp of teams does that its elements need (sum K over the sum
-    of each warp's largest K, per team)."""
+def factory_launch(kernel, a, k, RL):
+    """[g0, g1, g2, g3, dz] and the launch keywords of the factory launch
+    behind a layer_factory or lw_layer_factory call (tools.roofline)."""
+    *ops, ndir, int_direct = RL._factory_call(kernel, a, k)
+    return ops, dict(nd=k["nd"], ndir=ndir, n_double=k["n_double"], int_direct=int_direct)
+
+
+def useful_share(steps, group):
+    """The share of the doubling steps that groups of `group` consecutive
+    elements run that the elements need: sum K over the sum of each
+    group's largest K (1.0 where no element takes a step)."""
+    n = steps.numel() // group * group
+    most = steps[:n].reshape(-1, group).amax(1).sum() * group if n else 0
+    return float(steps[:n].sum() / most) if most else 1.0
+
+
+def factory_divergence(kernel, a, k, LK, lib, stream):
+    """One factory call's doubling counts and its order: the counts of
+    tools.roofline.doubling_steps (mean, range) and the order pass's window,
+    the useful doubling share of a warp's and of a block's teams (from those
+    counts) as the elements come and in the launch's order, and the device
+    ms (CUDA events) of the wrapper's ordered launch (the order pass and its
+    argsort included), of the order pass and argsort alone, and of the
+    launch as the elements come (the identity order).  A failure unless the
+    order pass's counts are doubling_steps' (one step off only where the
+    float64 norm lies within the operands' rounding of a step's edge,
+    2^-16 of a step in log2) and the ordered and the identity launch agree
+    bit for bit."""
     import torch
 
+    from spartacus_surface_tpu_torch.tools import roofline as RL
+
+    ops, kw = factory_launch(kernel, a, k, RL)
+    L, _, B = ops[1].shape
+    n = L * B
+    cfg = LK.factory_config(lib, kw["nd"], kw["ndir"], n, ops[1].dtype)
+    window = LK.order_window(cfg, n)
+    keys_of = lambda: LK.order_keys(lib, *ops, nd=kw["nd"], ndir=kw["ndir"],
+                                    n_double=kw["n_double"], window=window, stream=stream)
+    keys = keys_of()
+    order = LK.element_order(keys)
     steps = RL.doubling_steps(kernel, *a, **k).reshape(-1)
-    order = torch.argsort(steps, stable=True)
-    flat = [x.reshape(1, -1) if x.dim() == 2
-            else x.permute(1, 0, 2).reshape(1, x.shape[1], -1) for x in a]
-    flat = [x.contiguous() for x in flat]
-    nd = k["nd"]
-    per_warp = 32 // min(32, 1 << max(1, (nd - 1).bit_length()))
-    n = steps.numel() // per_warp * per_warp
-    warp_max = steps[:n].reshape(-1, per_warp).amax(1)
-    useful = float(steps[:n].sum() / (warp_max.sum() * per_warp)) if n else 1.0
-    return flat, [x[..., order].contiguous() for x in flat], useful
+    counts = LK.doubling_counts(keys).reshape(-1).to(steps)
+    log2 = torch.log2(RL.doubling_ratio(kernel, *a, **k).reshape(-1))
+    off = counts != steps
+    edge = ((log2 - log2.round()).abs() < 2**-16) & ((counts - steps).abs() == 1)
+    check(bool((edge | ~off).all()),
+          f"k1_divergence: {kernel} nd={kw['nd']}: the order pass counts "
+          f"{int((off & ~edge).sum())} elements' doubling steps unlike doubling_steps")
+    ident = torch.arange(n, device=keys.device)
+    per_warp = 32 // cfg["team_size"]
+    got = LK.launch(lib, *ops, chunk=0, stream=stream, **kw)
+    ref = LK.launch_ordered(lib, *ops, ident, stream=stream, **kw)
+    check(all(torch.equal(got[x], ref[x]) for x in ref),
+          f"k1_divergence: {kernel} nd={kw['nd']}: the ordered launch differs from the identity's")
+    del got, ref
+    res = dict(
+        elements=n, nd=kw["nd"], ndir=kw["ndir"], team_size=cfg["team_size"],
+        teams_per_block=cfg["teams_per_block"], window=window, mean_steps=float(steps.mean()),
+        min_steps=int(steps.min()), max_steps=int(steps.max()),
+        counts_off_by_rounding=int(off.sum()),
+        useful_warp_as_they_come=useful_share(steps, per_warp),
+        useful_block_as_they_come=useful_share(steps, cfg["teams_per_block"]),
+        useful_warp_ordered=useful_share(steps[order], per_warp),
+        useful_block_ordered=useful_share(steps[order], cfg["teams_per_block"]),
+        ms_ordered=time_ms(lambda: LK.launch(lib, *ops, chunk=0, stream=stream, **kw)),
+        ms_order_pass=time_ms(lambda: LK.element_order(keys_of())),
+        ms_as_they_come=time_ms(lambda: LK.launch_ordered(lib, *ops, ident, stream=stream,
+                                                          **kw)))
+    res["ordered_over_as_they_come"] = res["ms_ordered"] / res["ms_as_they_come"]
+    return res
+
+
+# the benchmark's urban_mix input set that the k1_divergence phase times
+DIVERGENCE_SEED = 1618033921
+
+
+def divergence_phase(dev):
+    """Phase k1_divergence (see the module docstring): every factory call
+    (K1, K1d; SW and LW mode) of three float32 run_radsurf calls, the
+    headline, the rami5 shape and the benchmark's urban_mix.f32 input set
+    (all six tile types, half of the columns at night), through
+    factory_divergence; one line a call."""
+    import numpy as np
+    import torch
+
+    from benchmark import generate as GEN
+    from benchmark import run as BR
+    from spartacus_surface_tpu_torch.models import solver
+    from spartacus_surface_tpu_torch.models.dispatch import run_radsurf
+    from spartacus_surface_tpu_torch.ops import cuda_build
+    from spartacus_surface_tpu_torch.ops import layer_kernel as LK
+    from spartacus_surface_tpu_torch.utils.config import Config
+    from spartacus_surface_tpu_torch.utils.inputs import example_arrays
+
+    lib, stream = cuda_build.load("layer_factory"), cuda_build.stream(dev)
+    slices, cell = slice_shapes(), BR.load_cell("urban_mix.f32")
+    runs = {name: (slices[name][3], lambda name=name: example_arrays(
+                C=len(slices[name][0]), L=slices[name][1], S=slices[name][2],
+                dtype=np.float32, i_representation=slices[name][0]))
+            for name in ("headline", "rami5_shape")}
+    runs["urban_mix"] = (cell.config["radsurf"], lambda: GEN.input_set(
+        cell.config, cell.traffic, DIVERGENCE_SEED, 0))
+    for run, (cfg, arrays) in runs.items():
+        config = Config(**dict(cfg, do_lw=True)).consolidate()
+        with Capture(solver) as cap:
+            run_radsurf(config, arrays(), dev)
+        torch.cuda.synchronize()
+        for kernel in ("layer_factory", "lw_layer_factory"):
+            for i, (a, k, _) in enumerate(cap.calls[kernel]):
+                emit(phase="k1_divergence", run=run, dtype="float32", kernel=kernel, call=i,
+                     **factory_divergence(kernel, a, k, LK, lib, stream))
+        del cap
+        torch.cuda.empty_cache()
 
 
 def clocks_during(fn, seconds=2.0):
@@ -2034,6 +2145,8 @@ def main(argv=None) -> int:
                       help="build, then run the bench phase alone (no kernels line)")
     args.add_argument("--graphs-only", action="store_true",
                       help="build, then run the graphs phase alone (no kernels line)")
+    args.add_argument("--divergence-only", action="store_true",
+                      help="build, then run the k1_divergence phase alone (no kernels line)")
     args = args.parse_args(argv)
     profile = args.profile
     import torch
@@ -2133,9 +2246,12 @@ def main(argv=None) -> int:
          nvcc_seconds=cuda_build.build_seconds,
          part_seconds={f"{n}:{m or 'main'}": t for (n, m), t in cuda_build.part_seconds.items()},
          ptxas=ptxas)
-    if args.parallel_only or args.auto_only or args.bench_only or args.graphs_only:
+    if (args.parallel_only or args.auto_only or args.bench_only or args.graphs_only
+            or args.divergence_only):
         if args.bench_only:
             bench_phase(counters)
+        elif args.divergence_only:
+            divergence_phase(dev)
         else:
             (parallel_only if args.parallel_only else auto_only if args.auto_only
              else graphs_only)(dev, counters)
@@ -2315,21 +2431,11 @@ def main(argv=None) -> int:
                 timings[n] = (time_ms(lambda: wrappers[n](*a, **k)),
                               time_ms(lambda: plains[n](*a, **k)))
                 works[n] = RL.kernel_work(n, *a, **k)
-            # K1's divergent doubling counts: the same elements as they
-            # come and sorted by doubling count
-            divergence = {}
-            for n in ("layer_factory", "lw_layer_factory"):
-                a, k, _ = cap.calls[n][0]
-                flat, ordered, useful = sorted_by_doubling(a, k, n, RL)
-                divergence[n] = dict(
-                    ms_as_they_come=time_ms(lambda: wrappers[n](*flat, **k)),
-                    ms_sorted=time_ms(lambda: wrappers[n](*ordered, **k)),
-                    useful_doubling_share=useful)
-                del flat, ordered
-            emit(phase="k1_divergence", run=sname, dtype=dname, **divergence)
         a = k = None  # no operand of this run stays allocated into the next
         del cap
         torch.cuda.empty_cache()
+
+    divergence_phase(dev)
 
     # ---- cli: the offline CLI on a seeded input file, two namelists
     CLI_DIR.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,8 @@
 // bodies (K1-K5) run as a team of one lane (TS = 1) per element on a
 // host slab laid out as on the card, which is filled with NaN before each
 // element, so a read of a slot the body has not written shows in the
-// results.  Built with a host C++ compiler; nvcc never sees this file.
+// results; K1 and K1d take their elements in the launch's order, as the
+// card's teams do.  Built with a host C++ compiler; nvcc never sees this file.
 
 #include <limits>
 #include <vector>
@@ -23,7 +24,8 @@ static void factory_host(SPX_FACTORY_PARAMS) {
   std::vector<T> slab(S.size);
   for (long long t = 0; t < n; ++t) {
     slab.assign(S.size, std::numeric_limits<T>::quiet_NaN());
-    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, t, slab.data(), 0u);
+    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, A.order[t], slab.data(),
+                                   0u);
   }
 }
 
@@ -43,8 +45,8 @@ static void dense_factory_host(SPX_FACTORY_PARAMS) {
   std::vector<T> slab(S.size);
   for (long long t = 0; t < n; ++t) {
     slab.assign(S.size, std::numeric_limits<T>::quiet_NaN());
-    spx::layer_factory_dense_team<1, SPX_DENSE_CAP>(A, S, spx::Team<1>{0, 0u}, t,
-                                                    slab.data(), 0u);
+    spx::layer_factory_dense_team<1, SPX_DENSE_CAP>(A, S, spx::Team<1>{0, 0u},
+                                                    A.order[t], slab.data(), 0u);
   }
 }
 
@@ -122,6 +124,14 @@ int layer_factory_f32(SPX_FACTORY_PARAMS, const long long*, void*) {
 }
 int layer_factory_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   factory_host<double>(SPX_FACTORY_ARGS);
+  return 0;
+}
+int factory_order_f32(SPX_ORDER_PARAMS, void*) {
+  order_host<float>(SPX_ORDER_ARGS);
+  return 0;
+}
+int factory_order_f64(SPX_ORDER_PARAMS, void*) {
+  order_host<double>(SPX_ORDER_ARGS);
   return 0;
 }
 int layer_factory_config_f32(int nd, int ndir, long long n, long long* info) {

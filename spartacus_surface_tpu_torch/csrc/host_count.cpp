@@ -92,20 +92,27 @@ int layer_factory_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   const spx::Slab S = spx::slab_layout(nd, ndir);
   std::vector<CT> slab(S.size);
   each_thread(n, [&](long long t) {
-    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, t, slab.data(), 0u);
+    spx::layer_factory_team<1, 32>(A, S, spx::Team<1>{0, 0u}, A.order[t], slab.data(),
+                                   0u);
   });
   return 0;
 }
 int layer_factory_config_f64(int nd, int ndir, long long n, long long* info) {
   return config_host(n, info);
 }
+// the order pass (its operations are not the factory's: recorded for no
+// thread)
+int factory_order_f64(SPX_ORDER_PARAMS, void*) {
+  order_host<CT>(SPX_ORDER_ARGS);
+  return 0;
+}
 int layer_factory_dense_f64(SPX_FACTORY_PARAMS, const long long*, void*) {
   const auto A = spx::factory_args<CT>(SPX_FACTORY_ARGS);
   const spx::DenseSlab S = spx::dense_slab_layout(nd, ndir);
   std::vector<CT> slab(S.size);
   each_thread(n, [&](long long t) {
-    spx::layer_factory_dense_team<1, SPX_DENSE_CAP>(A, S, spx::Team<1>{0, 0u}, t,
-                                                    slab.data(), 0u);
+    spx::layer_factory_dense_team<1, SPX_DENSE_CAP>(A, S, spx::Team<1>{0, 0u},
+                                                    A.order[t], slab.data(), 0u);
   });
   return 0;
 }

@@ -65,6 +65,22 @@
 // memory per block (nd > ~45 in float64) goes to a global scratch of one
 // slab per resident team, which the wrapper allocates.
 //
+// The order of the elements (K1 and K1d).  A block holds its slabs until
+// its slowest team is done, so a block whose teams' K differ (a night
+// column's direct beam at the clamped cosine 1e-6 takes ~20 steps, a day
+// column's 2-5) runs its largest K with the other slabs idle.  So the
+// teams take the elements as A.order lists them: the order pass
+// (factory_order_kernel, one thread an element, K by K1's norm) keys each
+// element by its window of consecutive places and its K, and the wrapper
+// sorts the keys on the card, so that each window's elements come longest
+// first and a block's teams run alike counts.  A window holds as many
+// elements as the card runs at once, so the operand and result sectors
+// that a window's elements share stay in L2 while it runs: one order of
+// the whole launch by K, which scatters every sector's elements over the
+// launch, ran K1 at urban_mix's and rami5's shapes 12-49 % slower than
+// windows of the card's resident teams (NVIDIA H100).  An element reads and writes only
+// at its own (l, b), so the results do not depend on the order.
+//
 // K1d's design on the H100 is K1's: one team of TS lanes per element (TS
 // the power of two >= nd, at most 4: 1, 2, 4 at the solver's nd = 1, 2, 3,
 // so a lane takes about three rows of the N-row products at N = 3, 6, 9),
@@ -98,6 +114,10 @@ struct FactoryArgs {
   // K1: null, or one slab per resident team where a slab exceeds the
   // shared memory of a block; K1d: null
   T* ws;
+  // the elements in the order the teams take them (the order pass's:
+  // window by window, longest doubling count first); null in the order
+  // pass itself
+  const long long* order;
   int nd, ndir, n_double, int_direct;  // int_direct 0: idir, idd unused
   T theta;
   long long B, n;  // batch; this launch covers elements 0 .. n - 1 (L*B)
@@ -120,6 +140,58 @@ SPX_DEV T team_max(const Team<TS>& tm, T v) {
     v = fmax(v, __shfl_xor_sync(tm.mask, v, off));
 #endif
   return v;
+}
+
+// A lane's part of the row-sum norm of an element's Gamma dz (K1's step
+// 2): (sum |g1| + sum |g2| + sum |g3|) dz over its rows lane, lane + TS,
+// ... of the diffuse block, sum |g0| dz over those of the direct block;
+// the largest part over the team's lanes is the norm.
+template <int TS, class M, typename T>
+SPX_DEV T gamma_norm_part(const Team<TS>& tm, int nd, int ndir, M g0, M g1, M g2,
+                          M g3, T s) {
+  T nrm = T(0);
+  for (int i = tm.lane; i < nd; i += TS) {
+    T r1 = T(0), r2 = T(0), r3 = T(0);
+    for (int k = 0; k < nd; ++k) {
+      r1 += fabs(g1(i, k));
+      r2 += fabs(g2(i, k));
+    }
+    for (int e = 0; e < ndir; ++e) r3 += fabs(g3(i, e));
+    nrm = fmax(nrm, (r1 + r2 + r3) * s);
+  }
+  for (int i = tm.lane; i < ndir; i += TS) {
+    T r0 = T(0);
+    for (int e = 0; e < ndir; ++e) r0 += fabs(g0(i, e));
+    nrm = fmax(nrm, r0 * s);
+  }
+  return nrm;
+}
+
+// An element's doubling count from the row-sum norm of its Gamma dz:
+// ceil(log2(nrm / theta)), clamped to [0, n_double].
+template <typename T>
+SPX_DEV int doubling_count(T nrm, T theta, int n_double) {
+  return int(fmin(fmax(ceil(log2(fmax(nrm, T(1e-30)) / theta)), T(0)), T(n_double)));
+}
+
+// The order pass's body: element j's sort key, its window j / window
+// above 255 - K in the low byte, K its doubling count by K1's norm (for a
+// K1d element the same but where its own norm, summed over the assembled
+// Gamma dz, rounds across a step; at most 255).  Sorted ascending and
+// stable, the keys list each window's elements longest first.
+template <typename T>
+SPX_DEV int order_key(const FactoryArgs<T>& A, long long j, long long window) {
+  const int nd = A.nd, ndir = A.ndir;
+  const long long l = j / A.B, b = j % A.B;
+  auto op = [&](const T* p, int rows, int ld) {
+    return mat(Col<T>{const_cast<T*>(p) + l * rows * A.B + b, A.B}, ld);
+  };
+  const int K = doubling_count(
+      gamma_norm_part(Team<1>{0, 0u}, nd, ndir, op(A.g0, ndir * ndir, ndir),
+                      op(A.g1, nd * nd, nd), op(A.g2, nd * nd, nd),
+                      op(A.g3, nd * ndir, ndir), A.dz[l * A.B + b]),
+      A.theta, A.n_double);
+  return (int)(j / window) << 8 | (255 - (K < 255 ? K : 255));
 }
 
 // Workspaces of extract_double: W1 (nd x nd), W2 (nd x (nd + ndir)), W3a-c
@@ -378,25 +450,8 @@ SPX_DEV void layer_factory_team(const FactoryArgs<T>& A, const Slab& S,
     for (int e = 0; e < ndir; ++e) D(i, e) = g0(i, e) * s;
 
   // ---- per-element scaling from the row-sum norm of the dense Gamma dz
-  T nrm = T(0);
-  for (int i = tm.lane; i < nd; i += TS) {
-    T r1 = T(0), r2 = T(0), r3 = T(0);
-    for (int k = 0; k < nd; ++k) {
-      r1 += fabs(g1(i, k));
-      r2 += fabs(g2(i, k));
-    }
-    for (int e = 0; e < ndir; ++e) r3 += fabs(g3(i, e));
-    nrm = fmax(nrm, (r1 + r2 + r3) * s);
-  }
-  for (int i = tm.lane; i < ndir; i += TS) {
-    T r0 = T(0);
-    for (int e = 0; e < ndir; ++e) r0 += fabs(g0(i, e));
-    nrm = fmax(nrm, r0 * s);
-  }
-  nrm = team_max(tm, nrm);
-  const T kf = fmin(fmax(ceil(log2(fmax(nrm, T(1e-30)) / A.theta)), T(0)),
-                    T(A.n_double));
-  const int nK = int(kf);
+  const T nrm = team_max(tm, gamma_norm_part(tm, nd, ndir, g0, g1, g2, g3, s));
+  const int nK = doubling_count(nrm, A.theta, A.n_double);
   const T fac = ldexp(T(1), -nK);
   for (int i = tm.lane; i < nd; i += TS) {
     for (int k = 0; k < nd; ++k) Bm(i, k) *= fac;
@@ -667,9 +722,7 @@ SPX_DEV void layer_factory_dense_team(const FactoryArgs<T>& A, const DenseSlab& 
     nrm = fmax(nrm, row_sum(2 * nd + i));
   }
   nrm = team_max(tm, nrm);
-  const T kf = fmin(fmax(ceil(log2(fmax(nrm, T(1e-30)) / A.theta)), T(0)),
-                    T(A.n_double));
-  const int nK = int(kf);
+  const int nK = doubling_count(nrm, A.theta, A.n_double);
   const T fac = ldexp(T(1), -nK);
   for (int i = tm.lane; i < nd; i += TS)
     for (int k = 0; k < N; ++k) {
@@ -740,12 +793,23 @@ template <typename T>
 FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
                             void* R, void* Tm, void* E, void* Sup, void* Sdn,
                             void* idiff, void* idir, void* idd, void* ws,
-                            int nd, int ndir, int n_double, int int_direct,
-                            double theta, long long B, long long n) {
+                            void* order, int nd, int ndir, int n_double,
+                            int int_direct, double theta, long long B, long long n) {
   return FactoryArgs<T>{(const T*)g0, (const T*)g1, (const T*)g2,
                         (const T*)g3, (const T*)dz, (T*)R, (T*)Tm, (T*)E,
                         (T*)Sup, (T*)Sdn, (T*)idiff, (T*)idir, (T*)idd,
-                        (T*)ws, nd, ndir, n_double, int_direct, T(theta), B, n};
+                        (T*)ws, (const long long*)order, nd, ndir, n_double,
+                        int_direct, T(theta), B, n};
+}
+
+// The order pass's operands: the factory's inputs, no outputs, no order.
+template <typename T>
+FactoryArgs<T> order_args(void* g0, void* g1, void* g2, void* g3, void* dz, int nd,
+                          int ndir, int n_double, double theta, long long B,
+                          long long n) {
+  return factory_args<T>(g0, g1, g2, g3, dz, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nd,
+                         ndir, n_double, 0, theta, B, n);
 }
 
 }  // namespace spx
@@ -753,11 +817,29 @@ FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
 #define SPX_FACTORY_PARAMS                                                    \
   void *g0, void *g1, void *g2, void *g3, void *dz, void *R, void *Tm,       \
       void *E, void *Sup, void *Sdn, void *idiff, void *idir, void *idd,     \
-      void *ws, int nd, int ndir, int n_double, int int_direct,              \
+      void *ws, void *order, int nd, int ndir, int n_double, int int_direct, \
       double theta, long long B, long long n
 #define SPX_FACTORY_ARGS                                                      \
-  g0, g1, g2, g3, dz, R, Tm, E, Sup, Sdn, idiff, idir, idd, ws, nd, ndir,    \
-      n_double, int_direct, theta, B, n
+  g0, g1, g2, g3, dz, R, Tm, E, Sup, Sdn, idiff, idir, idd, ws, order, nd,   \
+      ndir, n_double, int_direct, theta, B, n
+// the order pass: the factory's operands, then its output (an int32 key
+// an element) and the elements of a window
+#define SPX_ORDER_PARAMS                                                      \
+  void *g0, void *g1, void *g2, void *g3, void *dz, void *keys, int nd,      \
+      int ndir, int n_double, double theta, long long B, long long n,        \
+      long long window
+#define SPX_ORDER_ARGS                                                        \
+  g0, g1, g2, g3, dz, keys, nd, ndir, n_double, theta, B, n, window
+
+#ifndef __CUDACC__
+// The order pass in a host build (host_check.cpp, host_count.cpp): each
+// element's key, one element at a time.
+template <typename T>
+static void order_host(SPX_ORDER_PARAMS) {
+  const auto A = spx::order_args<T>(g0, g1, g2, g3, dz, nd, ndir, n_double, theta, B, n);
+  for (long long j = 0; j < n; ++j) ((int*)keys)[j] = spx::order_key(A, j, window);
+}
+#endif
 
 // K1d's team products keep a row of the left factor in registers up to this
 // width (N <= 9 in every solver configuration)
@@ -775,11 +857,13 @@ FactoryArgs<T> factory_args(void* g0, void* g1, void* g2, void* g3, void* dz,
 #endif
 
 // The body of K1's and K1d's team kernels: teams of TS lanes, blockDim.x /
-// TS of them a block, each looping over the elements j = its index, + the
-// grid's teams, ...; the slab in dynamic shared memory, or (GLOBAL, K1 at
-// TS = 32 only) in the wrapper's scratch at A.ws.  Every lane of the warp
-// takes each round, so the teams with an element know one another (live);
-// body(tm, j, slab, live) runs one element.
+// TS of them a block, each looping over the places j = its index, + the
+// grid's teams, ... of the order A.order and running the element there;
+// the slab in dynamic shared memory, or (GLOBAL, K1 at TS = 32 only) in
+// the wrapper's scratch at A.ws.  Every lane of the warp takes each round,
+// so the teams with an element know one another (live); body(tm, e, slab,
+// live) runs element e, reading its operands and writing its results at
+// its own (l, b).
 template <typename T, int TS, bool GLOBAL, class F>
 __device__ __forceinline__ void factory_teams(const spx::FactoryArgs<T>& A, int stride, F body) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -794,8 +878,17 @@ __device__ __forceinline__ void factory_teams(const spx::FactoryArgs<T>& A, int 
   for (long long j = first;; j += step) {
     const unsigned live = __ballot_sync(0xffffffffu, j < A.n);
     if (live == 0) break;
-    if (j < A.n) body(tm, j, slab, live);
+    if (j < A.n) body(tm, A.order[j], slab, live);
   }
+}
+
+// The order pass: each element's sort key (spx::order_key), one thread an
+// element, so that a warp reads 32 neighbouring columns of each operand
+// row.
+template <typename T>
+__global__ void factory_order_kernel(spx::FactoryArgs<T> A, long long window, int* keys) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < A.n) keys[j] = spx::order_key(A, j, window);
 }
 
 // K1 at team size TS.
@@ -918,7 +1011,23 @@ static int factory_config(int nd, int ndir, long long n, long long* info) {
   return run_factory<T, dense>(A, nullptr, info, 1);
 }
 
+template <typename T>
+static int launch_order(SPX_ORDER_PARAMS, void* stream) {
+  const auto A = spx::order_args<T>(g0, g1, g2, g3, dz, nd, ndir, n_double, theta, B, n);
+  constexpr int threads = 256;
+  if (n > 0)
+    factory_order_kernel<T><<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                              (cudaStream_t)stream>>>(A, window, (int*)keys);
+  return (int)cudaGetLastError();
+}
+
 #define SPX_CFG const long long *cfg
+extern "C" int factory_order_f32(SPX_ORDER_PARAMS, void* stream) {
+  return launch_order<float>(SPX_ORDER_ARGS, stream);
+}
+extern "C" int factory_order_f64(SPX_ORDER_PARAMS, void* stream) {
+  return launch_order<double>(SPX_ORDER_ARGS, stream);
+}
 extern "C" int layer_factory_f32(SPX_FACTORY_PARAMS, SPX_CFG, void* stream) {
   return launch_factory<float, false>(SPX_FACTORY_ARGS, cfg, stream);
 }

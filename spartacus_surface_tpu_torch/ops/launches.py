@@ -11,7 +11,8 @@ from . import lw_sweep_kernels as LSK
 from . import sweep_kernels as SK
 
 # {label: (wrapper, counter attribute)}; K1 and K1d count their LW-mode
-# launches in the counters of both factory wrappers
+# launches in the counters of both factory wrappers; "K1 order" counts the
+# order pass that runs before every K1 and K1d launch
 COUNTERS = {
     "K1": (LK.layer_factory, "launches"),
     "K2": (SK.sw_up_sweep, "launches"),
@@ -21,6 +22,7 @@ COUNTERS = {
     "K1d": (LK.layer_factory, "dense_launches"),
     "K1 LW mode": (LK.lw_layer_factory, "launches"),
     "K1d LW mode": (LK.lw_layer_factory, "dense_launches"),
+    "K1 order": (LK.layer_factory, "order_launches"),
 }
 # the kernels an SW + LW solve with 2 or more streams launches
 PATH_4 = ("K1", "K2", "K3", "K4", "K5", "K1 LW mode")

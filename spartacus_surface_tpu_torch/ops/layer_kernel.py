@@ -50,6 +50,22 @@ takes it, so the occupancy calculator runs once per shape, not twice per
 call.  ``chunk`` bounds only the plain version's steps.  Each element loops
 exactly its own K doubling steps, which is the TPU kernel's masked commit
 (pallas_layer.py:400) without the masking.
+
+The order the teams take the elements in.  A block holds its slabs until
+its slowest team is done, so a block that mixes a night column (its direct
+beam at the clamped cosine 1e-6: ~20 doubling steps) with day columns (2-5)
+keeps the day columns' slabs idle for the difference.  Every launch of K1
+and K1d therefore runs the order pass first (csrc/layer_factory.cu
+``factory_order_kernel``, one thread an element: each element's window of
+consecutive places and its K by K1's norm, as an int32 key) and a stable
+argsort of the keys, both on the card with no host sync (inside the CUDA
+graph on the compiled route); the teams take the elements in that order:
+window by window, each window's elements longest first, so that a block's
+teams run alike counts.  A window holds the elements the card runs at once
+(its resident teams, ``order_window``), so the sectors its elements share
+stay in L2 while they run.  Each element reads its operands and writes its
+results at its own (l, b), with its own arithmetic: the outputs are
+bit-equal to any other order's.
 """
 
 from __future__ import annotations
@@ -120,11 +136,15 @@ def layer_factory(g0, g1, g2, g3, dz, *, nd, ndir, n_double=30, chunk=65536,
                       int_direct=int_direct, stream=cuda_build.stream(dev))
 
 
-# the C signatures of the launchers (csrc/layer_factory.cu): the operands,
-# then the launch configuration (cuda_build.team_config)
-FACTORY_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+# the C signatures of the launchers (csrc/layer_factory.cu): the operands
+# and the order, then the launch configuration (cuda_build.team_config)
+FACTORY_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                     + [ctypes.c_double] + [ctypes.c_longlong] * 2
                     + [ctypes.c_void_p] * 2)
+# the order pass's (factory_order_f32/f64): the operands and the keys,
+# then the elements of a window
+ORDER_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double]
+                  + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
 
 
 def _kind(nd, ndir) -> str:
@@ -143,16 +163,70 @@ def factory_config(lib, nd, ndir, n, dtype) -> dict:
                                   (nd, ndir), n, 4 if bits == "f32" else 8)
 
 
+def order_window(config: dict, n: int) -> int:
+    """The elements of an order window: the teams the card runs at once in
+    a launch of this configuration (factory_config), at least n / 2^22 so
+    that every key fits 32 bits."""
+    return max(config["resident_per_sm"] * config["sms"], -(-n // 2**22))
+
+
+def order_keys(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, window, stream):
+    """The order pass: [L, B] int32 sort key of each element, its window
+    (flat index l*B + b over `window`) above 255 - K in the low byte, K its
+    doubling count by K1's norm, theta and clamp (at most 255), from lib's
+    factory_order_f32/f64, one thread an element.  Counts the launch in
+    layer_factory.order_launches."""
+    L, _, B = g1.shape
+    bits = "f32" if g1.dtype == torch.float32 else "f64"
+    keys = g1.new_empty((L, B), dtype=torch.int32)
+    fn = cuda_build.bind(lib, f"factory_order_{bits}", ORDER_ARGTYPES)
+    err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz, keys)), nd, ndir, n_double,
+             pade7_theta(g1.dtype), B, L * B, window, stream)
+    cuda_build.check(err, "factory_order")
+    layer_factory.order_launches += 1
+    return keys
+
+
+def doubling_counts(keys):
+    """The doubling counts in order_keys' keys."""
+    return 255 - (keys & 255)
+
+
+def element_order(keys):
+    """The order the factory's teams take the elements in: window by
+    window, each window's elements by doubling count, largest first,
+    neighbours of one count kept in place (int64 flat indices l*B + b)."""
+    return torch.argsort(keys.reshape(-1), stable=True)
+
+
 def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
            int_direct=True):
+    """K1 or K1d over every element (launch_ordered) in the order of their
+    windows and doubling counts (order_keys, element_order); `chunk` is not
+    used (it bounds the plain version's steps)."""
+    n = g1.shape[0] * g1.shape[2]
+    window = order_window(factory_config(lib, nd, ndir, n, g1.dtype), n)
+    keys = order_keys(lib, g0, g1, g2, g3, dz, nd=nd, ndir=ndir, n_double=n_double,
+                      window=window, stream=stream)
+    return launch_ordered(lib, g0, g1, g2, g3, dz, element_order(keys), nd=nd,
+                          ndir=ndir, n_double=n_double, stream=stream,
+                          int_direct=int_direct)
+
+
+def launch_ordered(lib, g0, g1, g2, g3, dz, order, *, nd, ndir, n_double, stream,
+                   int_direct=True):
     """Allocate the outputs and launch lib's layer_factory_f32/f64 (K1) or
-    layer_factory_dense_f32/f64 (K1d) once over every element, with no
-    workspace (K1 only: a scratch where its slab exceeds a block's shared
-    memory); `chunk` is not used (it bounds the plain version's steps).
-    Counts the launch in layer_factory.launches (K1) or
-    layer_factory.dense_launches (K1d) and, without int_direct, in the same
-    counter of lw_layer_factory too."""
+    layer_factory_dense_f32/f64 (K1d) once over every element, its teams
+    taking them as `order` (int64, a permutation of the L*B flat indices)
+    lists them, with no workspace (K1 only: a scratch where its slab
+    exceeds a block's shared memory).  Counts the launch in
+    layer_factory.launches (K1) or layer_factory.dense_launches (K1d) and,
+    without int_direct, in the same counter of lw_layer_factory too."""
     L, _, B = g1.shape
+    if (order.dtype != torch.int64 or order.shape != (L * B,) or order.device != g1.device
+            or not order.is_contiguous()):
+        raise ValueError(f"layer_factory: the order must be a contiguous int64 [{L * B}]"
+                         f" on {g1.device}")
     kind = _kind(nd, ndir)
     bits = "f32" if g1.dtype == torch.float32 else "f64"
     fn = cuda_build.bind(lib, f"layer_factory{kind}_{bits}", FACTORY_ARGTYPES)
@@ -163,8 +237,8 @@ def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
                if cfg["scratch_elements"] else None)
     err = fn(*map(cuda_build.ptr, (g0, g1, g2, g3, dz)),
              *(cuda_build.ptr(outs[k]) if k in outs else None for k in OUT_NAMES),
-             None if scratch is None else cuda_build.ptr(scratch), nd, ndir,
-             n_double, int(int_direct), pade7_theta(g1.dtype), B, L * B,
+             None if scratch is None else cuda_build.ptr(scratch), cuda_build.ptr(order),
+             nd, ndir, n_double, int(int_direct), pade7_theta(g1.dtype), B, L * B,
              cuda_build.team_info(cfg), stream)
     cuda_build.check(err, f"layer_factory{kind}")
     counter = "dense_launches" if kind else "launches"
@@ -175,6 +249,7 @@ def launch(lib, g0, g1, g2, g3, dz, *, nd, ndir, n_double, chunk, stream,
 
 layer_factory.launches = 0  # K1
 layer_factory.dense_launches = 0  # K1d
+layer_factory.order_launches = 0  # the order pass before each of them
 
 
 # ----------------------------------------------------------------------

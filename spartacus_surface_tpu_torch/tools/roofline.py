@@ -273,21 +273,27 @@ def _factory_call(kernel, args, kw):
     return (*args, kw["ndir"], kw.get("int_direct", True))
 
 
-def doubling_steps(kernel, *args, **kw):
-    """[L, B] doubling count of each element of a layer_factory or
-    lw_layer_factory call: K = ceil(log2(||Gamma dz||_inf / theta)) clipped
-    to [0, n_double], theta of the operands' precision
-    (ops/layer_matrices.py, csrc/layer_factory.cu)."""
+def doubling_ratio(kernel, *args, **kw):
+    """[L, B] ||Gamma dz||_inf / theta of each element of a layer_factory or
+    lw_layer_factory call (the norm at least 1e-30), in float64, theta of
+    the operands' precision (ops/layer_matrices.py,
+    csrc/layer_factory.cu)."""
     g0, g1, g2, g3, dz, ndir, _ = _factory_call(kernel, args, kw)
-    nd, n_double = kw["nd"], kw.get("n_double", 30)
+    nd = kw["nd"]
     L, _, B = g1.shape
     rows = lambda g, n, m: g.double().abs().reshape(L, n, m, B).sum(2)
     nrm = torch.maximum(
         (rows(g1, nd, nd) + rows(g2, nd, nd) + rows(g3, nd, ndir)).amax(1),
         rows(g0, ndir, ndir).amax(1)) * dz.double()
-    theta = pade7_theta(g1.dtype)
-    return torch.clamp(torch.ceil(torch.log2(nrm.clamp_min(1e-30) / theta)),
-                       0, n_double)
+    return nrm.clamp_min(1e-30) / pade7_theta(g1.dtype)
+
+
+def doubling_steps(kernel, *args, **kw):
+    """[L, B] doubling count of each element of a layer_factory or
+    lw_layer_factory call: K = ceil(log2(||Gamma dz||_inf / theta)) clipped
+    to [0, n_double] (doubling_ratio)."""
+    return torch.clamp(torch.ceil(torch.log2(doubling_ratio(kernel, *args, **kw))),
+                       0, kw.get("n_double", 30))
 
 
 def kernel_work(kernel, *args, K=None, **kw):

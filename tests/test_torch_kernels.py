@@ -64,9 +64,10 @@ def lw_inputs(C, L, S, dtype, seed):
             **random_lw_fields(C, L, S, dtype, seed=seed)}
 
 
-def capture(monkeypatch, nreg, ns, dtype, device, C=6, L=3, S=2):
+def capture(monkeypatch, nreg, ns, dtype, device, C=6, L=3, S=2, night=False):
     """Run the SW and LW kernel routes once; return {wrapper: (args, kwargs,
-    result)}."""
+    result)}.  With night, every other column has the sun below the horizon
+    (cos_sza 0, which the solver clamps to 1e-6)."""
     calls = {}
     for name in KERNELS:
         fn = getattr(solver, name)
@@ -79,6 +80,8 @@ def capture(monkeypatch, nreg, ns, dtype, device, C=6, L=3, S=2):
     for lw, fields in ((False, example_inputs(C=C, L=L, S=S, dtype=dtype,
                                               seed=nreg * ns)),
                        (True, lw_inputs(C, L, S, dtype, nreg * ns))):
+        if night:
+            fields["cos_sza"][::2] = 0.0
         inp = solver.CanopyInputs(**{k: torch.as_tensor(v, device=device)
                                      for k, v in fields.items()})
         solve = solver.spartacus_lw if lw else solver.spartacus_sw
@@ -207,21 +210,30 @@ class _Recorder:
 @pytest.mark.parametrize("mode", ["sw", "lw"])
 def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk, nreg, ns):
     """K1 (nreg, ns = 2, 4) and K1d (1, 1: both modes dense) launch once
-    per call whatever `chunk` is, over every element, with no workspace (a
-    null pointer), their launch configuration passed in, and nothing
-    allocated but their outputs."""
+    per call whatever `chunk` is, over every element, after one order pass,
+    with no workspace (a null pointer), their order and launch
+    configuration passed in, and nothing allocated through the operands but
+    their outputs and the order pass's int32 [L, B] keys; the order is the
+    argsort's int64 [L*B] permutation (with the keys, 12 bytes an element
+    beside the outputs, freed when the launch returns)."""
     calls = capture(monkeypatch, nreg, ns, np.float64, "cpu")
     kind = "" if ns > 1 else "_dense"
     cuda_build.bind(host_lib, f"layer_factory{kind}_f64", LK.FACTORY_ARGTYPES)
+    cuda_build.bind(host_lib, "factory_order_f64", LK.ORDER_ARGTYPES)
     cuda_build.bind(host_lib, f"layer_factory{kind}_config_f64",
                     [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_void_p])
     lib = _Recorder(host_lib)
     allocated = []
     new_empty = torch.Tensor.new_empty
     monkeypatch.setattr(torch.Tensor, "new_empty", lambda t, shape, **kw: (
-        allocated.append(tuple(shape)), new_empty(t, shape, **kw))[1])
+        allocated.append((tuple(shape), str(kw.get("dtype", t.dtype)))),
+        new_empty(t, shape, **kw))[1])
+    orders, element_order = [], LK.element_order
+    monkeypatch.setattr(LK, "element_order", lambda keys: (
+        orders.append(element_order(keys)), orders[-1])[1])
     counter = "launches" if ns > 1 else "dense_launches"
     n1, nlw = (getattr(w, counter) for w in (LK.layer_factory, LK.lw_layer_factory))
+    norder = LK.layer_factory.order_launches
     a, k, ref = calls[f"{'' if mode == 'sw' else 'lw_'}layer_factory"]
     assert LK.is_structured(k["nd"], k.get("ndir", 1)) == (ns > 1)
     got = LAUNCH[("" if mode == "sw" else "lw_") + "layer_factory"](
@@ -231,11 +243,17 @@ def test_factory_launch_has_no_workspace(host_lib, monkeypatch, mode, chunk, nre
     assert len(launches) == 1 and len(launches[0]) == len(LK.FACTORY_ARGTYPES)
     L, _, B = a[0].shape
     assert launches[0][13] is None and launches[0][-3:-2] == (L * B,)  # ws, n
+    assert launches[0][14] is not None  # the order
     assert launches[0][-2] is not None  # the launch configuration
+    assert [name for name, _ in lib.calls].count("factory_order_f64") == 1
     assert getattr(LK.layer_factory, counter) == n1 + 1
     assert getattr(LK.lw_layer_factory, counter) == nlw + (mode == "lw")
+    assert LK.layer_factory.order_launches == norder + 1
     rows = LK.out_rows(k["nd"], k.get("ndir", 1))
-    assert sorted(allocated) == sorted((L, rows[n], B) for n in LK.out_names(mode == "sw"))
+    assert sorted(allocated) == sorted([((L, B), "torch.int32")] + [
+        ((L, rows[n], B), "torch.float64") for n in LK.out_names(mode == "sw")])
+    assert len(orders) == 1 and orders[0].dtype == torch.int64
+    assert torch.equal(orders[0].sort().values, torch.arange(L * B))
     assert all(field_err([ref[n]], [got[n]]) <= 1e-9 for n in ref)
 
 

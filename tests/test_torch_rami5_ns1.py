@@ -13,7 +13,8 @@ reference) under tight limits; the reader of kernels.k1d_roofline on
 traces with and without a K1d event.  Marked cuda (skipped without a
 GPU): replays of run_radsurf at a small rami5_ns1 shape bit-equal to the
 eager calls under graphs.disabled(), each adding one SW K1d and one LW K1
-launch to the counters that the CLI's ``Kernel launches:`` line prints.
+launch, and an order pass before each, to the counters that the CLI's
+``Kernel launches:`` line prints.
 Imports nothing of JAX, so that the cuda test runs where JAX is missing
 (pytest --noconftest).
 """
@@ -160,7 +161,8 @@ def test_cuda_replays_are_eager_and_count_k1d():
         run_radsurf(config, sets[0], "cuda")  # eager
         run_radsurf(config, sets[0], "cuda")  # captured
         assert graphs.stats()["graphs"] == 1
-        per_replay = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K1d": 1, "K1 LW mode": 1}
+        per_replay = {"K1": 1, "K2": 1, "K3": 1, "K4": 1, "K5": 1, "K1d": 1, "K1 LW mode": 1,
+                      "K1 order": 2}
         for i in (1, 0):
             before = launches.counts()
             out = fields(run_radsurf(config, sets[i], "cuda"))
