@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile    # ... then time and trace the slice
     python3 chip_smoke.py --parallel-only   # build, then the parallel phase alone
     python3 chip_smoke.py --auto-only   # build, then the auto and corners phases
-    python3 chip_smoke.py --bench-only  # build, then the bench phase alone
+    python3 chip_smoke.py --shapes-only # build, then the shapes phase alone
     python3 chip_smoke.py --graphs-only # build, then the graphs phase alone
     python3 chip_smoke.py --divergence-only  # build, then the k1_divergence phase alone
 
@@ -82,13 +82,14 @@ final line):
      spartacus_lw on the kernel route and run_radsurf's device core, a CUDA
      graph per key, captured at the second call and replayed after) against
      their eager runs under graphs.disabled(), the graphs cleared before
-     each run: the bench's headline step (spartacus_sw + spartacus_lw,
-     16,384 x 8 x 1, nreg 2, AUTO chunk) in float32 and float64, its nreg3
-     step (8,192 columns, nreg 3) and its rami5 step (1,024 x 62 x 14, nreg
-     3) in float32, run_radsurf at rami5_ns1 (SW on K1d) and at the
-     headline's mixed tiles in float32; and the CLI (cli_ns4, single
-     precision) streamed in GRAPH_CLI_CHUNK-column chunks, run eagerly and
-     three times with graphs.  Checks: no synchronizing CUDA operation in
+     each run: the headline solve check's step (spartacus_sw +
+     spartacus_lw, 16,384 x 8 x 1, nreg 2, AUTO chunk; checks.SHAPES) in
+     float32 and float64, the nreg3 one (8,192 columns, nreg 3) and the
+     rami5 one (1,024 x 62 x 14, nreg 3) in float32, run_radsurf at
+     rami5_ns1 (SW on K1d) and at the headline's mixed tiles in float32;
+     and the CLI (cli_ns4, single precision) streamed in
+     GRAPH_CLI_CHUNK-column chunks, run eagerly and three times with
+     graphs.  Checks: no synchronizing CUDA operation in
      the eager call (sync_sites: such an operation would stop a capture);
      the captured call's outputs
      bit-equal to the eager call's, a field that is not within GRAPH_TOL
@@ -105,7 +106,7 @@ final line):
      calls as a user would, through the graphs, and keeps the graphs the
      earlier phases left; a call whose kernel calls are held against their
      plain versions (Capture, CompareEach) runs eagerly.  The grad and
-     bench phases start with the graphs cleared (graphs.clear()), as in a
+     shapes phases start with the graphs cleared (graphs.clear()), as in a
      process of their own, and so does the auto phase's ballast (memory
      another process took first).
   parallel - streamed, meshed and multi-process runs (parallel/), each with
@@ -277,31 +278,25 @@ final line):
      calls) of the float32 headline and rami5_shape kernel routes as
      layered columns/s against solve_work_model's ceiling at the run's own
      mean doubling counts.
-  bench - the port's benchmark in this process, one
-     spartacus_surface_tpu_torch.bench.main(["--reps", str(BENCH_REPS),
-     "--block", name]) per block, in bench.py's order at its full shapes
-     (the build check, kernel-vs-scan parity on the four configs in float32
-     and float64, mesh parity, nreg 3, rami5 and its float64 twin, the CLI
-     on 50,048 columns, a gradient step, 1,048,576 columns, the headline in
-     float64 and float32), with the launch counters set to 0 just before
-     each and read just after (K1-K5 must launch in each block; the CLI
-     block's own launches are those its subprocess prints under
-     --timings), and the first step of each throughput block (nreg3,
-     rami5, grad, capacity, headline) captured and every kernel call in it
-     held against its plain version on the same operands at phase 2's bars;
-     then main(["--trace", "--block", "headline"]): per-layer device ms of
-     the headline.  Fails on an exit code other than 0, a block's line
-     missing or holding "error", a gate line with "ok": false, a kernel not
-     launched or one that disagrees.  Its lines are printed as the bench
-     prints them (a throughput line's first_call_s and peak_gib here
-     include the plain versions' run), then one line with each block's
-     launches and kernel errors.
   4. profile (--profile only) - for each slice run: warm wall seconds of
      both routes (median, min, max of 5 calls), and one torch.profiler trace
      of a warm kernel-route call: device launches, device busy ms (union of
      the device intervals), the device idle share of the call, and each
      kernel's device ms; the same trace of one headline step of the grad
      phase, float32 and float64.
+  shapes - each spartacus_surface_tpu_torch.checks.SHAPES entry once, in
+     its order and at its full shape (the build check, kernel-vs-scan
+     parity on the four configs in float32 and float64, mesh parity, nreg
+     3, rami5 and its float64 twin, the CLI on 50,048 columns, a gradient
+     step, 1,048,576 columns, the headline in float64 and float32), with
+     the launch counters set to 0 just before each and read just after
+     (K1-K5 must launch in each; checks.cli also holds the CLI's own count,
+     which its subprocess prints under --timings), and every kernel call of
+     the solve and gradient entries (SHAPES_COMPARED) held against its
+     plain version on the same operands at phase 2's bars.  Fails on an
+     entry that raises (its line holds the error), a kernel not launched or
+     one that disagrees.  One line an entry with its findings, launches and
+     kernel errors, then one with the phase's seconds.
 Phase 3 also prints the factory's launch shape for each run (K1, or K1d
 at rami5_ns1's SW: team size, teams and threads per block, slab and shared
 bytes per block, resident blocks and teams per SM, registers, waves;
@@ -475,10 +470,9 @@ AUTO_SQUEEZE = 0.5
 # the headline's mix repeated this many times (696,320 columns) for the
 # auto phase's capture_footprint: a one-shot float64 call of 36.6 GiB
 FOOTPRINT_REPEATS = 40
-# bench phase: the timed calls of each of its throughput blocks, and the
-# first steps each throughput block runs (one per precision)
-BENCH_REPS = 5
-THROUGHPUT_BLOCKS = {"nreg3": 1, "rami5": 2, "grad": 1, "capacity": 1, "headline": 2}
+# shapes phase: the checks.SHAPES entries held to the plain versions
+SHAPES_COMPARED = ("nreg3", "rami5", "rami5_f64", "grad", "capacity", "headline_f64",
+                   "headline")
 CORNER_CONFIGS = ((3, 4, True), (2, 4, True), (2, 4, False), (1, 4, True))
 # graphs phase: rounds of (graph, eager, eager, graph) timed calls, the
 # streamed CLI run's column chunk (the cli input's tile blocks make 4
@@ -492,6 +486,7 @@ GRAPH_TOL = {"float32": 2e-4, "float64": 1e-9}
 # (tools.roofline.doubling_steps) are held to their budgets only
 CORNER_MAX_DOUBLINGS = 16
 FAILURES = []
+GiB = 2**30
 
 
 def emit(**record):
@@ -502,6 +497,12 @@ def check(ok, what):
     if not ok:
         FAILURES.append(what)
     return bool(ok)
+
+
+def check_launched(counted, path, tag):
+    """Fail unless every kernel of `path` has launches in `counted`."""
+    return check(all(counted[k] > 0 for k in path),
+                 f"{tag}: a kernel of the path was not launched {counted}")
 
 
 def pieces(r, g, double=True, n=1 << 27):
@@ -849,6 +850,26 @@ def clocks_during(fn, seconds=2.0):
             "samples": len(samples)}
 
 
+def graph_pools():
+    """Bytes of the CUDA graphs' pool segments on the card: (reserved, free)."""
+    import torch
+
+    segs = [g for g in torch.cuda.memory_snapshot() if tuple(g["segment_pool_id"]) != (0, 0)]
+    return (sum(g["total_size"] for g in segs),
+            sum(g["total_size"] - g["allocated_size"] for g in segs))
+
+
+def wall_of(fn):
+    """(host seconds of fn() to a synchronize, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
 def wall_seconds(fn, reps=5):
     """(median, min, max) host seconds of warm calls, each ending in a
     synchronize."""
@@ -1018,7 +1039,7 @@ def run_cli_processes(nproc, argv):
     return out
 
 
-def parallel_phase(dev, counters, headline, cli_files):
+def parallel_phase(dev, headline, cli_files):
     """The parallel phase: stream_equal, stream_scale, mesh, multiprocess
     (see the module docstring).  headline: (tile codes, Config kwargs) of
     the slice phase's headline; cli_files: {"input", "columns", "namelist",
@@ -1028,13 +1049,14 @@ def parallel_phase(dev, counters, headline, cli_files):
     import numpy as np
     import torch
 
-    from spartacus_surface_tpu_torch import bench
-    from spartacus_surface_tpu_torch.bench import card_line
+    from benchmark.run import card_line
+    from spartacus_surface_tpu_torch import checks
     from spartacus_surface_tpu_torch.models.dispatch import (
         TILE_INFINITE_STREET, TILE_SIMPLE_URBAN, TILE_URBAN, TILE_VEGETATED_URBAN,
         run_radsurf)
     from spartacus_surface_tpu_torch.models.flux_utils import (
         budget_residual, budget_with_masks, representation_masks)
+    from spartacus_surface_tpu_torch.ops.launches import counts, reset
     from spartacus_surface_tpu_torch.parallel.mesh import make_mesh
     from spartacus_surface_tpu_torch.parallel.streaming import stream_columns
     from spartacus_surface_tpu_torch.utils.config import Config
@@ -1047,16 +1069,6 @@ def parallel_phase(dev, counters, headline, cli_files):
     dtypes = {"float32": np.float32, "float64": np.float64}
     rep_head, cfg_head = headline
     config = Config(do_lw=True, **cfg_head).consolidate()
-
-    def reset():
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-
-    def counts():
-        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
-
-    def launched(c, tag):
-        check(all(c[k] > 0 for k in PATH_4), f"{tag}: a kernel of the path was not launched {c}")
 
     def solve(a):
         """run_radsurf on the card, with each group's per-column budget
@@ -1077,12 +1089,12 @@ def parallel_phase(dev, counters, headline, cli_files):
     def budget_check(out, arrays, f32, scale, tag):
         """The per-column residuals of a streamed result against the slice
         phase's bars (LW on the columns that conserve), through
-        bench.budget_gate: an urban column with a sub-threshold roof
-        (bench.sub_threshold_roofs, a leak of the reference's by design) is
+        checks.budget_gate: an urban column with a sub-threshold roof
+        (checks.sub_threshold_roofs, a leak of the reference's by design) is
         held to the scan route's residual on the same column instead."""
         rep = arrays["i_representation"]
         conserving = ~np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET])
-        leaky = np.isin(rep, [TILE_URBAN, TILE_VEGETATED_URBAN]) & bench.sub_threshold_roofs(
+        leaky = np.isin(rep, [TILE_URBAN, TILE_VEGETATED_URBAN]) & checks.sub_threshold_roofs(
             arrays["building_fraction"], config.min_building_fraction)
         resid = {g: np.asarray(out["resid"][g], np.float64) * (
             conserving if g.startswith("lw") else 1.0) for g in groups}
@@ -1094,8 +1106,8 @@ def parallel_phase(dev, counters, headline, cli_files):
             masks = representation_masks(sub["i_representation"], dev)
             witness = {g: budget_residual(budget_with_masks(scan[g], masks)).double().cpu().numpy()
                        for g in groups}
-        worst, failed = bench.budget_gate(
-            resid, leaky, bench.budget_bars("float32" if f32 else "float64", scale), witness)
+        worst, failed = checks.budget_gate(
+            resid, leaky, checks.budget_bars("float32" if f32 else "float64", scale), witness)
         for f in failed:
             check(False, f"{tag}: {f}")
         return worst
@@ -1126,7 +1138,7 @@ def parallel_phase(dev, counters, headline, cli_files):
         t_stream = time.perf_counter() - t0
         graph_stats = {k: graphs.stats()[k] - before[k] for k in ("captures", "releases")}
         c = counts()
-        launched(c, tag)
+        check_launched(c, PATH_4, tag)
         check(not syncs, f"{tag}: the streamed run synchronized the device at {syncs[:10]}")
         ref = run_radsurf(config, arrays, dev)
         ref_h = host(ref)
@@ -1172,7 +1184,7 @@ def parallel_phase(dev, counters, headline, cli_files):
         t_first = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         c = counts()
-        launched(c, tag)
+        check_launched(c, PATH_4, tag)
         finite = all(np.isfinite(v).all() for g in groups for v in got[g].values())
         shapes = got["sw_norm_dir"]["flux_dn_layer_top"].shape == (len(rep), 8, 1)
         check(finite and shapes, f"{tag}: non-finite or misshapen output")
@@ -1226,7 +1238,7 @@ def parallel_phase(dev, counters, headline, cli_files):
         (ref_h, c1, w1), (got_h, c2, w2) = runs["unsharded"], runs["mesh"]
         err = field_err(list(ref_h.values()), [got_h[k] for k in ref_h])
         check(err <= PAR_TOL[dname], f"{tag}: meshed vs unsharded {err:.3e}")
-        launched(c2, tag)
+        check_launched(c2, PATH_4, tag)
         check(all(c2[k] == 2 * c1[k] for k in PATH_4),
               f"{tag}: the shards' launches {c2} are not twice {c1}")
         emit(phase="parallel", item="mesh", dtype=dname, columns=len(rep_head),
@@ -1248,7 +1260,7 @@ def parallel_phase(dev, counters, headline, cli_files):
                                       "--device", dev.type, "--precision", prec, *extra])
         for rc, so, se, _, c in procs:
             check(rc == 0, f"{tag}: exit code {rc}: {se[-2000:]}")
-            launched(c or {k: 0 for k in PATH_4}, tag)
+            check_launched(c or {k: 0 for k in PATH_4}, PATH_4, tag)
         logs = [so for _, so, _, _, _ in procs]
         half = -(-cli_files["columns"] // 2)
         check(f"Process 0/2: columns 1 to {half}" in logs[0]
@@ -1343,26 +1355,19 @@ def cli_files_unchecked():
     return files
 
 
-def parallel_only(dev, counters):
-    """The parallel phase alone: cli_files_unchecked, then parallel_phase."""
-    files = cli_files_unchecked()
-    t0 = time.perf_counter()
-    parallel_phase(dev, counters, (tiles(HEADLINE_TILES), HEADLINE_CONFIG), files)
-    emit(phase="parallel", item="seconds", seconds=time.perf_counter() - t0)
-
-
-def auto_phase(dev, counters, slices, cli_files):
+def auto_phase(dev, slices, cli_files):
     """The auto phase: model, sweep, auto_equal, squeeze, capture_footprint,
     production (see the module docstring).  slices: slice_shapes(); cli_files: as for parallel_phase."""
     import numpy as np
     import torch
 
-    from spartacus_surface_tpu_torch.bench import card_line
+    from benchmark.run import card_line
     from spartacus_surface_tpu_torch.driver import main as cli
     from spartacus_surface_tpu_torch.models import dispatch, solver
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+    from spartacus_surface_tpu_torch.ops.launches import counts, reset
     from spartacus_surface_tpu_torch.parallel.mesh import tree_leaves
     from spartacus_surface_tpu_torch.utils.config import Config
     from spartacus_surface_tpu_torch.utils.device_memory import (
@@ -1371,19 +1376,8 @@ def auto_phase(dev, counters, slices, cli_files):
     from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 
     card = card_line()
-    GiB = 2**30
     dtypes = {"float32": np.float32, "float64": np.float64}
     groups = ("sw_norm_dir", "sw_norm_diff", "lw_internal", "lw_norm", "bc_out")
-
-    def reset():
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-
-    def counts():
-        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
-
-    def launched(c, tag):
-        check(all(c[k] > 0 for k in PATH_4), f"{tag}: a kernel of the path was not launched {c}")
 
     def arrays_of(sname, dname):
         rep, L, S, _ = slices[sname]
@@ -1403,26 +1397,6 @@ def auto_phase(dev, counters, slices, cli_files):
         out = fn()
         torch.cuda.synchronize()
         return out, torch.cuda.max_memory_allocated() - base
-
-    def wall_of(fn):
-        """(host seconds of fn() to a synchronize, its result)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
-    def walls(fn, reps=5):
-        """Warm host seconds of reps calls (after one), each synchronized."""
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append(time.perf_counter() - t0)
-        return out
 
     class Picks:
         """The column chunks _resolve_column_chunk returns while on."""
@@ -1467,10 +1441,10 @@ def auto_phase(dev, counters, slices, cli_files):
             arrays, rows = arrays_of(sname, dname), {}
             for ck in chunks:
                 config = config_of(sname, ck)
-                w = walls(lambda: dispatch.run_radsurf(config, arrays, dev))
+                med, lo, hi = wall_seconds(lambda: dispatch.run_radsurf(config, arrays, dev))
                 peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))[1]
-                rows[ck] = dict(median_s=statistics.median(w), min_s=min(w), max_s=max(w),
-                                spread_s=max(w) - min(w), peak_gib=peak / GiB)
+                rows[ck] = dict(median_s=med, min_s=lo, max_s=hi, spread_s=hi - lo,
+                                peak_gib=peak / GiB)
             whole = rows[0]
             beats = {ck: whole["median_s"] - r["median_s"] > max(whole["spread_s"], r["spread_s"])
                      for ck, r in rows.items() if ck}
@@ -1550,7 +1524,7 @@ def auto_phase(dev, counters, slices, cli_files):
     check(peak <= budget, f"auto squeeze cli: peak {peak / GiB:.3f} over the budget"
           f" {budget / GiB:.3f} GiB")
     check(same, "auto squeeze cli: the file differs from the cli phase's double file")
-    launched(c, "auto squeeze cli")
+    check_launched(c, PATH_4, "auto squeeze cli")
     emit(phase="auto", item="squeeze_cli", exit_code=rc, stream_line=line,
          stream_chunk=stream_chunk, budget_gib=budget / GiB,
          one_shot_predicted_gib=predicted_cli / GiB, peak_less_ballast_gib=peak / GiB,
@@ -1578,7 +1552,7 @@ def auto_phase(dev, counters, slices, cli_files):
     check(rc2 == 0, f"auto squeeze cli again: exit code {rc2}")
     check(after["captures"] > before["captures"], "auto squeeze cli again: nothing captured")
     check(same2, "auto squeeze cli again: the file differs from the cli phase's double file")
-    launched(c2, "auto squeeze cli again")
+    check_launched(c2, PATH_4, "auto squeeze cli again")
     emit(phase="auto", item="squeeze_cli_again", exit_code=rc2, budget_gib=budget2 / GiB,
          peak_less_ballast_gib=peak2 / GiB, reserve_growth_gib=reserved[-1] / GiB,
          same_file_1e12=same2, launches=c2,
@@ -1604,7 +1578,7 @@ def auto_phase(dev, counters, slices, cli_files):
     check(peak <= budget, f"auto squeeze run_radsurf: peak {peak / GiB:.3f} over the"
           f" budget {budget / GiB:.3f} GiB")
     check(err <= PAR_TOL["float64"], f"auto squeeze run_radsurf: vs unsqueezed {err:.3e}")
-    launched(c, "auto squeeze run_radsurf")
+    check_launched(c, PATH_4, "auto squeeze run_radsurf")
     emit(phase="auto", item="squeeze_run_radsurf", run="headline", dtype="float64",
          chunks_picked=picks.chunks, graphs_held_before=held_graphs["graphs"],
          graph_releases=releases, budget_gib=budget / GiB, peak_less_ballast_gib=peak / GiB,
@@ -1636,11 +1610,6 @@ def auto_phase(dev, counters, slices, cli_files):
     del arrays
     torch.cuda.empty_cache()
 
-    def pool_bytes():
-        """Bytes the CUDA graphs' pools hold on the card (their segments)."""
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) != (0, 0))
-
     # ---- capture_footprint: one run_radsurf call at column_chunk 0 on the
     # headline's mix x FOOTPRINT_REPEATS in float64: its eager peak above
     # its inputs, then the pool its capture takes, within CAPTURE_FACTOR
@@ -1652,10 +1621,10 @@ def auto_phase(dev, counters, slices, cli_files):
     out, eager_peak = peak_of(lambda: dispatch.run_radsurf(config, arrays, dev))
     del out
     torch.cuda.synchronize()
-    pool0, before = pool_bytes(), graphs.stats()
+    pool0, before = graph_pools()[0], graphs.stats()
     capture_s, out = wall_of(lambda: dispatch.run_radsurf(config, arrays, dev))
     del out
-    pool = pool_bytes() - pool0
+    pool = graph_pools()[0] - pool0
     captures = graphs.stats()["captures"] - before["captures"]
     ratio = pool / (eager_peak - inputs)
     check(captures == 1, f"auto capture_footprint: {captures} captures")
@@ -1691,19 +1660,19 @@ def auto_phase(dev, counters, slices, cli_files):
     check(finite, "auto production: non-finite output")
     check(AUTO_RATIO[0] <= peak / predicted <= AUTO_RATIO[1],
           f"auto production: measured / predicted {peak / predicted:.3f}")
-    launched(c, "auto production")
+    check_launched(c, PATH_4, "auto production")
     # the same call twice more: the second captures its graph, which holds
     # much of the card, the third plans with that memory counted available
     # (device_budget) and so picks the same chunks and replays the graph
     later = []
     for _ in range(2):
-        before, pool0 = graphs.stats(), pool_bytes()
+        before, pool0 = graphs.stats(), graph_pools()[0]
         with Picks() as again:
             n_seconds, out = wall_of(lambda: dispatch.run_radsurf(config, arrays, dev))
         del out
         after = graphs.stats()
         later.append(dict(seconds=n_seconds, chunks_picked=again.chunks,
-                          pool_growth_gib=(pool_bytes() - pool0) / GiB,
+                          pool_growth_gib=(graph_pools()[0] - pool0) / GiB,
                           **{k: after[k] - before[k] for k in ("captures", "replays")}))
     # (a replay's picks are the host plan's alone: an eager or captured
     # core resolves each solve's chunk again, to the same value)
@@ -1722,17 +1691,17 @@ def auto_phase(dev, counters, slices, cli_files):
     torch.cuda.empty_cache()
 
 
-def corners_phase(dev, counters):
+def corners_phase(dev):
     """The corners phase: the kernel route against the scan route on
     utils/inputs.corner_grid (see the module docstring)."""
-    import numpy as np
     import torch
 
-    from spartacus_surface_tpu_torch.bench import card_line
+    from benchmark.run import card_line
     from spartacus_surface_tpu_torch.models import solver
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
+    from spartacus_surface_tpu_torch.ops.launches import counts, reset
     from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
     from spartacus_surface_tpu_torch.tools import roofline as RL
     from spartacus_surface_tpu_torch.utils.inputs import corner_grid
@@ -1786,12 +1755,11 @@ def corners_phase(dev, counters):
                 f32 = dt == torch.float32
                 tag = (f"corners nreg={nreg} ns={ns} {'urban' if urban else 'forest'}"
                        f" {dname} {'LW' if lw else 'SW'}")
-                for w, attr in counters.values():
-                    setattr(w, attr, 0)
+                reset()
                 with Capture(solver) as cap:
                     got = solve(dt, lw, "kernel", nreg, ns, urban)
                 torch.cuda.synchronize()
-                c = {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+                c = counts()
                 ref = scans[dname]
                 if not f32:  # each column's most doubling steps, float64 operands
                     factory = "lw_layer_factory" if lw else "layer_factory"
@@ -1843,115 +1811,77 @@ def corners_phase(dev, counters):
             del scans
 
 
-def bench_phase(counters):
-    """The bench phase (see the module docstring): one bench.main per block,
-    its lines echoed, the launch counters set to 0 just before it and read
-    just after; the first step of each throughput block captured and its
-    kernels held against their plain versions at phase 2's bars."""
+def shapes_phase(dev):
+    """The shapes phase (see the module docstring): each checks.SHAPES entry
+    once, the launch counters set to 0 just before it and read just after;
+    the kernel calls of each entry of SHAPES_COMPARED held against their
+    plain versions as they return (CompareEach)."""
+    import traceback
+
     import torch
 
-    from spartacus_surface_tpu_torch import bench
+    from benchmark.run import card_line
+    from spartacus_surface_tpu_torch import checks
     from spartacus_surface_tpu_torch.models import solver
     from spartacus_surface_tpu_torch.ops import layer_kernel as LK
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
-
+    from spartacus_surface_tpu_torch.ops.launches import counts, reset
     from spartacus_surface_tpu_torch.utils import graphs
 
-    graphs.clear()  # the bench starts as in a process of its own
-    compared, plains = [], plain_versions(LK, SK, LSK)
-
-    @contextlib.contextmanager
-    def watch():
-        """Hold every kernel call of a block's first step against its plain
-        version as it returns (CompareEach)."""
-        with CompareEach(solver, plains) as cap:
-            yield
-        res = {kname: [(e, ok) for n in names for k, e, ok, _, _ in cap.calls[n]
-                       if runs_on(factory, k, LK)]
-               for kname, _, _, _, names, factory in KERNELS}
-        compared.append(dict(
-            dtype=next((c[0][4] for c in cap.calls.values() if c), None),
-            calls={n: len(c) for n, c in cap.calls.items()},
-            first_operand_shape={n: c[0][3] for n, c in cap.calls.items() if c},
-            max_abs_err={k: max(e for e, _ in r) for k, r in res.items() if r},
-            passed=any(res.values()) and all(ok for r in res.values() for _, ok in r)))
-
-    def run(tag, argv):
-        """bench.main(argv) between a reset and a read of the counters;
-        (its lines, the launches counted)."""
-        torch.cuda.empty_cache()
-        compared.clear()
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = bench.main(argv, watch=watch)
-        launches = {k: getattr(w, attr) for k, (w, attr) in counters.items()}
-        print(out.getvalue(), end="", flush=True)
-        lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
-        check(rc == 0, f"bench {tag}: exit code {rc}")
-        for ln in lines:
-            check("error" not in ln, f"bench {tag}: {ln['metric']} failed")
-            check(ln.get("ok", True) is not False, f"bench {tag}: {ln['metric']} gate failed")
-        check(all(launches[k] > 0 for k in PATH_4),
-              f"bench {tag}: a kernel of the path was not launched {launches}")
-        for c in compared:
-            check(c["passed"], f"bench {tag}: a kernel disagrees with its plain version"
-                               f" {c['max_abs_err']}")
-        return rc, lines, launches
-
+    graphs.clear()  # as in a process of its own
+    plains = plain_versions(LK, SK, LSK)
     t0 = time.perf_counter()
-    reps = ["--reps", str(BENCH_REPS)]
-    metrics, blocks = [], {}
-    for name in bench.BLOCK_NAMES:
-        rc, lines, launches = run(name, reps + ["--block", name])
-        metrics += [ln["metric"] for ln in lines]
-        if name == "cli":  # the CLI's own launches, counted in its process
-            cli_launches = next((ln["launches"] for ln in lines if "launches" in ln), {})
-            check(all(cli_launches.get(k, 0) > 0 for k in PATH_4),
-                  f"bench cli: the CLI did not launch every kernel of the path {cli_launches}")
-            launches = {"in process": launches, "CLI": cli_launches}
-        blocks[name] = dict(exit_code=rc, launches=launches, kernels_vs_plain=list(compared))
-        if name in THROUGHPUT_BLOCKS:
-            check(len(compared) == THROUGHPUT_BLOCKS[name],
-                  f"bench {name}: {len(compared)} first steps compared with the plain versions")
-    expected = [m for _, m, _ in bench.BLOCKS]
-    check(metrics == expected, f"bench: lines {metrics}, expected {expected}")
-    rc, lines, launches = run("trace", reps + ["--trace", "--block", "headline"])
-    traced = [ln["block"] for ln in lines if ln["metric"] == "per_layer_device_ms"]
-    check(len(traced) == 2, f"bench: {len(traced)} per-layer lines of the headline")
-    blocks["trace"] = dict(exit_code=rc, launches=launches)
-    emit(phase="bench", seconds=time.perf_counter() - t0, lines=len(metrics), blocks=blocks,
-         card=bench.card_line())
+    for name, fn in checks.SHAPES.items():
+        tag = f"shapes {name}"
+        torch.cuda.empty_cache()
+        reset()
+        t1, line = time.perf_counter(), dict(phase="shapes", check=name)
+        compared = (CompareEach(solver, plains) if name in SHAPES_COMPARED
+                    else contextlib.nullcontext())
+        try:
+            with compared as cap:
+                line["findings"] = fn(dev)
+        except Exception:
+            line["error"] = traceback.format_exc()[-1500:]
+        line.update(seconds=time.perf_counter() - t1, launches=counts())
+        if check("error" not in line, f"{tag}: {line.get('error')}"):
+            check_launched(line["launches"], PATH_4, tag)
+            if cap is not None:
+                res = {kname: [(e, ok) for n in names for k, e, ok, _, _ in cap.calls[n]
+                               if runs_on(factory, k, LK)]
+                       for kname, _, _, _, names, factory in KERNELS}
+                line["kernels_vs_plain"] = dict(
+                    calls={n: len(c) for n, c in cap.calls.items()},
+                    max_abs_err={k: max(e for e, _ in r) for k, r in res.items() if r})
+                check(any(res.values()) and all(ok for r in res.values() for _, ok in r),
+                      f"{tag}: a kernel disagrees with its plain version"
+                      f" {line['kernels_vs_plain']['max_abs_err']}")
+        emit(**line)
+    emit(phase="shapes", seconds=time.perf_counter() - t0, checks=list(checks.SHAPES),
+         card=card_line())
 
 
-def graphs_phase(dev, counters, slices, cli_files):
+def graphs_phase(dev, slices, cli_files):
     """The graphs phase: each compiled program against its eager run under
     graphs.disabled() (see the module docstring).  slices: slice_shapes();
     cli_files: as for parallel_phase."""
     import numpy as np
     import torch
 
-    from spartacus_surface_tpu_torch import bench, entry
+    from benchmark.run import card_line
+    from spartacus_surface_tpu_torch import checks, entry
     from spartacus_surface_tpu_torch.driver import main as cli
     from spartacus_surface_tpu_torch.models.dispatch import run_radsurf
     from spartacus_surface_tpu_torch.models.solver import SolverOptions
+    from spartacus_surface_tpu_torch.ops.launches import counts, reset
     from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
     from spartacus_surface_tpu_torch.utils import graphs, profiling
     from spartacus_surface_tpu_torch.utils.config import Config
     from spartacus_surface_tpu_torch.utils.inputs import example_arrays
 
-    card = bench.card_line()
+    card = card_line()
     dtypes = {"float32": np.float32, "float64": np.float64}
-    GiB = 2**30
-
-    def reset():
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-
-    def counts():
-        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
 
     def in_mode(mode, fn):
         """fn as a graph replay ("graph") or eagerly ("eager")."""
@@ -1960,24 +1890,10 @@ def graphs_phase(dev, counters, slices, cli_files):
                 return fn()
         return run
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
-    def pool_gib():
-        """GiB of the graph pools' segments on the card: (reserved, free)."""
-        segs = [g for g in torch.cuda.memory_snapshot()
-                if tuple(g["segment_pool_id"]) != (0, 0)]
-        return (sum(g["total_size"] for g in segs) / GiB,
-                sum(g["total_size"] - g["allocated_size"] for g in segs) / GiB)
-
     def differing(ref, got):
         """{output field: field-normalized error} of the fields that are not
         bit-equal; fails a field over GRAPH_TOL."""
-        fr, fg = bench.fields_of(ref), bench.fields_of(got)
+        fr, fg = checks.fields_of(ref), checks.fields_of(got)
         check(fr.keys() == fg.keys(), f"graphs: the outputs differ in their fields"
                                       f" {fr.keys() ^ fg.keys()}")
         out = {}
@@ -1987,11 +1903,11 @@ def graphs_phase(dev, counters, slices, cli_files):
         return out
 
     def solves(C, L, S, nreg, dname):
-        """bench.py's step: spartacus_sw + spartacus_lw, AUTO column chunk."""
+        """A solve check's step: spartacus_sw + spartacus_lw, AUTO column chunk."""
         opt = SolverOptions(nreg=nreg, nstream=4, do_urban=True, column_chunk=-1)
         lg = LegendreGauss(4)
         sw, lw = entry.canopy_inputs(C, L, S, dtypes[dname], dev, 0)
-        return lambda: bench.sw_lw(sw, lw, opt, lg)
+        return lambda: checks.sw_lw(sw, lw, opt, lg)
 
     def radsurf(sname, dname):
         rep, L, S, cfg = slices[sname]
@@ -2000,10 +1916,10 @@ def graphs_phase(dev, counters, slices, cli_files):
                                 i_representation=rep)
         return lambda: run_radsurf(config, arrays, dev)
 
-    runs = (("bench_headline", "float32", lambda: solves(16384, 8, 1, 2, "float32"), PATH_4),
-            ("bench_headline", "float64", lambda: solves(16384, 8, 1, 2, "float64"), PATH_4),
-            ("bench_nreg3", "float32", lambda: solves(8192, 8, 1, 3, "float32"), PATH_4),
-            ("bench_rami5", "float32", lambda: solves(1024, 62, 14, 3, "float32"), PATH_4),
+    runs = (("check_headline", "float32", lambda: solves(16384, 8, 1, 2, "float32"), PATH_4),
+            ("check_headline", "float64", lambda: solves(16384, 8, 1, 2, "float64"), PATH_4),
+            ("check_nreg3", "float32", lambda: solves(8192, 8, 1, 3, "float32"), PATH_4),
+            ("check_rami5", "float32", lambda: solves(1024, 62, 14, 3, "float32"), PATH_4),
             ("rami5_ns1", "float32", lambda: radsurf("rami5_ns1", "float32"), PATH_R5_1),
             ("run_radsurf_headline", "float32", lambda: radsurf("headline", "float32"),
              PATH_4))
@@ -2011,12 +1927,12 @@ def graphs_phase(dev, counters, slices, cli_files):
         tag = f"graphs {name} {dname}"
         graphs.clear()
         step = make()
-        _, ref = timed(in_mode("eager", step))
+        _, ref = wall_of(in_mode("eager", step))
         _, syncs = sync_sites(in_mode("eager", step))  # what would stop a capture
         check(not syncs, f"{tag}: the eager call synchronized the device at {syncs[:10]}")
         before = graphs.stats()
-        t_first, _ = timed(step)  # the key's first call: eager
-        t_capture, got = timed(step)  # captured, then replayed
+        t_first, _ = wall_of(step)  # the key's first call: eager
+        t_capture, got = wall_of(step)  # captured, then replayed
         after = graphs.stats()
         captures = after["captures"] - before["captures"]
         check(captures > 0, f"{tag}: nothing was captured")
@@ -2025,24 +1941,24 @@ def graphs_phase(dev, counters, slices, cli_files):
             check(e <= GRAPH_TOL[dname], f"{tag}: {k} differs from the eager call by {e:.3e}")
         del ref, got
         reset()
-        timed(step)  # one replay, counted
+        wall_of(step)  # one replay, counted
         launches = counts()
         check(all(launches[k] > 0 for k in path),
               f"{tag}: a kernel of the path was not launched in a replay {launches}")
         walls = {"graph": [], "eager": []}
         for _ in range(GRAPH_ROUNDS):
             for mode in ("graph", "eager", "eager", "graph"):
-                walls[mode].append(timed(in_mode(mode, step))[0])
+                walls[mode].append(wall_of(in_mode(mode, step))[0])
         peaks, traces = {}, {}
         for mode in ("graph", "eager"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            timed(in_mode(mode, step))
+            wall_of(in_mode(mode, step))
             peaks[mode] = (torch.cuda.max_memory_allocated() - base) / GiB
-            traces[mode] = bench.trace_fields(in_mode(mode, step), f"graphs_{mode}",
-                                              kernels=TRACED)
-        reserved, free = pool_gib()
+            traces[mode] = checks.trace_fields(in_mode(mode, step), f"graphs_{mode}",
+                                               kernels=TRACED)
+        reserved, free = (b / GiB for b in graph_pools())
         emit(phase="graphs", run=name, dtype=dname, bit_equal=not diff, sync_sites=syncs,
              differing_fields=diff, tol=GRAPH_TOL[dname], captures=captures,
              capture_s=after["capture_s"] - before["capture_s"],
@@ -2080,12 +1996,12 @@ def graphs_phase(dev, counters, slices, cli_files):
 
     graph_runs = ("graph1", "graph2", "graph3")
     files = {m: out_dir / f"graphs_cli_{m}.nc" for m in ("eager",) + graph_runs}
-    t_eager, _ = timed(in_mode("eager", cli_run(files["eager"])))
+    t_eager, _ = wall_of(in_mode("eager", cli_run(files["eager"])))
     per_run = []
     for m in graph_runs:
         before = graphs.stats()
         reset()
-        t, radsurf_s = timed(cli_run(files[m]))
+        t, radsurf_s = wall_of(cli_run(files[m]))
         after = graphs.stats()
         per_run.append(dict(seconds=t, radsurf_s=radsurf_s, launches=counts(),
                             **{k: after[k] - before[k] for k in ("captures", "replays",
@@ -2116,21 +2032,21 @@ def graphs_phase(dev, counters, slices, cli_files):
          n={m: len(w) for m, w in walls.items()}, card=card)
 
 
-def graphs_only(dev, counters):
-    """The graphs phase alone: cli_files_unchecked, then graphs_phase."""
-    files = cli_files_unchecked()
-    t0 = time.perf_counter()
-    graphs_phase(dev, counters, slice_shapes(), files)
-    emit(phase="graphs", item="seconds", seconds=time.perf_counter() - t0)
-
-
-def auto_only(dev, counters):
-    """The auto and corners phases alone: cli_files_unchecked, then both."""
-    files = cli_files_unchecked()
-    t0 = time.perf_counter()
-    auto_phase(dev, counters, slice_shapes(), files)
-    corners_phase(dev, counters)
-    emit(phase="auto", item="seconds", seconds=time.perf_counter() - t0)
+def alone(dev, phase):
+    """One phase alone (--<phase>-only): shapes, divergence, or parallel,
+    auto (with corners) or graphs on cli_files_unchecked's files, then a
+    line with its seconds."""
+    if phase in ("shapes", "divergence"):
+        return shapes_phase(dev) if phase == "shapes" else divergence_phase(dev)
+    files, t0 = cli_files_unchecked(), time.perf_counter()
+    if phase == "parallel":
+        parallel_phase(dev, (tiles(HEADLINE_TILES), HEADLINE_CONFIG), files)
+    elif phase == "auto":
+        auto_phase(dev, slice_shapes(), files)
+        corners_phase(dev)
+    else:
+        graphs_phase(dev, slice_shapes(), files)
+    emit(phase=phase, item="seconds", seconds=time.perf_counter() - t0)
 
 
 def main(argv=None) -> int:
@@ -2141,8 +2057,8 @@ def main(argv=None) -> int:
                       help="build, then run the parallel phase alone (no kernels line)")
     args.add_argument("--auto-only", action="store_true",
                       help="build, then run the auto and corners phases alone (no kernels line)")
-    args.add_argument("--bench-only", action="store_true",
-                      help="build, then run the bench phase alone (no kernels line)")
+    args.add_argument("--shapes-only", action="store_true",
+                      help="build, then run the shapes phase alone (no kernels line)")
     args.add_argument("--graphs-only", action="store_true",
                       help="build, then run the graphs phase alone (no kernels line)")
     args.add_argument("--divergence-only", action="store_true",
@@ -2159,7 +2075,8 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from spartacus_surface_tpu_torch.bench import card_line, trace_fields
+    from benchmark.run import card_line
+    from spartacus_surface_tpu_torch.checks import trace_fields
     from spartacus_surface_tpu_torch.driver import main as cli
     from spartacus_surface_tpu_torch.driver import test_kernels as demo
     from spartacus_surface_tpu_torch.driver.read_input import read_input
@@ -2179,7 +2096,7 @@ def main(argv=None) -> int:
     from spartacus_surface_tpu_torch.ops import lw_sweep_kernels as LSK
     from spartacus_surface_tpu_torch.ops import probe_kernels as PK
     from spartacus_surface_tpu_torch.ops import sweep_kernels as SK
-    from spartacus_surface_tpu_torch.ops.launches import COUNTERS
+    from spartacus_surface_tpu_torch.ops.launches import counts, reset
     from spartacus_surface_tpu_torch.ops.legendre_gauss import LegendreGauss
     from spartacus_surface_tpu_torch.tools import roofline as RL
     from spartacus_surface_tpu_torch.utils import graphs, profiling
@@ -2190,18 +2107,6 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    counters = COUNTERS  # {label: (wrapper, attribute)}
-
-    def reset_counts():
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-
-    def read_counts():
-        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
-
-    def check_launched(counts, path, tag):
-        check(all(counts[k] > 0 for k in path),
-              f"{tag}: a kernel of the path was not launched {counts}")
 
     dtypes = {"float32": (np.float32, torch.float32),
               "float64": (np.float64, torch.float64)}
@@ -2246,15 +2151,10 @@ def main(argv=None) -> int:
          nvcc_seconds=cuda_build.build_seconds,
          part_seconds={f"{n}:{m or 'main'}": t for (n, m), t in cuda_build.part_seconds.items()},
          ptxas=ptxas)
-    if (args.parallel_only or args.auto_only or args.bench_only or args.graphs_only
-            or args.divergence_only):
-        if args.bench_only:
-            bench_phase(counters)
-        elif args.divergence_only:
-            divergence_phase(dev)
-        else:
-            (parallel_only if args.parallel_only else auto_only if args.auto_only
-             else graphs_only)(dev, counters)
+    only = [p for p in ("shapes", "divergence", "parallel", "auto", "graphs")
+            if getattr(args, f"{p}_only")]
+    if only:
+        alone(dev, only[0])
         print(card_line(), flush=True)
         for f in FAILURES:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
@@ -2335,7 +2235,7 @@ def main(argv=None) -> int:
         np_dt, dt = dtypes[dname]
         arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np_dt,
                                 i_representation=rep)
-        reset_counts()
+        reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2344,7 +2244,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t_kernel = time.perf_counter() - t0
         mem_kernel = torch.cuda.max_memory_allocated() / 2**30
-        launches = read_counts()
+        launches = counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out_s = run_radsurf(config, arrays, dev, route="scan")
@@ -2465,12 +2365,12 @@ def main(argv=None) -> int:
             out_nc, ref_nc = CLI_DIR / f"{nname}_{prec}.nc", CLI_DIR / f"{nname}_{prec}_ref.nc"
             profiling.reset()
             stdout = io.StringIO()
-            reset_counts()
+            reset()
             with Capture(solver) as cap, contextlib.redirect_stdout(stdout):
                 rc = cli.main([str(nam), str(input_nc), str(out_nc),
                                "--precision", prec, "--timings"])
             torch.cuda.synchronize()
-            launches = read_counts()
+            launches = counts()
             walls = profiling.totals()
             check(rc == 0, f"{tag}: exit code {rc}")
             check_launched(launches, path, tag)
@@ -2522,13 +2422,13 @@ def main(argv=None) -> int:
 
     # ---- graphs: each compiled program against its eager run
     t0 = time.perf_counter()
-    graphs_phase(dev, counters, slices, {
+    graphs_phase(dev, slices, {
         "input": input_nc, "columns": len(rep_cli), "namelist": CLI_DIR / "cli_ns4.nam"})
     emit(phase="graphs", item="seconds", seconds=time.perf_counter() - t0)
 
     # ---- parallel: streamed, meshed and multi-process runs
     t0 = time.perf_counter()
-    parallel_phase(dev, counters, (slices["headline"][0], slices["headline"][3]),
+    parallel_phase(dev, (slices["headline"][0], slices["headline"][3]),
                    {"input": input_nc, "columns": len(rep_cli),
                     "namelist": CLI_DIR / "cli_ns4.nam",
                     "single": CLI_DIR / "cli_ns4_single.nc",
@@ -2538,19 +2438,19 @@ def main(argv=None) -> int:
     # ---- auto: the automatic chunks sized from the card; corners: the
     # degenerate corner grid, kernel route against scan route
     t0 = time.perf_counter()
-    auto_phase(dev, counters, slices, {
+    auto_phase(dev, slices, {
         "input": input_nc, "columns": len(rep_cli), "namelist": CLI_DIR / "cli_ns4.nam",
         "single": CLI_DIR / "cli_ns4_single.nc", "double": CLI_DIR / "cli_ns4_double.nc"})
-    corners_phase(dev, counters)
+    corners_phase(dev)
     emit(phase="auto", item="seconds", seconds=time.perf_counter() - t0)
 
     # ---- demo: the kernel demonstration on the card
-    reset_counts()
+    reset()
     stdout = io.StringIO()
     with Capture(demo) as cap, contextlib.redirect_stdout(stdout):
         rc = demo.main(["all", "--device", "cuda"])
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = counts()
     check(rc == 0 and "SELF-CHECK PASSED" in stdout.getvalue(),
           f"demo: exit code {rc}")
     check(launches["K1d"] > 0 and launches["K1 LW mode"] > 0,
@@ -2605,11 +2505,11 @@ def main(argv=None) -> int:
             veg_ext = torch.as_tensor(arrays["veg_ext"], device=dev)
             # one step with its kernels captured: its launches, and its
             # kernels against their plain versions
-            reset_counts()
+            reset()
             with Capture(solver) as cap:
                 grad_step(config, arrays, veg_ext)
             torch.cuda.synchronize()
-            launches = read_counts()
+            launches = counts()
             check_launched(launches, path, tag)
             kernel_errs = compare_kernels(cap.calls, dt, LK, SK, LSK)
             check_kernels(kernel_errs, tag)
@@ -2682,11 +2582,11 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     # ---- retrieval: the adjoint retrieval example on the card, at its defaults
-    reset_counts()
+    reset()
     stdout = io.StringIO()
     with contextlib.redirect_stdout(stdout):
         res = retrieval.run([])
-    launches = read_counts()
+    launches = counts()
     losses = res["losses"]
     check(losses[-1] < 1e-2 * losses[0],
           f"retrieval: the misfit fell from {losses[0]:.3e} only to {losses[-1]:.3e}")
@@ -2727,10 +2627,10 @@ def main(argv=None) -> int:
             for route, assoc in (("associative", True), ("sequential", False)):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                reset_counts()
+                reset()
                 out[route] = solve(assoc)
                 torch.cuda.synchronize()
-                launches[route] = read_counts()
+                launches[route] = counts()
                 peaks[route] = torch.cuda.max_memory_allocated() / 2**30
                 walls[route] = wall_seconds(lambda: solve(assoc), reps=3)[0]
             la = launches["associative"]
@@ -2906,8 +2806,8 @@ def main(argv=None) -> int:
             del arrays, veg_ext
             torch.cuda.empty_cache()
 
-    # ---- bench: the port's benchmark, every block at its full shape
-    bench_phase(counters)
+    # ---- shapes: each checks.SHAPES entry once, at its full shape
+    shapes_phase(dev)
 
     rows = []
     for (kname, src, rep, _, names, factory), e in zip(KERNELS, errs):

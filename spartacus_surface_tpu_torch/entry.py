@@ -34,8 +34,8 @@ from .utils.config import Config
 from .utils.inputs import example_arrays, example_inputs
 
 # Every (nreg, nstream) configuration of the JAX package's kernel matrix
-# (__graft_entry__.py:130), the same configurations the bench's parity
-# block holds the kernel route to the scan route on.
+# (__graft_entry__.py:130), the same configurations checks.parity holds
+# the kernel route to the scan route on.
 ENTRY_CONFIGS = ((1, 2), (2, 4), (3, 4), (2, 8))
 
 
@@ -89,16 +89,6 @@ def entry_matrix(device="cuda", dtype=np.float32, C=1024, L=4, S=1):
     return out
 
 
-def build_all() -> float:
-    """Build (or load) every csrc/*.cu, one nvcc each, all started together;
-    returns the wall seconds."""
-    t0 = time.perf_counter()
-    names = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(cuda_build.load, names))
-    return time.perf_counter() - t0
-
-
 def build_check_matrix(device="cuda", verbose: bool = True, **shape) -> dict:
     """The card's counterpart of __graft_entry__.compile_check_matrix (the
     card has no ahead-of-time compile): on CUDA build every csrc/ source,
@@ -109,7 +99,13 @@ def build_check_matrix(device="cuda", verbose: bool = True, **shape) -> dict:
     the launch counts of its step}}."""
     device = torch.device(device)
     on_card = device.type == "cuda"
-    build_s = build_all() if on_card else None
+    build_s = None
+    if on_card:  # every csrc/*.cu, one nvcc each, all started together
+        t0 = time.perf_counter()
+        names = sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
+        with ThreadPoolExecutor(len(names)) as pool:
+            list(pool.map(cuda_build.load, names))
+        build_s = time.perf_counter() - t0
     counted = {}
     for name, fn, args in entry_matrix(device, **shape):
         before = launches.counts()

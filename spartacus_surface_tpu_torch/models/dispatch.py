@@ -135,44 +135,77 @@ def working_set_bytes(config: Config, i_representation, nlay: int,
     run_radsurf call on the kernel route: columns of the tile codes
     i_representation [ncol] with nlay layers, a consolidated Config, words of
     itemsize bytes.  Every field a tile group reads is on the device whole
-    before the core runs (_plan); the core gathers each section's rows
-    (_gathers) and keeps them through the section's solves, the layered
-    groups are solved one after another and every group's outputs are kept
-    until all are scattered.  So the peak is the flux containers of every
-    column, the whole fields, the outputs kept so far, and one section's
-    gathered rows with one solve's transient, the largest of them."""
+    before the core runs (_plan), and the core holds _working_set's peak
+    beyond them."""
     rep = np.asarray(i_representation)
-    ncol = rep.size
-    bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
-        [(True, config.nlwinternal)] if config.do_lw else [])
-    fixed = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
-                for _, S in bands)
-    keys = _gathers(config.do_sw, config.do_lw, _gdir(config))
-    groups = _solver_groups(config)
     n_flat = int((rep == TILE_FLAT).sum())
     n_simple = int(np.isin(rep, [TILE_SIMPLE_URBAN, TILE_INFINITE_STREET]).sum())
-    S_of = {False: config.nswinternal, True: config.nlwinternal}
+    groups = [(opt_kw, lg_sw, lg_lw, [(None, C)])
+              for code, (opt_kw, lg_sw, lg_lw) in _solver_groups(config).items()
+              if (C := int((rep == code).sum()))]
+    need, _, _ = _working_set(config, rep.size, nlay, itemsize, n_flat, groups, n_simple)
+    whole = _whole_keys(_gathers(config.do_sw, config.do_lw, _gdir(config)),
+                        n_flat, bool(groups), n_simple)
+    return need + _row_bytes(config, whole, rep.size, nlay, itemsize)
 
-    def nbytes(names, C, lay0=False):
-        """Bytes of the rows of the fields `names` at C columns."""
-        return sum(DM.class_bytes({_word_class(key, lay0): 1}, C, nlay,
-                                  S_of[key in _LW_ONLY], itemsize) for key in names)
 
-    whole = _whole_keys(keys, n_flat, np.isin(rep, list(groups)).any(), n_simple)
-    peak, kept = nbytes(keys["flat"], n_flat), 0
-    for code, (opt_kw, lg_sw, lg_lw) in groups.items():
-        C = int((rep == code).sum())
-        rows = nbytes(keys["layered"], C)
-        for lw, S in bands if C else ():
-            t, k = DM.solve_bytes(C, nlay, S, opt_kw["nreg"],
-                                  (lg_lw if lw else lg_sw).nstream, itemsize,
-                                  lw=lw, do_urban=opt_kw["do_urban"],
-                                  with_profiles=config.do_save_flux_profile)
-            peak = max(peak, kept + rows + t)
-            kept += k
-    peak = max(peak, kept + nbytes(keys["simple"], n_simple)
-               + nbytes(keys["lay0"], n_simple, lay0=True))
-    return fixed + nbytes(whole, ncol) + peak
+def _working_set(config: Config, ncol: int, nlay: int, itemsize: int, n_flat: int,
+                 groups, n_simple: int, device=None, resolve=None) -> tuple:
+    """The working-set model of run_radsurf's core on the kernel route, in
+    bytes beyond its inputs.  The core fills the flux containers of every
+    column on `device`, then runs its sections in order: the flat tiles,
+    the layered groups (groups: [(opt_kw, lg_sw, lg_lw, [(shard device,
+    columns), ...])], _solver_groups' order) and the simple tiles.  A
+    section gathers its rows (_gathers) and keeps them through its solves,
+    and every solve's outputs are kept until all are scattered.  So the
+    peak is the containers, the outputs kept so far, and one section's rows
+    with one solve's transient (chunked: one chunk's, with the chunks'
+    outputs twice, as they are concatenated), the largest of them.
+
+    resolve(opt, lg, C, S, dev, lw, held) -> opt with its column chunk
+    resolved, where held is what the core holds on dev before the solve;
+    None: one shot, no chunk resolved.  Returns (Plan.need: the containers
+    and the peak, Plan.gathered: every section's rows, Plan.layered:
+    [(nstream_sw, nstream_lw, ((dev, opt_sw or None, opt_lw or None), ...))
+    a group])."""
+    bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
+        [(True, config.nlwinternal)] if config.do_lw else [])
+    keys = _gathers(config.do_sw, config.do_lw, _gdir(config))
+    rows = lambda section, C: _row_bytes(config, keys[section], C, nlay, itemsize,
+                                         lay0=section == "lay0")
+    profiles = config.do_save_flux_profile
+    containers = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
+                     for _, S in bands)
+    held = {device: containers}
+    peak = gathered = rows("flat", n_flat)
+    kept, layered = 0, []
+    for opt_kw, lg_sw, lg_lw, shards in groups:
+        shard_opts = []
+        for dev, C in shards:
+            g = rows("layered", C)
+            held[dev] = held.get(dev, 0) + g
+            opts = []
+            for lw, S in bands:
+                lg = lg_lw if lw else lg_sw
+                opt = SolverOptions(nstream=lg.nstream, **opt_kw)
+                if resolve is not None:
+                    opt = resolve(opt, lg, C, S, dev, lw, held[dev])
+                size = lambda n: DM.solve_bytes(
+                    n, nlay, S, opt.nreg, lg.nstream, itemsize, lw=lw,
+                    do_urban=opt.do_urban, with_profiles=profiles)
+                transient, k = size(C)
+                if resolve is not None and 0 < opt.column_chunk < C:
+                    transient = size(opt.column_chunk)[0] + 2 * k
+                peak, kept = max(peak, kept + g + transient), kept + k
+                held[dev] += k
+                opts.append(opt)
+            held[dev] -= g
+            gathered += g
+            shard_opts.append((dev, opts[0] if config.do_sw else None,
+                               opts[-1] if config.do_lw else None))
+        layered.append((lg_sw.nstream, lg_lw.nstream, tuple(shard_opts)))
+    simple = rows("simple", n_simple) + rows("lay0", n_simple)
+    return containers + max(peak, kept + simple), gathered + simple, layered
 
 
 def _same(*names):
@@ -229,12 +262,19 @@ def _whole_keys(gathers: dict, flat, layered, simple) -> list:
     return list(dict.fromkeys(k for s, keys in gathers.items() if on[s] for k in keys))
 
 
-def _word_class(key: str, lay0: bool = False) -> str:
-    """The element class (utils/device_memory.py) of a row of arrays[key],
-    or of its layer-0 slice."""
-    cls = ("C" if key == "cos_sza" else "CS" if key.startswith("ground_")
-           else "CL" if key in _COMMON_KEYS else "E")
-    return {"CL": "C", "E": "CS"}.get(cls, cls) if lay0 else cls
+def _row_bytes(config: Config, keys, C: int, nlay: int, itemsize: int,
+               lay0: bool = False) -> int:
+    """Bytes of the rows of arrays[key] (lay0: their layer-0 slices) at C
+    columns, over the keys: the model's one count of a field's bytes.  A
+    row holds a word (cos_sza), a word a band (ground_*), one a layer (the
+    other fields without a band axis) or one a layer and band (the rest)."""
+    layers = 1 if lay0 else nlay
+    words = 0
+    for key in keys:
+        S = config.nlwinternal if key in _LW_ONLY else config.nswinternal
+        words += (1 if key == "cos_sza" else S if key.startswith("ground_")
+                  else layers if key in _COMMON_KEYS else layers * S)
+    return C * itemsize * words
 
 
 def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
@@ -304,10 +344,8 @@ class Plan:
     simple: whether those tile groups exist; layered: per layered group
     (nstream_sw, nstream_lw, ((shard device, opt_sw or None, opt_lw or
     None), ...)), the options with their column chunks resolved; need: the
-    bytes the core allocates beyond its inputs (the working-set model: the
-    flux containers, the gathered rows, the solves' outputs kept, the
-    largest solve's transient); gathered: the bytes of the rows the core
-    gathers.  need and gathered follow from the rest."""
+    bytes the core allocates beyond its inputs, and gathered: the bytes of
+    the rows it gathers (_working_set), which follow from the rest."""
     ncol: int
     nlay: int
     nsw: int
@@ -339,9 +377,8 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
     own buffers), else moved to the device here.  AUTO chunks: each solve
     may plan for the budget its device had when the run began, less what
     the run moves there (the whole fields and indices) and what the core
-    will hold there before the solve (the working-set model: the flux
-    containers, the earlier solves' outputs, the group's gathered rows), so
-    that the run as a whole stays within that budget.  Under
+    will hold there before the solve (_working_set), so that the run as a
+    whole stays within that budget.  Under
     SPARTACUS_DEBUG_ARRAYS each layered group's SW inputs at its first
     column are built here, on the host, for solver.debug_dump_sw.
 
@@ -382,25 +419,15 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
     groups = [(np.nonzero(rep == code)[0], *solve)
               for code, solve in _solver_groups(config).items()]
     groups = [g for g in groups if g[0].size]
-    F = payload["fields"] = {k: whole(k) for k in _whole_keys(
+    payload["fields"] = {k: whole(k) for k in _whole_keys(
         keys, flat.size, bool(groups), simple.size)}
-
-    def rows(names, C, lay0=False):
-        """Bytes of the rows (lay0: layer-0 slices) of the fields `names`
-        at C columns."""
-        if not C:
-            return 0
-        return C * itemsize * sum((F[k][0, 0] if lay0 else F[k][0]).numel() for k in names)
-
-    gathered = 0
 
     # ---- flat tiles
     if flat.size:
         payload["flat"] = {"idx": place(flat, device)}
-        gathered += rows(keys["flat"], flat.size)
 
     # ---- layered SPARTACUS tiles, per shard
-    payload["layered"], layered_groups = [], []
+    payload["layered"], sections = [], []
     for idx, opt_kw, lg_sw, lg_lw in groups:
         shards = ([(dev, idx[sl]) for dev, sl in column_sharding(idx.size, mesh)
                    if sl.stop > sl.start] if mesh else [(device, idx)])
@@ -412,68 +439,31 @@ def _plan(config: Config, arrays: dict, device, route: str, mesh, host: bool = F
                 **_SW_KEYS, "ground_albedo_dir": gdir}.items()}),
                 SolverOptions(nstream=lg_sw.nstream, **opt_kw), lg_sw)
         payload["layered"].append([{"idx": place(sidx, device)} for _, sidx in shards])
-        layered_groups.append((opt_kw, lg_sw, lg_lw, shards))
-        gathered += rows(keys["layered"], idx.size)
+        sections.append((opt_kw, lg_sw, lg_lw, [(dev, sidx.size) for dev, sidx in shards]))
 
     # ---- simple urban / infinite street
     if simple.size:
         payload["simple"] = dict(idx=place(simple, device),
                                  is_inf=place(rep[simple] == TILE_INFINITE_STREET, device))
-        gathered += rows(keys["simple"], simple.size) + rows(keys["lay0"], simple.size, True)
 
-    # ---- the layered solves' options, their AUTO chunks resolved; what
-    # the core holds on `device`: the flux containers, the solves' kept
-    # outputs and the largest of a group's gathered rows with one solve's
-    # transient (chunked: one chunk's, with the chunks' outputs twice, as
-    # they are concatenated)
-    bands = ([(False, config.nswinternal)] if config.do_sw else []) + (
-        [(True, config.nlwinternal)] if config.do_lw else [])
-    containers = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, ncol, nlay, S, itemsize)
-                     for _, S in bands)
-    held = {d: torch.cuda.memory_allocated(d) - a for d, (_, a) in start.items()}
-    if device in held:  # the inputs the core's call moves, and the containers
-        held[device] += containers + sum(
-            x.numel() * x.element_size() for x in tree_leaves(payload)
-            if x.device.type != device.type)
-    layered, kept, peak = [], 0, rows(keys["flat"], flat.size)
-    for opt_kw, lg_sw, lg_lw, shards in layered_groups:
-        shard_opts = []
-        for dev, sidx in shards:
-            C = sidx.size
-            g = rows(keys["layered"], C)
-            if dev in held:  # the shard's gathered rows, through its solves
-                held[dev] += g
-            opts = []
-            for lw, S in bands:
-                lg = lg_lw if lw else lg_sw
-                budget = start[dev][0] - held[dev] if dev in start else None
-                opt = solver.resolve_chunk(
-                    SolverOptions(nstream=lg.nstream, **opt_kw), lg, C, nlay, S,
-                    dtype, dev, lw=lw, route=route, with_profiles=profiles,
-                    budget=budget)
-                size = lambda n: DM.solve_bytes(
-                    n, nlay, S, opt.nreg, lg.nstream, itemsize, lw=lw,
-                    do_urban=opt.do_urban, with_profiles=profiles)
-                transient, k = size(C)
-                if 0 < opt.column_chunk < C:
-                    transient = size(opt.column_chunk)[0] + 2 * k
-                peak, kept = max(peak, kept + g + transient), kept + k
-                if dev in held:  # the solve's outputs, kept to the end
-                    held[dev] += k
-                opts.append(opt)
-            if dev in held:
-                held[dev] -= g
-            opt_sw = opts[0] if config.do_sw else None
-            opt_lw = opts[-1] if config.do_lw else None
-            shard_opts.append((dev, opt_sw, opt_lw))
-        layered.append((lg_sw.nstream, lg_lw.nstream, tuple(shard_opts)))
-    peak = max(peak, kept + rows(keys["simple"], simple.size)
-               + rows(keys["lay0"], simple.size, True))
+    # ---- the layered solves' options, their AUTO chunks resolved against
+    # what each card had less what the run moves there and holds there
+    spent = {d: torch.cuda.memory_allocated(d) - a for d, (_, a) in start.items()}
+    if device in spent:  # the inputs the core's call moves
+        spent[device] += sum(x.numel() * x.element_size() for x in tree_leaves(payload)
+                             if x.device.type != device.type)
 
+    def resolve(opt, lg, C, S, dev, lw, held):
+        budget = start[dev][0] - (spent[dev] + held) if dev in start else None
+        return solver.resolve_chunk(opt, lg, C, nlay, S, dtype, dev, lw=lw, route=route,
+                                    with_profiles=profiles, budget=budget)
+
+    need, gathered, layered = _working_set(config, ncol, nlay, itemsize, flat.size,
+                                           sections, simple.size, device, resolve)
     plan = Plan(ncol, nlay, config.nswinternal, config.nlwinternal, config.do_sw,
                 config.do_lw, profiles, config.min_building_fraction, route, device,
                 dtype, gdir, "flat" in payload, tuple(layered), "simple" in payload,
-                need=containers + peak, gathered=gathered)
+                need=need, gathered=gathered)
     return plan, payload
 
 

@@ -1161,10 +1161,9 @@ def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
         return 0
     if budget is None:
         budget = DM.device_budget(device)
-    itemsize = torch.finfo(dtype).bits // 8
-    words = DM.solve_words(opt.nreg, lg.nstream, lw=lw, do_urban=opt.do_urban,
-                           with_profiles=with_profiles)
-    transient, kept = (DM.class_bytes(w, C, L, S, itemsize) for w in words)
+    transient, kept = DM.solve_bytes(C, L, S, opt.nreg, lg.nstream,
+                                     torch.finfo(dtype).bits // 8, lw=lw,
+                                     do_urban=opt.do_urban, with_profiles=with_profiles)
     if torch.device(device).type == "cuda":
         transient *= DM.CAPTURE_FACTOR
     if transient <= budget:
@@ -1180,29 +1179,20 @@ def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
     return -(-C // n_chunks)
 
 
-# the column chunk the latest SW / LW solve ran with (0: the whole batch),
-# as _resolve_column_chunk resolved it
-last_column_chunk = {"sw": None, "lw": None}
-
-
 def resolve_chunk(opt: SolverOptions, lg, C: int, L: int, S: int, dtype,
                   device, *, lw: bool, route: str, with_profiles: bool = False,
                   budget=None) -> SolverOptions:
-    """opt with its column chunk resolved (_resolve_column_chunk), which is
-    also kept in last_column_chunk."""
-    ck = _resolve_column_chunk(opt, lg, C, L, S, dtype, device, lw=lw,
-                               route=route, with_profiles=with_profiles,
-                               budget=budget)
-    last_column_chunk["lw" if lw else "sw"] = ck
-    return replace(opt, column_chunk=ck)
+    """opt with its column chunk resolved (_resolve_column_chunk)."""
+    return replace(opt, column_chunk=_resolve_column_chunk(
+        opt, lg, C, L, S, dtype, device, lw=lw, route=route,
+        with_profiles=with_profiles, budget=budget))
 
 
 def _chunked_solve(impl, inp: CanopyInputs, opt: SolverOptions, lg,
                    with_profiles, *, lw: bool, route: str, budget=None):
     """Solve in chunks of opt.column_chunk columns (0: the whole batch, -1:
-    AUTO, _resolve_column_chunk); the chunk is kept in last_column_chunk
-    and, resolved, in the options each chunk's solve gets (it keys the
-    chunk's graph, _compiled)."""
+    AUTO, _resolve_column_chunk); the chunk, resolved, is in the options
+    each chunk's solve gets (it keys the chunk's graph, _compiled)."""
     C, L = inp.dz.shape
     opt = resolve_chunk(opt, lg, C, L, inp.air_ext.shape[-1],
                         inp.air_ext.dtype, inp.air_ext.device, lw=lw,

@@ -4,7 +4,7 @@ What sizes the automatic chunks of the port (``column_chunk = -1`` in
 models/solver.py, the CLI's ``--stream-chunk`` default in driver/main.py):
 
 * ``solve_words`` / ``solve_bytes``: the working-set model of one solve
-  (models/dispatch.py working_set_bytes builds a run_radsurf call's from
+  (models/dispatch.py _working_set builds a run_radsurf call's from
   it).  The peak device memory of the kernel route, counted from the
   tensors it holds at its peak, which is the down-sweep (K3 for SW, K5 for
   LW) and the epilogue after it: the front end's Gamma matrices, the layer

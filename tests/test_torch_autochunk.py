@@ -16,7 +16,8 @@ CLI's automatic stream chunk, and the working-set model that sizes both
   budget is unbounded), and, under a small budget, streaming by itself;
 * the model: monotone in columns, layers, bands, streams, regions and
   dtype; the whole fields and each section's gathered rows counted to the
-  byte on a mixed layout; and within 3 % of the bytes of the tensors the
+  byte on a mixed layout, SW only, LW only and both; the plan's need under
+  AUTO chunks counted by hand; and within 3 % of the bytes of the tensors the
   kernel route holds at its peak, counted here with every kernel emulated
   by its outputs (a CUDA wrapper allocates its outputs and nothing else).
 """
@@ -251,33 +252,50 @@ def test_model_is_monotone(lw):
     assert DM.device_budget("cpu") == float("inf")
 
 
-def test_model_counts_the_whole_fields_and_the_gathered_rows(monkeypatch):
-    """On a permuted mix of the six tile types (SW at 2 bands, LW at 3):
-    working_set_bytes holds every field read once, whole, and Plan.need the
-    rows the core gathers: with each solve's bytes set to 0, the need is the
-    flux containers and the largest section's rows (the flat tiles', a
-    layered group's, the simple tiles' with their layer-0 slices), the
-    model that and the whole fields; Plan.gathered is every section's rows.
-    With the solves counted again, the model is the need and the fields."""
+COMMON_KEYS = ("dz", "cos_sza", "veg_fraction", "veg_scale", "veg_ext", "veg_fsd",
+               "veg_contact_fraction", "building_fraction", "building_scale")
+SW_KEYS = ("sw_air_ext", "sw_air_ssa", "sw_veg_ssa", "ground_albedo", "roof_albedo",
+           "roof_albedo_dir", "wall_albedo", "wall_specular_frac")
+LW_KEYS = ("lw_air_ext", "lw_air_ssa", "lw_veg_ssa", "ground_emissivity", "ground_emission",
+           "roof_emissivity", "roof_emission", "wall_emissivity", "wall_emission",
+           "clear_air_planck", "veg_planck", "veg_air_planck")
+
+
+def row_bytes(a, keys, lay0=False):
+    """Bytes of one column's row (lay0: its layer-0 slice) of the keys."""
+    return sum((a[k][0, 0] if lay0 else a[k][0]).nbytes for k in keys)
+
+
+@pytest.mark.parametrize("bands", ["sw", "lw", "sw_lw"])
+def test_model_counts_the_whole_fields_and_the_gathered_rows(monkeypatch, bands):
+    """On a permuted mix of the six tile types (SW at 2 bands, LW at 3),
+    SW only, LW only and both: working_set_bytes holds every field read
+    once, whole, and Plan.need the rows the core gathers: with each solve's
+    bytes set to 0, the need is the flux containers and the largest
+    section's rows (the flat tiles', a layered group's, the simple tiles'
+    with their layer-0 slices), the model that and the whole fields;
+    Plan.gathered is every section's rows.  With the solves counted again,
+    the model is the need and the fields."""
+    do_sw, do_lw = bands != "lw", bands != "sw"
     L, cpu = 4, torch.device("cpu")
     rep = np.random.default_rng(2).permutation(np.repeat(np.arange(6), [5, 7, 4, 6, 3, 2]))
-    lw_keys = ("lw_air_ext", "lw_air_ssa", "lw_veg_ssa", "ground_emissivity",
-               "ground_emission", "roof_emissivity", "roof_emission", "wall_emissivity",
-               "wall_emission", "clear_air_planck", "veg_planck", "veg_air_planck")
     a = example_arrays(C=rep.size, L=L, S=2, dtype=np.float64, i_representation=rep)
     a3 = example_arrays(C=rep.size, L=L, S=3, dtype=np.float64, i_representation=rep)
-    a.update({k: a3[k] for k in lw_keys})
-    cfg = Config(do_lw=True, nsw=2, nlw=3).consolidate()
-    read = [k for k, v in a.items() if v.dtype.kind == "f" and k != "ground_albedo_dir"]
+    a.update({k: a3[k] for k in LW_KEYS})
+    cfg = Config(do_sw=do_sw, do_lw=do_lw, nsw=2, nlw=3).consolidate()
+    read = COMMON_KEYS + (SW_KEYS if do_sw else ()) + (LW_KEYS if do_lw else ())
     whole = sum(a[k].nbytes for k in read)
-    row = lambda keys, lay0=False: sum((a[k][0, 0] if lay0 else a[k][0]).nbytes for k in keys)
-    ground = ("ground_albedo", "ground_emissivity", "ground_emission")
-    flat = 5 * row(ground)
-    layered = [C * row(read) for C in (7, 4, 6)]
-    simple = 5 * (row(("cos_sza", *ground)) + row(
-        ("dz", "building_fraction", "building_scale", "roof_albedo", "wall_albedo",
-         "roof_emissivity", "roof_emission", "wall_emissivity", "wall_emission"), lay0=True))
-    containers = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, rep.size, L, S, 8) for S in (2, 3))
+    ground = (("ground_albedo",) if do_sw else ()) + (
+        ("ground_emissivity", "ground_emission") if do_lw else ())
+    lay0 = ("dz", "building_fraction", "building_scale") + (
+        ("roof_albedo", "wall_albedo") if do_sw else ()) + (
+        ("roof_emissivity", "roof_emission", "wall_emissivity", "wall_emission")
+        if do_lw else ())
+    flat = 5 * row_bytes(a, ground)
+    layered = [C * row_bytes(a, read) for C in (7, 4, 6)]
+    simple = 5 * (row_bytes(a, ("cos_sza", *ground)) + row_bytes(a, lay0, lay0=True))
+    containers = sum(2 * DM.class_bytes(DM.CONTAINER_WORDS, rep.size, L, S, 8)
+                     for S, on in ((2, do_sw), (3, do_lw)) if on)
 
     real = DM.solve_bytes
     monkeypatch.setattr(DM, "solve_bytes", lambda *a, **k: (0, 0))
@@ -290,6 +308,31 @@ def test_model_counts_the_whole_fields_and_the_gathered_rows(monkeypatch):
     plan, _ = TD._plan(cfg, a, cpu, "kernel", None, host=True)
     assert plan.need > containers + max(layered)
     assert working_set_bytes(cfg, rep, L, 8) == plan.need + whole
+
+
+def test_chunked_plan_need_is_the_models(small_budget):
+    """Under a budget that forces AUTO chunks on one layered group (9
+    VegetatedUrban columns, SW and LW at 2 bands): Plan.need is the flux
+    containers and the larger of the two solves' terms, each the group's
+    rows, the outputs kept before it, and its transient at its chunk with
+    its own outputs twice, as they are concatenated; the chunks in the
+    plan are the ones AUTO picked."""
+    L, S, C = 3, 2, 9
+    rep = np.full(C, 3)
+    a = example_arrays(C=C, L=L, S=S, dtype=np.float64, i_representation=rep)
+    cfg = Config(do_lw=True, nsw=S, nlw=S).consolidate()
+    plan, _ = TD._plan(cfg, a, torch.device("cpu"), "kernel", None, host=True)
+    ((_, _, ((_, opt_sw, opt_lw),)),) = plan.layered
+    assert [opt_sw.column_chunk, opt_lw.column_chunk] == small_budget
+    assert all(0 < ck < C for ck in small_budget)
+    size = lambda n, lw: DM.solve_bytes(n, L, S, 2, 4, 8, lw=lw)
+    rows = C * row_bytes(a, COMMON_KEYS + SW_KEYS + LW_KEYS)
+    sw = rows + size(opt_sw.column_chunk, False)[0] + 2 * size(C, False)[1]
+    lw = size(C, False)[1] + rows + size(opt_lw.column_chunk, True)[0] + 2 * size(C, True)[1]
+    containers = 2 * 2 * DM.class_bytes(DM.CONTAINER_WORDS, C, L, S, 8)
+    assert plan.need == containers + max(sw, lw)
+    assert plan.need < working_set_bytes(cfg, rep, L, 8) - sum(
+        a[k].nbytes for k in COMMON_KEYS + SW_KEYS + LW_KEYS)
 
 
 class LiveBytes(TorchDispatchMode):

@@ -26,7 +26,7 @@ spanned and every load counts the payload's host bytes, the whole fields
 and the indices; and a call with a gradient-requiring input, whose plan
 moves the whole fields inside dispatch.plan (a device-side annotation),
 and one with its fields already on the card, whose spans hold no launch,
-read the same bench.trace_fields numbers with the spans on and off.
+read the same checks.trace_fields numbers with the spans on and off.
 Imports nothing of JAX, so that the cuda test runs where JAX is missing
 (pytest --noconftest).
 """
@@ -45,7 +45,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from spartacus_surface_tpu_torch import bench
+from spartacus_surface_tpu_torch import checks
 from spartacus_surface_tpu_torch.driver import main as CLI
 from spartacus_surface_tpu_torch.models import dispatch
 from spartacus_surface_tpu_torch.parallel.mesh import tree_leaves
@@ -281,7 +281,7 @@ def _on_card(arrays, device):
 def test_cuda_trace_fields_read_the_same_with_the_spans_on_and_off(clean_registry, cuda_device,
                                                                    monkeypatch, inputs):
     """Where a span holds launches (the eager route's field moves), the
-    profiler shows it as a device-side annotation; bench.trace_fields
+    profiler shows it as a device-side annotation; checks.trace_fields
     leaves those out, so it reads the same launches, busy and other ms
     whether the spans record.  Fields already on the card are indexed in
     the core, outside any span."""
@@ -309,7 +309,7 @@ def test_cuda_trace_fields_read_the_same_with_the_spans_on_and_off(clean_registr
     reads = {"on": [], "off": []}
     for way in ("on", "off") * 3:
         monkeypatch.setattr(profiling, "hook", spans if way == "on" else only_label)
-        reads[way].append(bench.trace_fields(step, cuda=True))
+        reads[way].append(checks.trace_fields(step, cuda=True))
     monkeypatch.setattr(profiling, "hook", spans)
     median = lambda way, field: statistics.median(r[field] for r in reads[way])
     # the profiler's own count of a call varies by a few from trace to trace
