@@ -102,7 +102,11 @@ final line):
      median, min, max), one torch.profiler trace of each mode (host launch
      calls, device launches, busy ms, idle share), each mode's peak device
      memory above the inputs, and the graphs' pool (reserved and free GiB);
-     the CLI's radsurf region walls in turns.  Every other phase runs its
+     the CLI's radsurf region walls in turns.  Then urban_mix_host
+     (host_arrays_run): run_radsurf on the benchmark's urban_mix.f32 host
+     arrays with one intra-op thread, kept arrays (copied straight from
+     their pages) against fresh copies (packed) in turns, walls, the share
+     moved straight and the registrations.  Every other phase runs its
      calls as a user would, through the graphs, and keeps the graphs the
      earlier phases left; a call whose kernel calls are held against their
      plain versions (Capture, CompareEach) runs eagerly.  The grad and
@@ -2030,6 +2034,74 @@ def graphs_phase(dev, slices, cli_files):
          radsurf_min_s={m: min(w) for m, w in walls.items()},
          radsurf_max_s={m: max(w) for m, w in walls.items()},
          n={m: len(w) for m, w in walls.items()}, card=card)
+    host_arrays_run(card)
+
+
+def host_arrays_run(card, seed=2645751301):
+    """The graphs phase's urban_mix_host run: run_radsurf on the benchmark's
+    urban_mix.f32 input sets (524,292 columns, host numpy arrays) with one
+    intra-op thread, as benchmark/run.py drives it, in GRAPH_ROUNDS rounds
+    of (kept, fresh, fresh, kept) calls: kept passes one of two input sets
+    the cache has loaded before, whose fields are copied straight from
+    their pages (graphs.Pinned); fresh passes new copies of them (made
+    outside the timed call), first sightings that are packed.  Checks: the
+    kept calls move >= 98 % of their bytes straight, the fresh calls none,
+    both give the same answer."""
+    import numpy as np
+    import torch
+
+    from benchmark import generate as GEN
+    from benchmark.run import load_cell
+    from spartacus_surface_tpu_torch.models.dispatch import run_radsurf
+    from spartacus_surface_tpu_torch.utils import graphs
+    from spartacus_surface_tpu_torch.utils.config import Config
+
+    cell = load_cell("urban_mix.f32")
+    config = Config(**cell.config["radsurf"]).consolidate()
+    sets = [GEN.input_set(cell.config, cell.traffic, seed, i) for i in range(2)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    graphs.clear()
+    try:
+        for a in sets + sets:  # eager, captured, then each set's first replay
+            wall_of(lambda: run_radsurf(config, a, "cuda"))
+        walls, moved = {"kept": [], "fresh": []}, {"kept": [0, 0], "fresh": [0, 0]}
+        outs = {}
+        for r in range(GRAPH_ROUNDS):
+            for mode in ("kept", "fresh", "fresh", "kept"):
+                kept = sets[r % 2]
+                a = kept if mode == "kept" else {k: v.copy() for k, v in kept.items()}
+                before = graphs.stats()
+                t, out = wall_of(lambda: run_radsurf(config, a, "cuda"))
+                after = graphs.stats()
+                walls[mode].append(t)
+                moved[mode][0] += after["h2d_direct_bytes"] - before["h2d_direct_bytes"]
+                moved[mode][1] += after["h2d_bytes"] - before["h2d_bytes"]
+                if r == 0:
+                    outs[mode] = out
+                del a, out
+        stats = graphs.stats()
+    finally:
+        torch.set_num_threads(threads)
+    share = {m: d / n for m, (d, n) in moved.items()}
+    check(share["kept"] >= 0.98, f"graphs urban_mix_host: kept calls moved {share['kept']:.4f}"
+                                 " of their bytes straight")
+    check(share["fresh"] == 0, f"graphs urban_mix_host: fresh calls moved {share['fresh']:.4f}"
+                               " of their bytes straight")
+    diff = [k for g in ("sw_norm_dir", "lw_norm") for k in outs["kept"][g]
+            if not torch.equal(outs["kept"][g][k], outs["fresh"][g][k])]
+    check(not diff, f"graphs urban_mix_host: kept and fresh calls differ in {diff}")
+    emit(phase="graphs", run="urban_mix_host", dtype="float32", seed=seed, threads=1,
+         median_ms={m: 1e3 * statistics.median(w) for m, w in walls.items()},
+         min_ms={m: 1e3 * min(w) for m, w in walls.items()},
+         max_ms={m: 1e3 * max(w) for m, w in walls.items()},
+         n={m: len(w) for m, w in walls.items()}, h2d_direct_share=share,
+         h2d_mb_a_call=moved["kept"][1] / len(walls["kept"]) / 1e6,
+         registrations=stats["registrations"],
+         registration_failures=stats["registration_failures"],
+         registered_gib=stats["registered_bytes"] / GiB, bit_equal=not diff,
+         columns=int(np.asarray(sets[0]["dz"]).shape[0]), card=card)
+    graphs.clear()
 
 
 def alone(dev, phase):

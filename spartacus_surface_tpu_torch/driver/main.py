@@ -480,7 +480,7 @@ def _run(args) -> int:
         counted = graphs.stats()
         print("Graphs: " + json.dumps({k: counted[k] for k in (
             "replays", "captures", "releases", "evictions", "h2d_bytes",
-            "gather_bytes")}))
+            "h2d_direct_bytes", "h2d_direct_share", "gather_bytes")}))
     if args.profile:
         log(f"Profiler trace written to {args.profile}")
     log("-----------------------------------------------------------------"

@@ -302,7 +302,10 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
     program (utils/graphs.py; JAX _radsurf_core): on CUDA a CUDA graph per
     (plan, shapes, dtype, device), captured at the second call and replayed
     from then on, on the kernel route, its whole fields and indices moved
-    with one transfer a dtype.  It runs eagerly on the CPU, under
+    with one transfer a dtype; at a replay a field whose numpy array an
+    earlier call passed, the same live array, is copied straight from its
+    page-locked pages instead (_owners).  Either way the host inputs have
+    been read when the call returns.  It runs eagerly on the CPU, under
     graphs.disabled(), where an input needs a gradient, with a mesh, and on
     the scan route (the plain reference: its factory reads its doubling
     count on the host).  graphs.stats()["gather_bytes"] counts the bytes
@@ -329,7 +332,26 @@ def run_radsurf(config: Config, arrays: dict, device, route: str = "kernel",
     def core(*xs):
         it = iter(xs)
         return _core(plan, tree_map(lambda _: next(it), skeleton))
-    return graphs.call(plan, core, tree_leaves(payload), device=device, need=plan.need)
+    tensors = tree_leaves(payload)
+    return graphs.call(plan, core, tensors, device=device, need=plan.need,
+                       owners=_owners(arrays, payload["fields"], tensors))
+
+
+def _owners(arrays: dict, fields: dict, tensors: list) -> list:
+    """Per tensor of a compiled call, the numpy array that holds its memory
+    where it is a caller's field itself (torch.as_tensor copied nothing):
+    the root of the field's .base chain, which the graph cache may
+    page-lock and copy from straight (utils/graphs.py Pinned).  None for a
+    cast field and for the indices and is_inf, which are built anew at
+    every call."""
+    held = {}
+    for key, t in fields.items():
+        x = arrays[key]
+        if isinstance(x, np.ndarray) and t.data_ptr() == x.__array_interface__["data"][0]:
+            while isinstance(x.base, np.ndarray):
+                x = x.base
+            held[id(t)] = x
+    return [held.get(id(t)) for t in tensors]
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,6 +12,10 @@ device it runs on, and the shape, dtype and device of every input tensor.
 Inputs may lie on the device or on the host (CPU tensors for a CUDA call):
 host inputs are packed into one pinned buffer a dtype and moved with one
 transfer each, on a replay straight into the graph's static input buffers.
+A caller may name the array that holds each host input's memory (its
+owner): a replay then copies an input whose live owner the cache has loaded
+before straight from the owner's pages, page-locked once (Pinned), with no
+pack, and returns only once the card has read them.
 
 * First call of a key: ``fn`` runs eagerly.  That is the warm-up a capture
   needs (kernel builds, launch configurations, cuBLAS handles, the cached
@@ -20,8 +24,9 @@ transfer each, on a replay straight into the graph's static input buffers.
 * Second call: the inputs are copied into static buffers the graph owns,
   ``fn`` is captured on a side stream, then replayed.
 * Later calls: the inputs are copied into the static buffers (one launch a
-  dtype), the graph replays, and its outputs are cloned out (one launch a
-  dtype) into fresh tensors, as ``jax.jit`` returns fresh arrays: a later
+  dtype, and one a caller array copied straight from its pages), the graph
+  replays, and its outputs are cloned out (one launch a dtype) into fresh
+  tensors, as ``jax.jit`` returns fresh arrays: a later
   replay never changes what an earlier call returned.  Because every
   replay is cloned out before the next one runs (replays are serialized on
   the calling stream), all graphs on a device share one memory pool.
@@ -59,7 +64,11 @@ peak: AUTO chunks plan for that (device_memory.CAPTURE_FACTOR).
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
+import os
 import time
+import weakref
 from collections import OrderedDict
 
 import torch
@@ -113,16 +122,143 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# the states of a caller range (Pinned): loaded once, page-locked, refused
+_SEEN, _LOCKED, _REFUSED = range(3)
+
+
+class Pinned:
+    """Caller arrays whose pages the card's DMA engine reads straight.
+
+    An owner is the numpy array that holds a host input's memory (for
+    run_radsurf's fields, the root of the caller's array's .base chain).
+    The first load of a range of a live owner (its address and byte count)
+    notes it and packs it as any other input.  When the same live owner
+    brings the same range to a replay, the range is page-locked once
+    (registrar.register: cudaHostRegister) and from then on copied straight
+    from its pages into its slot of the graph's static buffer.  So a caller
+    that keeps its field arrays and rewrites them every timestep pays the
+    pack once; one that builds fresh arrays every call is packed every
+    call, as is a fresh array at a freed array's address.
+
+    A weakref.finalize on the owner unregisters its ranges before its
+    memory is freed (numpy clears an array's weak references before it
+    frees its data); an owner seen again over another buffer (resized in
+    place) is unregistered and counts as new.  A range that overlaps one
+    already locked, or that the registrar refuses, is packed from then on
+    and counted (totals: registrations, registration_failures,
+    registered_bytes)."""
+
+    def __init__(self, registrar, totals):
+        self.registrar, self.totals = registrar, totals
+        self.owners = {}  # id(owner) -> [finalize, buffer, {range: state}]
+
+    def sight(self, tensors, owners, device, replay) -> frozenset:
+        """The positions of `tensors` to copy straight from their owners'
+        pages at this load to `device`: none unless `replay`.  Notes every
+        owned host range and, at a replay, locks those loaded before."""
+        direct = set()
+        for i, (t, owner) in enumerate(zip(tensors, owners)):
+            if (owner is None or not _from_host(t, device) or not t.is_contiguous()
+                    or not t.numel()):
+                continue
+            ranges = self._ranges(owner)
+            span = (t.data_ptr(), t.numel() * t.element_size())
+            state = ranges.get(span)
+            if state is None:
+                ranges[span] = _SEEN
+            elif state == _SEEN and replay:
+                state = ranges[span] = self._lock(span, owner)
+            if state == _LOCKED:
+                direct.add(i)
+        return frozenset(direct)
+
+    def _ranges(self, owner) -> dict:
+        key, buffer = id(owner), (owner.__array_interface__["data"], owner.nbytes)
+        rec = self.owners.get(key)
+        alive = rec and rec[0].peek()
+        if rec is not None and (not alive or alive[0] is not owner or rec[1] != buffer):
+            self._drop(key)
+            rec = None
+        if rec is None:
+            fin = weakref.finalize(owner, self._drop, key)
+            fin.atexit = False  # the CUDA runtime may be gone at exit
+            rec = self.owners[key] = [fin, buffer, {}]
+        return rec[2]
+
+    def _lock(self, span, owner) -> int:
+        lo, hi = span[0], span[0] + span[1]
+        locked = (r for rec in list(self.owners.values()) for r, st in rec[2].items()
+                  if st == _LOCKED)
+        if any(r[0] < hi and lo < r[0] + r[1] for r in locked) or not self.registrar.register(
+                lo, span[1], read_only=owner.__array_interface__["data"][1]):
+            self.totals["registration_failures"] += 1
+            return _REFUSED
+        self.totals["registrations"] += 1
+        self.totals["registered_bytes"] += span[1]
+        return _LOCKED
+
+    def _drop(self, key):
+        rec = self.owners.pop(key, None)
+        if rec is None:
+            return
+        rec[0].detach()
+        for (ptr, n), state in rec[2].items():
+            if state == _LOCKED:
+                self.registrar.unregister(ptr)
+                self.totals["registered_bytes"] -= n
+
+    def clear(self):
+        """Unregister every range."""
+        for key in list(self.owners):
+            self._drop(key)
+
+
+class PageLock:
+    """cudaHostRegister / cudaHostUnregister through the CUDA runtime that
+    PyTorch loaded (torch.cuda.cudart()), portable, read-only for a
+    read-only array.  A refused call also leaves the runtime's last error
+    set, which PyTorch's next kernel launch check would raise as its own:
+    the runtime's cudaGetLastError (ctypes, on the library already loaded)
+    clears it.  Where that function cannot be found, nothing is locked."""
+
+    PORTABLE, READ_ONLY = 0x1, 0x8
+
+    @functools.cached_property
+    def _clear(self):
+        """The runtime's cudaGetLastError, or None where it is not found."""
+        major = (torch.version.cuda or "").split(".")[0]
+        try:
+            fn = ctypes.CDLL(f"libcudart.so.{major}", mode=os.RTLD_NOLOAD).cudaGetLastError
+        except (OSError, AttributeError):
+            return None
+        fn.restype, fn.argtypes = ctypes.c_int, []
+        return fn
+
+    def register(self, ptr, nbytes, read_only) -> bool:
+        if self._clear is None:
+            return False
+        flags = self.PORTABLE | (self.READ_ONLY if read_only else 0)
+        if int(torch.cuda.cudart().cudaHostRegister(ptr, nbytes, flags)):
+            self._clear()
+            return False
+        return True
+
+    def unregister(self, ptr):
+        # only a range register() locked comes here, so _clear was found
+        if int(torch.cuda.cudart().cudaHostUnregister(ptr)):
+            self._clear()
+
+
 class Cache:
     """Graphs by key.  capture(fn, tensors, device, pool) captures a call
     and returns the callable that replays it (Graph); eligible(device) says
     where calls may be captured (on_card); room(device) is the bytes an
-    eager call may plan to fill there without the graphs' memory.  All
-    three may be replaced, as the tests do to run the cache's logic
-    without a card."""
+    eager call may plan to fill there without the graphs' memory;
+    registrar page-locks caller memory (Pinned).  All four may be
+    replaced, as the tests do to run the cache's logic without a card."""
 
     def __init__(self, capture=None, eligible=on_card, room=_eager_room,
-                 max_graphs=MAX_GRAPHS):
+                 max_graphs=MAX_GRAPHS, registrar=None):
         self.capture, self.eligible, self.room = capture, eligible, room
         self.max_graphs = max_graphs
         self.seen, self.graphs = OrderedDict(), OrderedDict()
@@ -130,20 +266,27 @@ class Cache:
         self.pools, self.pool_free, self.streams = {}, {}, {}
         self.totals = {"captures": 0, "replays": 0, "evictions": 0, "releases": 0,
                        "capture_s": 0.0, "h2d_bytes": 0, "h2d_loads": 0,
-                       "gather_bytes": 0}
+                       "h2d_direct_bytes": 0, "gather_bytes": 0, "registrations": 0,
+                       "registration_failures": 0, "registered_bytes": 0}
+        self.pinned = Pinned(registrar or PageLock(), self.totals)
 
-    def call(self, key, fn, tensors, device=None, need=None):
+    def call(self, key, fn, tensors, device=None, need=None, owners=None):
         """fn(*tensors on device), a pytree of tensors: eager at the first
         call of a key, captured then replayed at the second, replayed
         after.  need: the bytes fn allocates beyond its inputs (None:
         unknown), which decides whether the graphs' memory is given back
-        before an eager call or a capture."""
+        before an eager call or a capture.  owners: per tensor, the numpy
+        array that holds its memory, or None (Pinned)."""
         tensors = list(tensors)
         device = _device(tensors[0].device if device is None else device)
         if not _enabled[0] or not self.eligible(device):
             return fn(*move(tensors, device))
         key = (key, device, signature(tensors))
         graph = self.graphs.get(key)
+        # a replay of a graph captured before copies the host inputs whose
+        # owners it has loaded before straight from their pages
+        direct = (self.pinned.sight(tensors, owners, device, replay=graph is not None)
+                  if owners else frozenset())
         if graph is not None:
             self.graphs.move_to_end(key)
         elif key not in self.seen:
@@ -169,7 +312,7 @@ class Cache:
                 self.totals["evictions"] += 1
             self._measure(device)
         self.totals["replays"] += 1
-        return graph(tensors)
+        return graph(tensors, direct)
 
     def _make_room(self, device, need, room):
         """release(device) where its graphs hold memory and a call that
@@ -234,24 +377,29 @@ class Cache:
         for device in {k[1] for k in self.graphs} | set(self.pools):
             self.release(device)
         self.seen.clear()
+        self.pinned.clear()
 
     def stats(self) -> dict:
+        moved = self.totals["h2d_bytes"]
         return {"graphs": len(self.graphs), "seen": len(self.seen), **self.totals,
+                "h2d_direct_share": self.totals["h2d_direct_bytes"] / moved if moved else None,
                 "held_bytes": sum(getattr(g, "held_bytes", 0) for g in self.graphs.values())}
 
 
 _cache = Cache()
 
 
-def call(key, fn, tensors, device=None, need=None):
+def call(key, fn, tensors, device=None, need=None, owners=None):
     """fn(*tensors), a pytree of tensors, through the process's graph cache.
 
     key: hashable, everything static that fn depends on besides the tensors
     (fn itself may be a new closure at every call); tensors: the inputs, on
     `device` (default: the first tensor's) or on the host; need: the bytes
-    fn allocates beyond its inputs.  See the module docstring for which
-    call runs eagerly, which captures and which replays."""
-    return _cache.call(key, fn, tensors, device, need)
+    fn allocates beyond its inputs; owners: per tensor, the numpy array
+    that holds a host tensor's memory (the tensor a zero-copy view of it),
+    or None (Pinned).  See the module docstring for which call runs
+    eagerly, which captures and which replays."""
+    return _cache.call(key, fn, tensors, device, need, owners)
 
 
 def stats() -> dict:
@@ -259,10 +407,15 @@ def stats() -> dict:
     call's included), evictions, releases and capture seconds since the
     process began; h2d_bytes and h2d_loads, the bytes moved from the host
     to the device by the loads of host inputs (_Flat.load: eager, capture
-    and replay) and the number of those loads; gather_bytes, the bytes of
-    the rows that run_radsurf's cores gathered from their whole fields
-    (count(), on every route); held_bytes, what the graphs kept hold
-    allocated (their static inputs and packed outputs)."""
+    and replay) and the number of those loads; h2d_direct_bytes, the part
+    of h2d_bytes copied straight from callers' page-locked arrays (Pinned),
+    and h2d_direct_share, that part's share of h2d_bytes (None before any
+    load): the direct path's hit share; registrations and
+    registration_failures, the ranges page-locked and refused since the
+    process began, registered_bytes, the bytes page-locked now;
+    gather_bytes, the bytes of the rows that run_radsurf's cores gathered
+    from their whole fields (count(), on every route); held_bytes, what the
+    graphs kept hold allocated (their static inputs and packed outputs)."""
     return _cache.stats()
 
 
@@ -279,8 +432,9 @@ def held(device) -> tuple:
 
 
 def clear():
-    """Drop every graph and remembered key; give the pools' memory, and the
-    allocator's other cached blocks, back to the devices."""
+    """Drop every graph, remembered key and page-locked caller range; give
+    the pools' memory, and the allocator's other cached blocks, back to the
+    devices."""
     _cache.clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -289,6 +443,23 @@ def clear():
 
 def _from_host(t, device) -> bool:
     return t.device.type == "cpu" and device.type == "cuda"
+
+
+def _staging(n, dtype) -> torch.Tensor:
+    """A pinned host buffer of n elements (the caching host allocator's)."""
+    return torch.empty(n, dtype=dtype, pin_memory=True)
+
+
+def _runs(items) -> list:
+    """[(offset, numel)] of the runs of adjacent slots in (position,
+    offset, numel) items."""
+    runs = []
+    for _, off, n in items:
+        if runs and runs[-1][0] + runs[-1][1] == off:
+            runs[-1][1] += n
+        else:
+            runs.append([off, n])
+    return runs
 
 
 class _Flat:
@@ -307,27 +478,44 @@ class _Flat:
             self.groups.setdefault(g, []).append((i, off, t.numel()))
             sizes[g] = off + t.numel()
 
-    def load(self, tensors, out=None) -> dict:
+    def load(self, tensors, out=None, direct=frozenset()) -> dict:
         """{group: one buffer on the device holding its tensors in order}
-        (into `out`'s buffers where given): a host group packed in pinned
-        memory (the span graphs.pack, which holds no device work) and moved
-        with one transfer, a device group with one copy.  The process's
-        cache counts the bytes moved from the host (stats())."""
-        bufs, moved = {}, 0
+        (into `out`'s buffers where given).  A host group: the tensors at
+        the positions `direct` (a replay's, Pinned) copied straight from
+        their page-locked pages into their slots, the others packed in
+        pinned memory (the span graphs.pack, which holds no device work)
+        and moved with one transfer a run of adjacent slots; a device group
+        with one copy.  The process's cache counts the bytes moved from the
+        host, and of them those moved straight (stats())."""
+        bufs, moved, straight = {}, 0, 0
         for g, items in self.groups.items():
-            parts = [tensors[i].reshape(-1) for i, _, _ in items]
             dst = None if out is None else out[g]
-            if g[1]:
-                with profiling.hook("graphs.pack"):
-                    n = sum(t.numel() for t in parts)
-                    staged = torch.cat(parts, out=torch.empty(n, dtype=g[0], pin_memory=True))
-                bufs[g] = (staged.to(self.device, non_blocking=True) if dst is None
-                           else dst.copy_(staged, non_blocking=True))
-                moved += n * staged.element_size()
-            else:
+            if not g[1]:
+                parts = [tensors[i].reshape(-1) for i, _, _ in items]
                 bufs[g] = torch.cat(parts) if dst is None else torch.cat(parts, out=dst)
+                continue
+            if dst is None:
+                dst = torch.empty(sum(n for _, _, n in items), dtype=g[0], device=self.device)
+            packed = []
+            for i, off, n in items:
+                if i in direct:
+                    dst[off:off + n].copy_(tensors[i].reshape(-1), non_blocking=True)
+                    straight += n * dst.element_size()
+                else:
+                    packed.append((i, off, n))
+            if packed:
+                with profiling.hook("graphs.pack"):
+                    staged = torch.cat([tensors[i].reshape(-1) for i, _, _ in packed],
+                                       out=_staging(sum(n for _, _, n in packed), g[0]))
+                at = 0
+                for off, n in _runs(packed):
+                    dst[off:off + n].copy_(staged[at:at + n], non_blocking=True)
+                    at += n
+            bufs[g] = dst
+            moved += dst.numel() * dst.element_size()
         if moved:
             _cache.totals["h2d_bytes"] += moved
+            _cache.totals["h2d_direct_bytes"] += straight
             _cache.totals["h2d_loads"] += 1
         return bufs
 
@@ -388,13 +576,22 @@ class Graph:
         self.launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         launches.add({k: -n for k, n in self.launches.items()})
 
-    def __call__(self, tensors):
+    def __call__(self, tensors, direct=frozenset()):
+        """A replay on `tensors`; direct: the positions copied straight from
+        their callers' pages (Pinned), which are read before it returns, as
+        a packed input is: the host waits for those copies only after the
+        graph and the clones of its outputs are queued."""
         from ..ops import launches
 
         with torch.cuda.device(self.device):
-            self.inputs.load(tensors, out=self.static_in)
+            self.inputs.load(tensors, out=self.static_in, direct=direct)
+            read = torch.cuda.Event()
+            if direct:
+                read.record()
             self.graph.replay()
             fresh = {g: b.clone() for g, b in self.static_out.items()}
+            if direct:
+                read.synchronize()
         launches.add(self.launches)
         it = iter(self.outputs.views(fresh))
         return tree_map(lambda _: next(it), self.tree)

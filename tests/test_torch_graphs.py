@@ -10,13 +10,18 @@ run_radsurf into a host plan and a device core are held here; the split run_rads
 run_radsurf at 1e-9 in float64 on all six tile codes, SW + LW, flux
 profiles on.  The kernel routes and the core move no numpy constant to the
 device once their constants are cached (utils/transfer.constant), which is
-what makes them capturable.
+what makes them capturable.  Host inputs copied straight from their
+callers' pages (Pinned) run with the page lock stubbed (StubLock): which
+load packs and which copies straight, the counters, the unregistration
+when an owner dies and at clear().
 
 Marked cuda (skipped without a GPU): on the card a replay is bit-equal to
 the eager call, a call with new inputs gives the new answer and leaves an
 earlier call's outputs as they were, the launch counters grow by the
 captured counts at every replay, and an AUTO call on a squeezed card
-after a capture picks the chunks it picks with no graph held.
+after a capture picks the chunks it picks with no graph held; a replay fed
+straight from the caller's pages is bit-equal to a packed one and has read
+them when it returns, and a lock ends with its owner.
 """
 
 import numpy as np
@@ -33,6 +38,7 @@ from spartacus_surface_tpu_torch.utils.config import Config
 from spartacus_surface_tpu_torch.utils.inputs import example_arrays, example_inputs
 
 GROUPS = ("sw_norm_dir", "sw_norm_diff", "lw_internal", "lw_norm", "bc_out")
+CPU = torch.device("cpu")
 
 
 class FakeGraph:
@@ -56,7 +62,8 @@ class FakeGraph:
         finally:
             FakeGraph.inside = False
 
-    def __call__(self, tensors):
+    def __call__(self, tensors, direct=frozenset()):
+        self.direct = direct
         for s, t in zip(self.static, tensors):
             s.copy_(t)
         return self.run()
@@ -283,6 +290,205 @@ def test_flat_buffers_round_trip():
 
 
 # ----------------------------------------------------------------------
+# host inputs copied straight from their callers' pages (Pinned)
+# ----------------------------------------------------------------------
+
+class StubLock:
+    """A registrar without a card: the ranges it holds locked ({address:
+    bytes}), and what it was asked, in order; refuses every range while
+    `refuse` is set."""
+
+    def __init__(self):
+        self.locked, self.events, self.refuse = {}, [], False
+
+    def register(self, ptr, nbytes, read_only):
+        self.events.append(("register", ptr, nbytes, read_only))
+        if self.refuse:
+            return False
+        self.locked[ptr] = nbytes
+        return True
+
+    def unregister(self, ptr):
+        self.events.append(("unregister", ptr))
+        del self.locked[ptr]
+
+
+@pytest.fixture
+def pages(monkeypatch):
+    """The process's graph cache replaced by one with a StubLock (returned)
+    that captures with FakeGraph; CPU tensors load as host inputs of a card
+    (the CPU stands for the card, a plain buffer for the pinned one)."""
+    lock = StubLock()
+    cache = graphs.Cache(capture=FakeGraph, registrar=lock,
+                         eligible=lambda device: not FakeGraph.inside)
+    monkeypatch.setattr(graphs, "_cache", cache)
+    monkeypatch.setattr(graphs, "_from_host", lambda t, device: t.device.type == "cpu")
+    monkeypatch.setattr(graphs, "_staging", lambda n, dtype: torch.empty(n, dtype=dtype))
+    yield lock
+    cache.clear()
+
+
+def owned(seed=0):
+    """Two caller arrays (float64, float32) and the call's tensors: each
+    array zero-copy, then an index built anew (no owner)."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.uniform(size=(4, 3)), rng.uniform(size=5).astype(np.float32)
+    return [a, b], [torch.as_tensor(a), torch.as_tensor(b), torch.arange(3)]
+
+
+def test_first_sighting_packs_and_a_replay_of_a_live_array_copies_straight(pages):
+    """A key's eager call and its capture note the owners; the first replay
+    locks each owned range once and copies it straight, and so does every
+    replay after; the index, with no owner, is packed every time."""
+    arrays, ts = owned()
+    fn = lambda a, b, i: {"y": a.sum() + b.sum() + i.sum()}
+    graphs.call("k", fn, ts, owners=[*arrays, None])  # eager
+    graphs.call("k", fn, ts, owners=[*arrays, None])  # captured, replayed
+    (graph,) = graphs._cache.graphs.values()
+    assert graph.direct == frozenset() and not pages.locked
+    for _ in range(2):
+        got = graphs.call("k", fn, ts, owners=[*arrays, None])
+        assert graph.direct == {0, 1}
+    assert pages.locked == {a.ctypes.data: a.nbytes for a in arrays}
+    assert [e[0] for e in pages.events] == ["register", "register"]
+    assert [e[3] for e in pages.events] == [False, False]  # both writeable
+    assert torch.equal(got["y"], fn(*ts)["y"])
+    stats = graphs.stats()
+    assert (stats["registrations"], stats["registration_failures"]) == (2, 0)
+    assert stats["registered_bytes"] == sum(a.nbytes for a in arrays)
+
+
+def test_straight_and_packed_loads_move_the_same_bytes(pages):
+    """A load with some positions copied straight fills the same buffers
+    with the same bits as a packed load, counts the same h2d_bytes, and
+    counts exactly the straight positions' bytes as h2d_direct_bytes; the
+    packed positions left between them are copied run by run."""
+    cache = graphs._cache
+    arrays, ts = owned(seed=1)
+    c, d = np.arange(7.0), np.arange(3.0) - 5
+    # float64 slots: c, a, d (two packed runs around a straight copy)
+    ts = [torch.as_tensor(c), ts[0], torch.as_tensor(d), ts[1], ts[2]]
+    flat = graphs._Flat(ts, CPU)
+    before = dict(cache.totals)
+    packed = flat.load(ts)
+    mid = dict(cache.totals)
+    out = {g: torch.full_like(b, -1) for g, b in packed.items()}
+    straight = flat.load(ts, out=out, direct=frozenset({1, 3}))
+    after = cache.totals
+    assert mid["h2d_bytes"] - before["h2d_bytes"] == after["h2d_bytes"] - mid["h2d_bytes"] \
+        == sum(t.numel() * t.element_size() for t in ts)
+    assert mid["h2d_direct_bytes"] == before["h2d_direct_bytes"]
+    assert after["h2d_direct_bytes"] - mid["h2d_direct_bytes"] == arrays[0].nbytes + arrays[1].nbytes
+    assert after["h2d_loads"] - before["h2d_loads"] == 2
+    for g in packed:
+        assert torch.equal(packed[g], straight[g]) and straight[g] is out[g]
+    for t, v in zip(ts, flat.views(straight)):
+        assert torch.equal(t, v)
+    assert graphs._runs([(1, 7, 2), (3, 9, 1), (4, 12, 3)]) == [[7, 3], [12, 3]]
+
+
+def test_a_fresh_array_at_a_freed_arrays_address_packs_again(pages):
+    """An owner that dies is unregistered; another array over the same
+    memory is a first sighting (packed), then locked at its next replay."""
+    pinned = graphs._cache.pinned
+    mem = np.arange(16.0)
+    t = [torch.as_tensor(mem)]
+    owner = mem.view()
+    for replay, direct in ((False, set()), (True, {0}), (True, {0})):
+        assert pinned.sight(t, [owner], CPU, replay) == direct
+    del owner
+    assert not pages.locked and graphs.stats()["registered_bytes"] == 0
+    owner = mem.view()  # a new array at the freed one's address
+    assert pinned.sight(t, [owner], CPU, True) == frozenset()
+    assert pinned.sight(t, [owner], CPU, True) == {0}
+    assert graphs.stats()["registrations"] == 2
+
+
+def test_the_registration_goes_before_the_owners_memory(pages):
+    """The owner's weakref.finalize unregisters its range before the
+    owner releases the memory it views (numpy clears weak references first)."""
+    import weakref
+
+    pinned = graphs._cache.pinned
+    holder = np.arange(32.0)
+    weakref.finalize(holder, pages.events.append, ("memory freed",))
+    owner = np.frombuffer(holder)  # holds the only reference to holder
+    t = [torch.as_tensor(owner)]
+    pinned.sight(t, [owner], CPU, False), pinned.sight(t, [owner], CPU, True)
+    del holder, t, owner
+    assert [e[0] for e in pages.events] == ["register", "unregister", "memory freed"]
+    assert not pinned.owners
+
+
+def test_a_refused_registration_packs_and_is_counted(pages):
+    """A range the registrar refuses, or one overlapping a locked range, is
+    packed at every later load, counted once, and never asked again; a
+    read-only owner asks for a read-only lock."""
+    pinned = graphs._cache.pinned
+    mem = np.arange(64.0)
+    t = [torch.as_tensor(mem[:32])]
+    mem.flags.writeable = False
+    pages.refuse = True
+    for _ in range(4):
+        assert pinned.sight(t, [mem], CPU, True) == frozenset()
+    assert [e[0] for e in pages.events] == ["register"] and pages.events[0][3] is True
+    pages.refuse = False
+    other = np.arange(64.0)
+    u = [torch.as_tensor(other)]
+    pinned.sight(u, [other], CPU, True), pinned.sight(u, [other], CPU, True)
+    view = other.view()  # a second owner over locked memory: refused here
+    for _ in range(3):
+        assert pinned.sight(u, [view], CPU, True) == frozenset()
+    stats = graphs.stats()
+    assert (stats["registrations"], stats["registration_failures"]) == (1, 2)
+    assert len(pages.events) == 2
+
+
+def test_clear_unregisters_everything(pages):
+    """graphs.clear() unregisters every range and forgets every owner; an
+    owner dying after it asks for nothing."""
+    arrays, ts = owned()
+    pinned = graphs._cache.pinned
+    for replay in (False, True):
+        pinned.sight(ts, [*arrays, None], CPU, replay)
+    assert len(pages.locked) == 2
+    graphs.clear()
+    assert not pages.locked and not pinned.owners
+    assert graphs.stats()["registered_bytes"] == 0
+    events = len(pages.events)
+    del arrays, ts
+    assert len(pages.events) == events
+
+
+def test_run_radsurf_names_the_owner_of_each_zero_copy_field(pages):
+    """run_radsurf's compiled call names, per tensor, the root array of a
+    field passed as it is, and no owner for a cast field or the indices;
+    its third call with the same arrays copies those fields straight and
+    gives the same answer."""
+    cfg = Config(do_lw=True, nsw=2, nlw=2).consolidate()
+    arrays = example_arrays(C=18, L=3, S=2, dtype=np.float64)
+    big = np.stack([arrays["veg_ext"], arrays["veg_ext"]])
+    arrays["veg_ext"] = big[1]  # a view: its owner is big
+    arrays["veg_scale"] = arrays["veg_scale"].astype(np.float32)  # cast at every call
+    plan, payload = dispatch._plan(cfg, arrays, torch.device("cpu"), "kernel", None,
+                                   host=True)
+    tensors = dispatch.tree_leaves(payload)
+    owners = dispatch._owners(arrays, payload["fields"], tensors)
+    fields = payload["fields"]
+    want = {k: (big if k == "veg_ext" else None if k == "veg_scale" else arrays[k])
+            for k in fields}
+    for k, t in fields.items():
+        assert owners[[id(x) for x in tensors].index(id(t))] is want[k], k
+    assert sum(o is not None for o in owners) == len(fields) - 1
+    ref = dispatch.run_radsurf(cfg, arrays, "cpu")
+    for _ in range(2):
+        got = dispatch.run_radsurf(cfg, arrays, "cpu")
+    (graph,) = graphs._cache.graphs.values()
+    assert len(graph.direct) == len(fields) - 1
+    assert_equal({g: ref[g] for g in GROUPS}, {g: got[g] for g in GROUPS})
+
+
+# ----------------------------------------------------------------------
 # no constant moved once cached
 # ----------------------------------------------------------------------
 
@@ -481,3 +687,89 @@ def test_cuda_squeezed_auto_call_after_a_capture(cuda_device):
     for r, g in zip(ref, got):
         assert torch.equal(r, g)
     del ballast
+
+
+# shapes of the direct path's card tests: (tile codes, layers, bands, Config)
+DIRECT_SHAPES = {
+    "urban_mix": (np.repeat(np.arange(6), 2048), 8, 1, {}),
+    "rami5": (np.full(512, 3), 62, 14, dict(n_vegetation_region_urban=2, n_stream_sw_urban=4,
+                                            n_stream_lw_urban=4, nsw=14, nlw=14)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", list(DIRECT_SHAPES))
+def test_cuda_direct_replay_is_bit_equal_to_the_packed_replay(cuda_device, shape, dtype):
+    """run_radsurf's replay on arrays it has loaded before copies every
+    field straight from their pages and gives the packed replay's bits;
+    fresh copies of the arrays are packed again, with the same bits."""
+    rep, L, S, kw = DIRECT_SHAPES[shape]
+    cfg = Config(do_lw=True, **kw).consolidate()
+    arrays = example_arrays(C=len(rep), L=L, S=S, dtype=dtype, i_representation=rep, seed=4)
+    fresh = lambda: {k: v.copy() for k, v in arrays.items()}
+    _, payload = dispatch._plan(cfg, arrays, cuda_device, "kernel", None, host=True)
+    field_bytes = sum(t.numel() * t.element_size() for t in payload["fields"].values())
+    del payload
+    dispatch.run_radsurf(cfg, fresh(), cuda_device)  # eager
+    outs, moved = [], []
+    for a in (arrays, arrays, fresh()):  # captured (packed), straight, packed
+        before = graphs.stats()
+        outs.append(dispatch.run_radsurf(cfg, a, cuda_device))
+        after = graphs.stats()
+        moved.append(after["h2d_direct_bytes"] - before["h2d_direct_bytes"])
+    assert moved == [0, field_bytes, 0]
+    assert graphs.stats()["registered_bytes"] == field_bytes
+    for out in outs[1:]:
+        assert_equal({g: outs[0][g] for g in GROUPS}, {g: out[g] for g in GROUPS})
+
+
+@pytest.mark.cuda
+def test_cuda_callers_may_overwrite_their_arrays_when_the_call_returns(cuda_device):
+    """A call fed straight from the caller's pages has read them when it
+    returns: overwriting every array with NaN at once, with no sync,
+    leaves its outputs as they were."""
+    rep, L, S, kw = DIRECT_SHAPES["urban_mix"]
+    rep = np.tile(rep, 8)
+    cfg = Config(do_lw=True, **kw).consolidate()
+    arrays = example_arrays(C=len(rep), L=L, S=S, dtype=np.float32, i_representation=rep)
+    for _ in range(3):  # eager, captured, straight
+        ref = dispatch.run_radsurf(cfg, arrays, cuda_device)
+    ref = {g: {k: t.clone() for k, t in ref[g].items()} for g in GROUPS}
+    direct = graphs.stats()["h2d_direct_bytes"]
+    out = dispatch.run_radsurf(cfg, arrays, cuda_device)
+    for k, v in arrays.items():
+        if v.dtype.kind == "f":
+            v[...] = np.nan
+    torch.cuda.synchronize()
+    assert graphs.stats()["h2d_direct_bytes"] > direct
+    assert_equal(ref, {g: out[g] for g in GROUPS})
+
+
+@pytest.mark.cuda
+def test_cuda_a_registration_ends_with_its_owner(cuda_device):
+    """An owner's range reads as page-locked while the owner lives and no
+    longer once it is deleted (the memory, a tensor's, outlives it)."""
+    mem = torch.rand(1 << 20)
+    owner = mem.numpy()  # the root: its base is the tensor
+    t = [torch.as_tensor(owner)]
+    pinned = graphs._cache.pinned
+    assert pinned.sight(t, [owner], cuda_device, replay=False) == frozenset()
+    assert pinned.sight(t, [owner], cuda_device, replay=True) == {0}
+    assert mem.is_pinned()
+    del owner, t
+    assert not mem.is_pinned() and graphs.stats()["registered_bytes"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_a_refused_registration_leaves_no_error_behind(cuda_device):
+    """The runtime refuses a range locked twice; the error it leaves is
+    cleared, so the next kernel launch raises nothing."""
+    lock = graphs.PageLock()
+    a = np.zeros(1 << 16)
+    assert lock.register(a.ctypes.data, a.nbytes, read_only=False)
+    try:
+        assert not lock.register(a.ctypes.data, a.nbytes, read_only=False)
+        assert (torch.ones(8, device=cuda_device) + 1).sum().item() == 16.0
+    finally:
+        lock.unregister(a.ctypes.data)

@@ -223,7 +223,7 @@ def test_cli_timings_report_the_graph_counters_and_the_plan(clean_registry, cli_
     (line,) = [ln for ln in stdout.splitlines() if ln.startswith("Graphs: ")]
     counted = json.loads(line[len("Graphs: "):])
     assert set(counted) == {"replays", "captures", "releases", "evictions", "h2d_bytes",
-                            "gather_bytes"}
+                            "h2d_direct_bytes", "h2d_direct_share", "gather_bytes"}
     assert counted["gather_bytes"] > 0
     assert "Kernel launches: " in stdout
     for span in ("radsurf", "dispatch.plan"):
